@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole run (one card)
-    python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
+    python3 chip_smoke.py            # one card, no arguments
 
 In order:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the four kernels from ``gansformer_tpu_torch/csrc``;
-3. for every kernel launch one ``synthesize`` of ffhq256-duplex makes at
-   batch 8 (bf16), and for the flagship shapes in fp32 too: runs the
-   kernel and its plain PyTorch version on the same inputs on the card and
-   holds them to the stated tolerance; times the kernel, the plain version
-   and one library call computing the same function (the yardstick), and
-   computes the least time the card could take (the bound);
+3. for every kernel launch of the serve run below (one ``synthesize`` of
+   ffhq256-duplex at each of batch 1, 2, 4 and 8, bf16), and for the
+   flagship shapes in fp32 too: runs the kernel and its plain PyTorch
+   version on the same inputs on the card and holds them to the stated
+   tolerance; times the kernel, the plain version and one library call
+   computing the same function (the yardstick), and computes the least
+   time the card could take (the bound).  Where latent_to_grid splits n
+   into chunks, it also shows the tolerance rejects the output of a
+   kernel that dropped one chunk;
 4. serves ffhq256-duplex at full width from a random init (bf16):
    ``map_seeds`` + ``synthesize`` over buckets 1, 2, 4 and 8 with mixed
    psi, with the launch counters reset just before and read just after;
@@ -22,6 +24,9 @@ In order:
    on the host CPU (fp32) at batch 2 and noise off: a wrapper never routes
    a CUDA tensor to its plain version, so the host run is the plain path;
 6. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+   Every number of a kernel in the JSON line covers the same launches:
+   those of the serve run (``launches``), so ``ms`` is their total kernel
+   time, measured in phase 3 on the same shapes.
 
 Exits non-zero, printing no result, on any failure, without CUDA, or
 without the ``gansformer_tpu_torch`` package beside it.
@@ -29,7 +34,6 @@ without the ``gansformer_tpu_torch`` package beside it.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -49,11 +53,15 @@ SOURCES = {
     "grid_to_latent": "gansformer_tpu_torch/csrc/attention.cu",
     "latent_to_grid": "gansformer_tpu_torch/csrc/attention.cu",
 }
-# Kernel-vs-plain tolerance on max |err|, relative to max(1, max |plain|):
-# fp32 differs only by summation order over <= 4608 terms; bf16 outputs
-# are rounded to 8 mantissa bits in both versions, and latent_to_grid keeps
-# fp32 probabilities where the plain version casts them to bf16.
+# Kernel-vs-plain tolerance on max |err|, relative to max |plain| of the
+# same launch (no floor: latent_to_grid's outputs are averages over
+# thousands of keys and peak near 0.1): fp32 differs only by summation
+# order over <= 4608 terms; bf16 outputs are rounded to 8 mantissa bits in
+# both versions (2^-8 of the largest value is 0.4 %), and latent_to_grid
+# keeps fp32 probabilities where the plain version casts them to bf16.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The serve run's buckets: one synthesize at each batch size.
+BUCKETS = (1, 2, 4, 8)
 # Whole-generator tolerance (max |err| relative to max |host plain fp32|):
 # fp32 accumulates summation-order differences over ~40 layers; bf16
 # rounds every layer's activations (2^-8 relative) on top.
@@ -172,13 +180,16 @@ def library_attention(q, k, v):
                                                   v[:, None])[:, 0]
 
 
-def build_case(call, dtype, gen, dev="cuda"):
-    """(kernel_fn, plain_fn, library_fn, bytes, ops) for one launch, on
-    inputs made on ``dev`` from ``gen``."""
+def build_case(call, dtype, gen, dev="cuda", chunk=None):
+    """One launch on inputs made on ``dev`` from ``gen``: a dict of the
+    kernel, plain and library calls, the bytes and operations the bound
+    counts, and ``fault``: a call giving what a broken kernel would give
+    (latent_to_grid with one of its ``chunk``-key chunks dropped; the
+    kernel's own chunk unless given), or None."""
     import torch
 
-    from gansformer_tpu_torch.ops import cuda_attention, cuda_modconv, \
-        cuda_upfirdn
+    from gansformer_tpu_torch.ops import _build, cuda_attention, \
+        cuda_modconv, cuda_upfirdn
     from gansformer_tpu_torch.ops.attention import attention_plain
     from gansformer_tpu_torch.ops.modulated_conv import (_demod_coeffs,
                                                          modconv_plain,
@@ -205,15 +216,18 @@ def build_case(call, dtype, gen, dev="cuda"):
         bias = randn(co) * 0.1 if call["act"] else None
         args = (x, ws, s, post, bias, kind, call["act"], 0.2, 1.0)
         xs = (x.float() * s[:, None, None, :]).to(dtype)
-        t, cok = ws.shape[0], ws.shape[2]
         up = 2 if kind == "poly" else 1
-        nbytes = ((x.numel() + ws.numel() + b * up * h * up * h * co) * it
-                  + (s.numel() + post.numel()) * 4
+        nbytes = ((x.numel() + w.numel() + b * up * h * up * h * co) * it
+                  + (s.numel() + d.numel()) * 4
                   + (co * 4 if bias is not None else 0))
-        ops = 2.0 * b * h * h * t * ci * cok
-        return (lambda: cuda_modconv.modconv_cuda(*args),
-                lambda: modconv_plain(*args),
-                library_modconv(xs, w, kind), nbytes, ops)
+        # every tap of w once per input pixel: the stride-2 transposed
+        # conv's four phases take 4 + 2 + 2 + 1 = 9 taps, not the 16 of
+        # the zero-padded 2x2 phase weights the kernel stores
+        ops = 2.0 * b * h * h * ks * ks * ci * co
+        return dict(kernel=lambda: cuda_modconv.modconv_cuda(*args),
+                    plain=lambda: modconv_plain(*args),
+                    library=library_modconv(xs, w, kind), bytes=nbytes,
+                    ops=ops, fault=None)
     if call["kernel"] == "upfirdn":
         b, h, c, up, pads = (call["B"], call["H"], call["C"], call["up"],
                              call["pads"])
@@ -223,9 +237,10 @@ def build_case(call, dtype, gen, dev="cuda"):
         oh = h * up
         nbytes = (x.numel() + b * oh * oh * c) * it
         ops = 2.0 * b * oh * oh * c * f.size / (up * up)
-        return (lambda: cuda_upfirdn.upfirdn2d_cuda(*args),
-                lambda: upfirdn2d_plain(*args),
-                library_upfirdn(x, f, up, pads), nbytes, ops)
+        return dict(kernel=lambda: cuda_upfirdn.upfirdn2d_cuda(*args),
+                    plain=lambda: upfirdn2d_plain(*args),
+                    library=library_upfirdn(x, f, up, pads), bytes=nbytes,
+                    ops=ops, fault=None)
     b, lq, lk, d, dv = call["B"], call["Lq"], call["Lk"], call["D"], \
         call["Dv"]
     q = randn(b, lq, d).to(dtype)
@@ -236,8 +251,18 @@ def build_case(call, dtype, gen, dev="cuda"):
           else cuda_attention.latent_to_grid_cuda)
     nbytes = (q.numel() + k.numel() + v.numel() + b * lq * dv) * it
     ops = 2.0 * b * lq * lk * (d + dv)
-    return (lambda: fn(q, k, v), lambda: attention_plain(q, k, v),
-            library_attention(q, k, v), nbytes, ops)
+    fault = None
+    if call["kernel"] == "latent_to_grid":
+        chunk = chunk or _build.load_library().gt_attn_chunk()
+    if call["kernel"] == "latent_to_grid" and lk > chunk:
+        c0 = (-(-lk // chunk) // 2) * chunk       # the middle chunk
+        keep = torch.cat([torch.arange(0, c0, device=dev),
+                          torch.arange(c0 + chunk, lk, device=dev)])
+        fault = lambda: attention_plain(q, k[:, keep], v[:, keep])  # noqa
+    return dict(kernel=lambda: fn(q, k, v),
+                plain=lambda: attention_plain(q, k, v),
+                library=library_attention(q, k, v), bytes=nbytes, ops=ops,
+                fault=fault)
 
 
 def time_ms(fn) -> float:
@@ -261,47 +286,82 @@ def time_ms(fn) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(calls, dtype_name, peaks, timed: bool):
-    """Run every call's kernel against its plain version; returns per-call
-    rows.  Fails the script on a mismatch."""
+def check_kernels(calls, dtype_name, peaks, show: bool = True):
+    """Run every call's kernel against its plain version, and time both
+    and the library call; returns per-call rows.  Fails the script on a
+    mismatch, or where a planted fault would pass the tolerance."""
     import torch
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = []
     for call in calls:
-        kern, plain, lib, nbytes, ops = build_case(call, dtype, gen)
-        got = kern()
-        ref = plain()
+        case = build_case(call, dtype, gen)
+        got = case["kernel"]()
+        ref = case["plain"]().float()
         torch.cuda.synchronize()
+        what = f"{call['kernel']} {call['label']} B={call['B']} {dtype_name}"
         if got.shape != ref.shape:
-            fail(f"{call['label']} {dtype_name}: shape {tuple(got.shape)} "
-                 f"!= {tuple(ref.shape)}")
-        err = float((got.float() - ref.float()).abs().max())
-        scale = max(1.0, float(ref.float().abs().max()))
-        tol = KERNEL_TOL[dtype_name] * scale
-        ok = math.isfinite(err) and err <= tol
-        row = dict(call, dtype=dtype_name, max_abs_err=err, tol=tol)
+            fail(f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+        err = float((got.float() - ref).abs().max())
+        tol = KERNEL_TOL[dtype_name] * float(ref.abs().max())
+        if not (math.isfinite(err) and err <= tol):
+            fail(f"{what}: max|err| {err:.3e} > tol {tol:.3e}")
+        control = ""
+        if case["fault"] is not None:
+            ferr = float((case["fault"]().float() - ref).abs().max())
+            if not ferr > tol:
+                fail(f"{what}: a kernel that drops one chunk would pass "
+                     f"(max|err| {ferr:.3e} <= tol {tol:.3e})")
+            control = f" drop-one-chunk control {ferr:.3e} > tol"
         rate = peaks[1] if dtype_name == "bfloat16" else peaks[2]
-        row["bytes_ms"] = nbytes / peaks[0] * 1e3
-        row["ops_ms"] = ops / rate * 1e3
-        if timed:
-            row["ms"] = time_ms(kern)
-            row["plain_ms"] = time_ms(plain)
-            row["library_ms"] = time_ms(lib)
+        row = dict(call, dtype=dtype_name, max_abs_err=err, tol=tol,
+                   bytes_ms=case["bytes"] / peaks[0] * 1e3,
+                   ops_ms=case["ops"] / rate * 1e3,
+                   ms=time_ms(case["kernel"]),
+                   plain_ms=time_ms(case["plain"]),
+                   library_ms=time_ms(case["library"]))
         rows.append(row)
-        extra = (f" kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
-                 f"library {row['library_ms']:.4f} bound "
-                 f"{max(row['bytes_ms'], row['ops_ms']):.4f} ms"
-                 if timed else "")
-        print(f"  {call['kernel']:15s} {call['label']:22s} {dtype_name:9s} "
-              f"max|err| {err:.3e} (tol {tol:.1e}) "
-              f"{'ok' if ok else 'MISMATCH'}{extra}", flush=True)
-        if not ok:
-            fail(f"{call['kernel']} {call['label']} {dtype_name}: max|err| "
-                 f"{err:.3e} > {tol:.3e}")
-        del kern, plain, lib
+        if show:
+            print(f"  {call['kernel']:15s} {call['label']:22s} "
+                  f"{dtype_name:9s} max|err| {err:.3e} (tol {tol:.1e}) ok"
+                  f"{control} kernel {row['ms']:.4f} ms plain "
+                  f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} "
+                  f"bound {max(row['bytes_ms'], row['ops_ms']):.4f} ms",
+                  flush=True)
+        del case
     return rows
+
+
+def kernel_sums(rows):
+    """Per kernel: the launches and the sums of times and bounds."""
+    out = {}
+    for kname in REPLACES:
+        rs = [r for r in rows if r["kernel"] == kname]
+        bytes_ms = sum(r["bytes_ms"] for r in rs)
+        ops_ms = sum(r["ops_ms"] for r in rs)
+        out[kname] = {
+            "launches": len(rs),
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "worst_err_over_tol": max(r["max_abs_err"] / r["tol"]
+                                      for r in rs),
+            "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rs),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": sum(r["library_ms"] for r in rs),
+        }
+    return out
+
+
+def print_sums(title, sums):
+    print(title, flush=True)
+    for kname, s in sums.items():
+        print(f"    {kname:15s} {s['launches']:3d} launches  kernel "
+              f"{s['ms']:8.4f} ms  plain {s['plain_ms']:8.4f}  library "
+              f"{s['library_ms']:8.4f}  bound {s['bound_ms']:.4f} "
+              f"({s['bound_by']})  worst err/tol "
+              f"{s['worst_err_over_tol']:.3f}", flush=True)
 
 
 FLAGSHIP = ("b256_conv same3", "b256 blur", "b128_conv_up poly",
@@ -335,20 +395,18 @@ def serve_run(cfg, expected):
     bundle = init_generator(cfg, seed=0, device="cuda")
     perturb(bundle.generator)
     progs = ServePrograms(bundle)
-    requests = [(1, [11], [0.7]), (2, [3, 4], [0.5, 1.0]),
-                (4, [5, 6, 7, 8], [0.7, 0.7, 1.0, 0.3]),
-                (8, list(range(100, 108)), [0.7, 1.0] * 4)]
+    psis = {1: [0.7], 2: [0.5, 1.0], 4: [0.7, 0.7, 1.0, 0.3],
+            8: [0.7, 1.0] * 4}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    synths = 0
-    for bucket, seeds, psi in requests:
+    for bucket in BUCKETS:
+        seeds = list(range(100 * bucket, 101 * bucket))
         before = ops.launch_counts()
         ws = progs.map_seeds(seeds)
-        img = progs.synthesize(ws, psi, seed=7, tags=seeds)
+        img = progs.synthesize(ws, psis[bucket], seed=7, tags=seeds)
         torch.cuda.synchronize()
         after = ops.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        synths += 1
         if tuple(img.shape) != (bucket, cfg.resolution, cfg.resolution,
                                 cfg.img_channels):
             fail(f"bucket {bucket}: image shape {tuple(img.shape)}")
@@ -375,7 +433,7 @@ def serve_run(cfg, expected):
     torch.cuda.synchronize()
     synth_s = (time.perf_counter() - t0) / reps
     profile_synth(progs, seeds)
-    return bundle, counts, synths, synth_s
+    return bundle, counts, synth_s
 
 
 KERNEL_GROUPS = (("modconv", "modconv_"), ("upfirdn", "upfirdn_kernel"),
@@ -469,12 +527,8 @@ def model_compare(cfg, bundle):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels, then stop")
-    ap.add_argument("--verbose-build", action="store_true",
-                    help="print nvcc -Xptxas -v (registers, smem, spills)")
-    args = ap.parse_args()
+    if len(sys.argv) > 1:
+        fail(f"takes no arguments, got {sys.argv[1:]}")
 
     import torch
 
@@ -505,60 +559,58 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.load_library(verbose=args.verbose_build)
+    _build.load_library()
     print(f"built {[os.path.relpath(s) for s in _build.sources()]} -> "
           f"{os.path.relpath(_build.build_info['path'])} in "
           f"{time.perf_counter() - t0:.1f} s "
           f"(compiled: {_build.build_info['built']})", flush=True)
-    if args.verbose_build and _build.build_info.get("log"):
-        print(_build.build_info["log"], flush=True)
 
     cfg = get_preset("ffhq256-duplex")
-    batch = 8
-    calls = main_path_calls(cfg, batch)
-    expected = {k: sum(c["kernel"] == k for c in calls) for k in REPLACES}
+    calls = {b: main_path_calls(cfg, b) for b in BUCKETS}
+    expected = {k: sum(c["kernel"] == k for c in calls[8]) for k in REPLACES}
     print(f"launches per synthesize at ffhq256-duplex: {expected}",
           flush=True)
     if expected != {"modconv": 20, "upfirdn": 12, "grid_to_latent": 7,
                     "latent_to_grid": 5}:
         fail(f"unexpected launch plan {expected}")
 
-    flagship = [c for c in calls if c["label"] in FLAGSHIP]
-    print("kernels vs plain, fp32, flagship shapes:", flush=True)
-    check_kernels(flagship, "float32", peaks, timed=not args.quick)
-    print(f"kernels vs plain, bf16, every launch of one synthesize at batch "
-          f"{batch}:", flush=True)
-    rows = check_kernels(calls, "bfloat16", peaks, timed=not args.quick)
-    if args.quick:
-        print("quick: every kernel built and matched its plain version")
-        return 0
+    flagship = [c for c in calls[8] if c["label"] in FLAGSHIP]
+    print("kernels vs plain, fp32, flagship shapes at batch 8:", flush=True)
+    check_kernels(flagship, "float32", peaks)
+    rows = []
+    for b in BUCKETS:
+        print(f"kernels vs plain, bf16, every launch of one synthesize at "
+              f"batch {b}:", flush=True)
+        bucket_rows = check_kernels(calls[b], "bfloat16", peaks,
+                                    show=b == BUCKETS[-1])
+        print_sums(f"  sums over the {len(bucket_rows)} launches of one "
+                   f"synthesize at batch {b}:", kernel_sums(bucket_rows))
+        rows += bucket_rows
+    run_sums = kernel_sums(rows)
+    print_sums(f"  sums over the serve run's {len(rows)} launches "
+               f"(batches {'+'.join(map(str, BUCKETS))}):", run_sums)
 
-    print("serve ffhq256-duplex (bf16, random init, buckets 1/2/4/8):",
-          flush=True)
-    bundle, counts, synths, synth_s = serve_run(cfg, expected)
-    print(f"  launches over {synths} synthesize calls: {counts}")
+    print("serve ffhq256-duplex (bf16, random init, buckets "
+          f"{'/'.join(map(str, BUCKETS))}):", flush=True)
+    bundle, counts, synth_s = serve_run(cfg, expected)
+    print(f"  launches over {len(BUCKETS)} synthesize calls: {counts}")
+    for kname, s in run_sums.items():
+        if counts[kname] != s["launches"]:
+            fail(f"{kname}: the serve run launched it {counts[kname]} "
+                 f"times, the checks timed {s['launches']} launches")
     print(f"  synthesize at bucket 8: {synth_s * 1e3:.2f} ms, "
           f"{8 / synth_s:.2f} images/s on {card}", flush=True)
     print("generator vs plain path, batch 2, noise off:", flush=True)
     model_compare(cfg, bundle)
 
-    kernels = []
-    for kname in REPLACES:
-        rs = [r for r in rows if r["kernel"] == kname]
-        bytes_ms = sum(r["bytes_ms"] for r in rs)
-        ops_ms = sum(r["ops_ms"] for r in rs)
-        kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": counts[kname],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": sum(r["ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
-            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rs),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": sum(r["library_ms"] for r in rs),
-        })
-    print("per-synthesize sums at batch 8, bf16 (ms = kernel time of every "
-          "launch of one synthesize)", flush=True)
+    kernels = [{
+        "name": kname, "route": "cuda", "source": SOURCES[kname],
+        "replaces": REPLACES[kname], "launches": counts[kname],
+        **{key: s[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+    } for kname, s in run_sums.items()]
+    print("kernels over the serve run's launches (bf16; ms, plain_ms, "
+          f"bound_ms and library_ms are sums over them):", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

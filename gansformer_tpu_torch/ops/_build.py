@@ -84,7 +84,7 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> str:
+def build() -> str:
     """Compile (if needed) and return the path of the shared library."""
     out_dir = os.path.join(BUILD_ROOT, _digest())
     lib_path = os.path.join(out_dir, LIB_NAME)
@@ -96,11 +96,10 @@ def build(verbose: bool = False) -> str:
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-")
     try:
-        extra = ["-Xptxas", "-v"] if verbose else []
         procs = []
         for src in sources():
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
-            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *extra, "-I", CSRC,
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", CSRC,
                    "-c", src, "-o", obj]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -124,19 +123,18 @@ def build(verbose: bool = False) -> str:
         os.makedirs(out_dir, exist_ok=True)
         os.replace(tmp_lib, lib_path)
         build_info.update(path=lib_path, built=True,
-                          seconds=time.perf_counter() - t0,
-                          log="\n".join(logs) if verbose else "")
+                          seconds=time.perf_counter() - t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lib_path
 
 
-def load_library(verbose: bool = False) -> ctypes.CDLL:
+def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build(verbose=verbose))
+            lib = ctypes.CDLL(build())
             for name, (res, args) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.restype = res

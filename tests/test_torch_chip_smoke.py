@@ -69,10 +69,42 @@ def test_library_attention_computes_the_kernel_function(rng):
 def test_bound_counts_bytes_and_operations(rng):
     call = dict(kernel="grid_to_latent", label="t", B=2, Lq=16, Lk=4, D=8,
                 Dv=8)
-    *_, nbytes, ops = chip_smoke.build_case(
+    case = chip_smoke.build_case(
         call, torch.float32, torch.Generator().manual_seed(0), dev="cpu")
-    assert nbytes == 4 * (2 * 16 * 8 + 2 * 4 * 8 * 2 + 2 * 16 * 8)
-    assert math.isclose(ops, 2.0 * 2 * 16 * 4 * 16)
+    assert case["bytes"] == 4 * (2 * 16 * 8 + 2 * 4 * 8 * 2 + 2 * 16 * 8)
+    assert math.isclose(case["ops"], 2.0 * 2 * 16 * 4 * 16)
+    assert case["fault"] is None
+
+
+def test_bound_counts_nine_taps_for_the_up_conv():
+    """The stride-2 transposed 3x3 conv does 9 taps per input pixel over
+    its four phases (4 + 2 + 2 + 1): the zeros of the stored 2x2 phase
+    weights are not work, nor bytes the function must read."""
+    call = dict(kernel="modconv", label="t", kind="poly", B=2, H=4, Ci=8,
+                Co=6, act=None)
+    case = chip_smoke.build_case(
+        call, torch.float32, torch.Generator().manual_seed(0), dev="cpu")
+    assert math.isclose(case["ops"], 2.0 * 2 * 4 * 4 * 9 * 8 * 6)
+    x, w, out, s_and_d = 2 * 4 * 4 * 8, 9 * 8 * 6, 2 * 8 * 8 * 6, 2 * 8 + 2 * 6
+    assert case["bytes"] == 4 * (x + w + out + s_and_d)
+
+
+def test_dropped_chunk_control_exceeds_the_bf16_tolerance():
+    """The planted fault of latent_to_grid (one key chunk of four left
+    out) lies outside the bf16 tolerance the smoke holds the kernel to,
+    and a grid small enough for one chunk has no such control."""
+    call = dict(kernel="latent_to_grid", label="t", B=2, Lq=4, Lk=64,
+                D=16, Dv=8)
+    case = chip_smoke.build_case(
+        call, torch.float32, torch.Generator().manual_seed(0), dev="cpu",
+        chunk=16)
+    ref = case["plain"]()
+    tol = chip_smoke.KERNEL_TOL["bfloat16"] * float(ref.abs().max())
+    assert float((case["fault"]() - ref).abs().max()) > tol
+    case = chip_smoke.build_case(
+        call, torch.float32, torch.Generator().manual_seed(0), dev="cpu",
+        chunk=64)
+    assert case["fault"] is None
 
 
 def test_fails_without_cuda_or_without_the_package(tmp_path):
