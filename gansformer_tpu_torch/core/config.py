@@ -1,18 +1,21 @@
-"""Model configuration of the PyTorch port.
+"""Model and training configuration of the PyTorch port.
 
-A copy of the model half of ``gansformer_tpu/core/config.py``: the same
-``ModelConfig`` fields with the same defaults, the same fmap schedule, and
-the model part of the named presets.  It reads the ``model`` section of a
-``config.json`` written by the JAX trainer.  ``conv_backend`` and
-``attention_backend`` are accepted and ignored: in the port the device of
-the tensor picks the path (kernel on the card, plain version on the CPU).
+A copy of ``gansformer_tpu/core/config.py``'s ``ModelConfig`` (the same
+fields with the same defaults, the same fmap schedule) and of the part of
+its ``TrainConfig`` that the first-order training steps use, with the
+model and train parts of the named presets.  It reads the ``model`` and
+``train`` sections of a ``config.json`` written by the JAX trainer.
+``conv_backend`` and ``attention_backend`` are accepted and ignored: in
+the port the device of the tensor picks the path (kernel on the card,
+plain version on the CPU).  The attention-free configuration of a preset
+is ``dataclasses.replace(get_preset(name), attention="none")``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,3 +135,65 @@ def get_preset(name: str) -> ModelConfig:
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
     return PRESETS[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Two-timescale G/D Adam training with lazy regularization: the
+    fields of the JAX ``TrainConfig`` that the first-order steps read
+    (same names and defaults).  ``r1_gamma`` is kept for the regularized
+    steps, which come later."""
+
+    batch_size: int = 32
+    g_lr: float = 2e-3
+    d_lr: float = 2e-3
+    adam_beta1: float = 0.0
+    adam_beta2: float = 0.99
+    adam_eps: float = 1e-8
+    r1_gamma: float = 10.0
+    d_reg_interval: int = 16
+    g_reg_interval: int = 4
+    style_mixing_prob: float = 0.9
+    ema_kimg: float = 10.0
+    ema_rampup: Optional[float] = None
+
+
+# Keys of the JAX ``TrainConfig`` that the port reads and does not use yet
+# (regularizers, the tick loop, checkpoints, telemetry).
+IGNORED_TRAIN_KEYS = frozenset({
+    "total_kimg", "r1_batch_shrink", "pl_weight", "pl_decay",
+    "pl_batch_shrink", "fused_cycle", "async_checkpoint", "kimg_per_tick",
+    "snapshot_ticks", "image_snapshot_ticks", "metric_ticks", "metrics",
+    "seed", "debug_nans", "profile_dir", "device_time_ticks"})
+
+
+def train_config_from_dict(d: Dict[str, Any]) -> TrainConfig:
+    """From the ``train`` section of a JAX ``config.json``.  Keys the port
+    does not use yet are dropped; any other unknown key raises."""
+    names = {f.name for f in dataclasses.fields(TrainConfig)}
+    extra = sorted(set(d) - names - IGNORED_TRAIN_KEYS)
+    if extra:
+        raise ValueError(f"unknown TrainConfig keys: {extra}")
+    return TrainConfig(**{k: v for k, v in d.items() if k in names})
+
+
+def train_config_from_json(text: str) -> TrainConfig:
+    """The ``train`` section of a JAX run's ``config.json``."""
+    return train_config_from_dict(json.loads(text)["train"])
+
+
+# The train part of the JAX presets.
+TRAIN_PRESETS: Dict[str, TrainConfig] = {
+    "clevr64-simplex": TrainConfig(batch_size=4, r1_gamma=1.0),
+    "ffhq256-duplex": TrainConfig(batch_size=32, r1_gamma=10.0),
+    "bedroom256-duplex": TrainConfig(batch_size=32, r1_gamma=100.0),
+    "cityscapes256-duplex": TrainConfig(batch_size=32, r1_gamma=20.0),
+    "ffhq1024-duplex": TrainConfig(batch_size=32, r1_gamma=32.0),
+}
+
+
+def get_train_preset(name: str) -> TrainConfig:
+    if name not in TRAIN_PRESETS:
+        raise KeyError(f"unknown preset {name!r}; have "
+                       f"{sorted(TRAIN_PRESETS)}")
+    return TRAIN_PRESETS[name]

@@ -1,5 +1,7 @@
-"""Ops of the PyTorch port: plain PyTorch versions plus the four
-hand-written CUDA kernels they route to for tensors on the card."""
+"""Ops of the PyTorch port: plain PyTorch versions plus the hand-written
+CUDA kernels they route to for tensors on the card (forward: modconv,
+upfirdn, grid->latent, latent->grid; backward: modconv dx/ds, modconv
+dw and the upfirdn adjoint)."""
 
 from typing import Dict
 
@@ -24,12 +26,18 @@ def launch_counts() -> Dict[str, int]:
     return {"modconv": cuda_modconv.launches,
             "upfirdn": cuda_upfirdn.launches,
             "grid_to_latent": cuda_attention.launches_g2l,
-            "latent_to_grid": cuda_attention.launches_l2g}
+            "latent_to_grid": cuda_attention.launches_l2g,
+            "modconv_dx": cuda_modconv.launches_dx,
+            "modconv_dw": cuda_modconv.launches_dw,
+            "upfirdn_adjoint": cuda_upfirdn.launches_adjoint}
 
 
 def reset_launch_counts() -> None:
     cuda_modconv.launches = 0
+    cuda_modconv.launches_dx = 0
+    cuda_modconv.launches_dw = 0
     cuda_upfirdn.launches = 0
+    cuda_upfirdn.launches_adjoint = 0
     cuda_attention.launches_g2l = 0
     cuda_attention.launches_l2g = 0
 

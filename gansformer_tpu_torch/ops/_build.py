@@ -28,7 +28,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 LIB_NAME = "libgansformer_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+# -Xptxas -v: ptxas reports each kernel's registers, spills and shared
+# memory; the log is kept in ``build_info["log"]``.
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -47,6 +50,11 @@ _SIGNATURES = {
                                _P]),
     "gt_latent_to_grid": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _F, _P]),
+    "gt_modconv_dx": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _P, _P, _P]),
+    "gt_modconv_dx_tile": (_I, []),
+    "gt_modconv_dw": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _P, _P, _I, _I, _I, _P]),
     "gt_attn_chunk": (_I, []),
     "gt_g2l_smem": (ctypes.c_longlong, [_I, _I, _I]),
     "gt_l2g_smem": (ctypes.c_longlong, [_I, _I]),
@@ -123,7 +131,8 @@ def build() -> str:
         os.makedirs(out_dir, exist_ok=True)
         os.replace(tmp_lib, lib_path)
         build_info.update(path=lib_path, built=True,
-                          seconds=time.perf_counter() - t0)
+                          seconds=time.perf_counter() - t0,
+                          log="\n".join(logs))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lib_path

@@ -13,6 +13,10 @@ Replaces ``gansformer_tpu/ops/pallas_attention.py``:
   Hopper blocks run in no order.
 
 The serving path declares no ``lse`` output (as the TPU's no-grad path).
+Their backward kernels (``_grid_to_latent_bwd``, ``_latent_to_grid_bwd``)
+are not ported yet, so on the card, while autograd records and an input
+requires grad, both ops raise instead of returning an output with no
+``grad_fn``.
 Both are bound by bytes on the card: q (or k and v) is read once, the
 output written once, and the flops per byte are a few dozen at most.
 ``fused_multihead_attention`` keeps the Pallas wrapper's rule: ``lq >= lk``
@@ -25,7 +29,7 @@ import math
 
 import torch
 
-from gansformer_tpu_torch.core.device import kernel_route
+from gansformer_tpu_torch.core.device import kernel_route, wants_graph
 from gansformer_tpu_torch.ops import _build
 from gansformer_tpu_torch.ops.attention import attention_plain
 
@@ -103,9 +107,18 @@ def latent_to_grid_cuda(q: torch.Tensor, k: torch.Tensor,
     return o
 
 
+def _no_backward(q, k, v, row: int, name: str) -> None:
+    if wants_graph(q, k, v):
+        raise NotImplementedError(
+            f"{name} on the card has no backward kernel yet (PERF.md "
+            f"section 6, row {row}); train with attention='none' or run "
+            f"this op under torch.no_grad()")
+
+
 def grid_to_latent(q, k, v):
     """Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if kernel_route(q):
+        _no_backward(q, k, v, 8, "grid_to_latent")
         return grid_to_latent_cuda(q, k, v)
     return attention_plain(q, k, v)
 
@@ -113,6 +126,7 @@ def grid_to_latent(q, k, v):
 def latent_to_grid(q, k, v):
     """Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if kernel_route(q):
+        _no_backward(q, k, v, 9, "latent_to_grid")
         return latent_to_grid_cuda(q, k, v)
     return attention_plain(q, k, v)
 

@@ -4,8 +4,17 @@ Replaces ``gansformer_tpu/ops/pallas_upfirdn.py`` ``_ufd_call`` ->
 ``pl.pallas_call`` (kernel body ``_upfirdn_body``).  On the synthesis path
 it runs the up-conv's anti-imaging blur (4x4 filter, gain 4, pad 2/1,
 optionally with the bias/lrelu epilogue) and the tRGB skip upsample
-(up = 2); any up/down/pad that ``upfirdn2d`` takes works, because the
-discriminator reuses it.
+(up = 2); the discriminator's blur-pool (pad 2) and decimated skip
+(down = 2) run through it too.
+
+The same kernel is the adjoint of every upfirdn (the backward of
+``_ufd_bwd_rule``/``_ufd_ba_bwd_rule``, which re-enter ``_ufd_call``):
+flipped filter, up and down swapped, ``grad_pad4`` padding.
+``upfirdn2d_adjoint_cuda`` launches it for that and counts those launches
+apart (``launches_adjoint``), so the backward has its own launches, time
+and bound.  The kernel's compile-time factor pairs 1/1, 2/1 and 1/2 cover
+the adjoints of the path too: the blurs adjoin to 1/1, G's skip upsample
+(up 2) to down 2, D's decimated skip (down 2) to up 2.
 
 Bound on the card: bytes.  A 4x4 FIR does 16 multiply-adds per output
 element, far below the ~295 flops per byte where Hopper's compute would
@@ -24,8 +33,10 @@ import torch
 
 from gansformer_tpu_torch.ops import _build
 
-# Launches of the kernel since the last reset (one per call below).
+# Launches of the kernel since the last reset: forward calls, and the
+# adjoint calls of the backward.
 launches = 0
+launches_adjoint = 0
 
 _ACT_CODES = {None: 0, "linear": 1, "lrelu": 2}
 
@@ -36,6 +47,24 @@ def upfirdn2d_cuda(x: torch.Tensor, f: np.ndarray, up: int, down: int,
                    alpha: float, gain: float) -> torch.Tensor:
     """Launch the kernel on a CUDA NHWC tensor (fp32 or bf16)."""
     global launches
+    y = _launch(x, f, up, down, pads, bias, act, alpha, gain)
+    launches += 1
+    return y
+
+
+def upfirdn2d_adjoint_cuda(ct: torch.Tensor, f_adj: np.ndarray, up: int,
+                           down: int, pads: Tuple[int, int, int, int]
+                           ) -> torch.Tensor:
+    """Launch the kernel as an adjoint: ``f_adj``, ``up``, ``down`` and
+    ``pads`` are already the adjoint's (flipped filter, factors swapped,
+    ``grad_pad4``); no epilogue."""
+    global launches_adjoint
+    dx = _launch(ct, f_adj, up, down, pads, None, None, 0.0, 1.0)
+    launches_adjoint += 1
+    return dx
+
+
+def _launch(x, f, up, down, pads, bias, act, alpha, gain):
     if not x.is_cuda:
         raise ValueError("upfirdn2d_cuda takes a CUDA tensor")
     if act not in _ACT_CODES:
@@ -68,5 +97,4 @@ def upfirdn2d_cuda(x: torch.Tensor, f: np.ndarray, up: int, down: int,
         fw, taps.ctypes.data, _ACT_CODES[act], float(alpha), float(gain),
         _build.stream_ptr(x))
     _build.check(rc, "upfirdn kernel")
-    launches += 1
     return y

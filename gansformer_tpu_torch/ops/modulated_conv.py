@@ -13,26 +13,40 @@ composite) and of the Pallas entry ``modulated_conv2d_pallas``
   epilogue.
 
 A CUDA tensor launches the kernels; a CPU tensor runs ``modconv_plain``,
-which takes the same stacked weights as the kernel.  ``conv2d`` and
-``_conv_transpose_poly`` are the plain (phase-major) up-conv of the XLA
-path, kept as an independent oracle.  Down-sampling convs wait for the
-discriminator.
+which takes the same stacked weights as the kernel and which autograd
+differentiates.  On the card, when autograd records, the core is
+``ModconvCore`` (the counterpart of ``_mc_core``'s custom VJP): its
+backward recovers ``act'``, ``db`` and ``dd`` from the saved output and
+launches the dx/ds kernel (``_bwd_call``) and the dw kernel
+(``_dw_call``); ``modconv_dx_plain`` and ``modconv_dw_plain`` are their
+plain versions.  It is first-order only.
+
+``conv2d`` is the plain conv with the up path (``_conv_transpose_poly``,
+the phase-major XLA formulation, kept as an independent oracle) and the
+down paths of the discriminator: the 1x1 skip decimates inside the blur,
+the 3x3 conv blurs with its padding folded in and then strides.  Their
+FIR legs run through ``upfirdn2d`` (the kernel on the card); the dense
+convs stay ``F.conv2d``, as they are plain XLA contractions in the JAX
+package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from gansformer_tpu_torch.core.device import kernel_route
+from gansformer_tpu_torch.core.device import kernel_route, wants_graph
 from gansformer_tpu_torch.ops import cuda_modconv
+from gansformer_tpu_torch.ops.cuda_modconv import TAPS
 from gansformer_tpu_torch.ops.fused_bias_act import (ACTIVATIONS,
                                                      default_gain,
                                                      fused_bias_act)
-from gansformer_tpu_torch.ops.upfirdn2d import (FUSED_ACTS, filter_2d,
-                                                setup_filter, upfirdn2d)
+from gansformer_tpu_torch.ops.upfirdn2d import (FUSED_ACTS, act_grad,
+                                                filter_2d, setup_filter,
+                                                upfirdn2d)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -43,10 +57,13 @@ def _oihw(w: torch.Tensor) -> torch.Tensor:
     return w.permute(3, 2, 0, 1)
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, padding) -> torch.Tensor:
-    """NHWC x HWIO convolution (correlation) in fp32, output in x's dtype."""
-    y = F.conv2d(_nchw(x.float()), _oihw(w.float()), padding=padding)
-    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int,
+          padding) -> torch.Tensor:
+    """NHWC x HWIO convolution (correlation) in x's dtype (fp32
+    accumulation on the card), output NHWC."""
+    wo = _oihw(w.to(x.dtype)).contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(_nchw(x), wo, stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
 
 
 def _conv_transpose_poly(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -63,26 +80,39 @@ def _conv_transpose_poly(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w4 = w_pad[idx[:, None, :, None], idx[None, :, None, :]]  # [dh,dw,a,b,..]
     w4 = w4.permute(0, 1, 4, 2, 3, 5).reshape(2, 2, ci, 4 * co)
     xp = F.pad(x, (0, 0, 0, 1, 0, 1))                      # right/bottom 1
-    y = _conv(xp, w4.to(x.dtype), padding=0)               # [N, H, W, 4Co]
+    y = _conv(xp, w4, 1, 0)                                # [N, H, W, 4Co]
     y = y.reshape(n, h, wd, 2, 2, co).permute(0, 1, 3, 2, 4, 5)
     return y.reshape(n, 2 * h, 2 * wd, co)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, up: int = 1, down: int = 1,
            resample_filter: Sequence[float] = (1, 3, 3, 1)) -> torch.Tensor:
-    """Plain conv (SAME) with the polyphase ``up=2`` path: transposed conv
-    then the anti-imaging blur (gain up^2), the reference's order."""
+    """Plain conv (SAME) with FIR-filtered resampling.  ``up=2`` is the
+    polyphase transposed conv then the anti-imaging blur (gain up^2), the
+    reference's order.  ``down > 1``: a 1x1 kernel decimates inside the
+    blur (``upfirdn(down, pad ((p+1)//2, p//2))``) and then convolves; a
+    larger kernel blurs with its VALID padding folded in and then strides
+    the conv."""
     assert x.ndim == 4 and w.ndim == 4
-    if down != 1:
-        raise NotImplementedError("down-sampling convs come with the "
-                                  "discriminator")
     kh, kw = w.shape[0], w.shape[1]
+    if down > 1:
+        if up != 1 or kh != kw:
+            raise NotImplementedError(f"up={up} down={down} with a "
+                                      f"{kh}x{kw} kernel")
+        f = setup_filter(resample_filter)
+        if kh == 1:
+            p = f.shape[0] - down
+            x = upfirdn2d(x, f, down=down, pad=((p + 1) // 2, p // 2))
+            return _conv(x, w, 1, 0)
+        p = (f.shape[0] - down) + (kh - 1)
+        x = upfirdn2d(x, f, pad=((p + 1) // 2, p // 2))
+        return _conv(x, w, down, 0)
     if up == 2 and kh == kw == 3:
         return filter_2d(_conv_transpose_poly(x, w), resample_filter,
                          gain=float(up * up))
     if up != 1:
         raise NotImplementedError(f"up={up} with a {kh}x{kw} kernel")
-    return _conv(x, w, padding=(kh // 2, kw // 2))
+    return _conv(x, w, 1, (kh // 2, kw // 2))
 
 
 def _demod_coeffs(w32: torch.Tensor, s32: torch.Tensor,
@@ -123,12 +153,12 @@ def modconv_plain(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
     xs = x.float() * s.float()[:, None, None, :]
     w32 = wstack.float()
     if kind == "same3":
-        y = _conv(xs, w32.reshape(3, 3, ci, cok), padding=1)
+        y = _conv(xs, w32.reshape(3, 3, ci, cok), 1, 1)
     elif kind == "same1":
-        y = _conv(xs, w32.reshape(1, 1, ci, cok), padding=0)
+        y = _conv(xs, w32.reshape(1, 1, ci, cok), 1, 0)
     elif kind == "poly":
         xp = F.pad(xs, (0, 0, 0, 1, 0, 1))
-        y = _conv(xp, w32.reshape(2, 2, ci, cok), padding=0)
+        y = _conv(xp, w32.reshape(2, 2, ci, cok), 1, 0)
     else:
         raise ValueError(f"unknown kind {kind!r}")
     y = y * post.float()[:, None, None, :]
@@ -144,11 +174,223 @@ def modconv_plain(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
-def _modconv(x, wstack, s, post, bias, kind, act, alpha, gain):
+# --------------------------------------------------------------------------
+# Layouts of the backward (copies of pallas_modconv.py's)
+# --------------------------------------------------------------------------
+
+# The (row, (dh, a)) inverse of the polyphase tap map for k = 3: each real
+# weight row r is read by exactly one (dh, a) pair (row 3 is the
+# structural-zero pad).
+_POLY_ROW_SRC = {0: (0, 1), 1: (0, 0), 2: (1, 1)}
+
+
+def _poly_dw_fold(dw4: torch.Tensor, ci: int, co: int) -> torch.Tensor:
+    """[4, Ci, Co*4] tap-major phase grads -> [3,3,Ci,Co]: the inverse
+    gather of the ``poly_w4`` tap map; the pad row's grads are dropped
+    (those taps are structural zeros)."""
+    g = dw4.reshape(2, 2, ci, co, 2, 2)                    # [dh,dw,Ci,Co,a,b]
+    rows = []
+    for r1 in range(3):
+        dh1, a1 = _POLY_ROW_SRC[r1]
+        rows.append(torch.stack([g[dh1, _POLY_ROW_SRC[r2][0], :, :, a1,
+                                   _POLY_ROW_SRC[r2][1]]
+                                 for r2 in range(3)]))
+    return torch.stack(rows)                               # [3,3,Ci,Co]
+
+
+def _space_to_depth(du: torch.Tensor) -> torch.Tensor:
+    """[N,2H,2W,Co] -> [N,H,W,Co*4], co-outer / phase-inner as
+    ``poly_w4``."""
+    n, h2, w2, co = du.shape
+    h, w = h2 // 2, w2 // 2
+    return (du.reshape(n, h, 2, w, 2, co).permute(0, 1, 3, 5, 2, 4)
+            .reshape(n, h, w, co * 4))
+
+
+def _adjoint_geom(kind: str):
+    """(offs, pads) of the adjoint: tap offsets into the cotangent padded
+    by ``pads``, as in ``pallas_modconv._prep_adjoint``."""
+    if kind == "same3":
+        return (tuple((a, b) for a in range(3) for b in range(3)),
+                ((1, 1), (1, 1)))
+    if kind == "same1":
+        return ((0, 0),), ((0, 0), (0, 0))
+    assert kind == "poly", kind
+    return (tuple((1 - dh, 1 - dw_) for dh in range(2) for dw_ in range(2)),
+            ((1, 0), (1, 0)))
+
+
+def _prep_adjoint(kind: str, w: torch.Tensor):
+    """(offs, pads, wT [T, CoutK, Cin]) of the transposed conv the dx/ds
+    kernel runs (spatial flip + channel transpose); a copy of
+    ``pallas_modconv._prep_adjoint``."""
+    ci, co = w.shape[2], w.shape[3]
+    offs, pads = _adjoint_geom(kind)
+    if kind == "same3":
+        wf = torch.flip(w, (0, 1)).permute(0, 1, 3, 2)     # [3,3,Co,Ci]
+        return offs, pads, wf.reshape(9, co, ci)
+    if kind == "same1":
+        return offs, pads, w.permute(0, 1, 3, 2).reshape(1, co, ci)
+    w4 = poly_w4(w).reshape(2, 2, ci, co * 4)               # tap [dh, dw]
+    return offs, pads, torch.stack([w4[dh, dw_].t() for dh in range(2)
+                                    for dw_ in range(2)])   # [4, Co*4, Ci]
+
+
+def adjoint_taps(kind: str) -> Tuple[Tuple[int, int], ...]:
+    """The adjoint's tap offsets relative to the output pixel (the
+    kernels' convention): ``_adjoint_geom``'s offsets less its leading
+    pads."""
+    offs, pads = _adjoint_geom(kind)
+    return tuple((oy - pads[0][0], ox - pads[1][0]) for oy, ox in offs)
+
+
+def _shift(t: torch.Tensor, oy: int, ox: int) -> torch.Tensor:
+    """``t[:, h + oy, w + ox, :]`` on the same grid, zero outside."""
+    n, h, w, _ = t.shape
+    py0, px0 = max(-oy, 0), max(-ox, 0)
+    tp = F.pad(t, (0, 0, px0, max(ox, 0), py0, max(oy, 0)))
+    return tp[:, py0 + oy:py0 + oy + h, px0 + ox:px0 + ox + w, :]
+
+
+def adjoint_u_plain(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
+                    taps) -> torch.Tensor:
+    """u = sum_t shift_t(du) . (wT_t * d), fp32 [N, H, W, Ci]; the demod
+    ``pre`` is folded into the weights in fp32 and rounded to the compute
+    dtype, as the kernel (and ``_bwd_body``) do."""
+    d32 = du4.float()
+    wn = (wT.float()[None] * pre.float()[:, None, :, None]).to(
+        du4.dtype).float()                                  # [N,T,CoK,Ci]
+    u = None
+    for t, (oy, ox) in enumerate(taps):
+        ut = torch.einsum("nhwk,nkc->nhwc", _shift(d32, oy, ox), wn[:, t])
+        u = ut if u is None else u + ut
+    return u
+
+
+def modconv_dx_plain(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
+                     post: torch.Tensor, x: torch.Tensor, taps
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dx/ds kernel: ``dx = s * u`` in x's dtype
+    and ``ds = sum_hw x * u`` in fp32, with ``u`` from
+    ``adjoint_u_plain``."""
+    u = adjoint_u_plain(du4, wT, pre, taps)
+    dx = (u * post.float()[:, None, None, :]).to(x.dtype)
+    return dx, (x.float() * u).sum(dim=(1, 2))
+
+
+def modconv_dw_per_sample(x: torch.Tensor, du4: torch.Tensor,
+                          s: torch.Tensor, pre: torch.Tensor, taps
+                          ) -> torch.Tensor:
+    """[N, T, Ci, CoK] fp32: each sample's term of dw, the rank-1 scale
+    ``s_n (x) d_n`` applied to the tap product ``shift_t(x)^T du``."""
+    x32, d32 = x.float(), du4.float()
+    scale = s.float()[:, :, None] * pre.float()[:, None, :]
+    return torch.stack([
+        torch.einsum("nhwc,nhwk->nck", _shift(x32, oy, ox), d32) * scale
+        for oy, ox in taps], dim=1)
+
+
+def modconv_dw_plain(x: torch.Tensor, du4: torch.Tensor, s: torch.Tensor,
+                     pre: torch.Tensor, taps) -> torch.Tensor:
+    """The plain version of the dw kernel: [T, Ci, CoK] in fp32."""
+    return modconv_dw_per_sample(x, du4, s, pre, taps).sum(dim=0)
+
+
+def _act_inv(y32: torch.Tensor, act: str, alpha: float,
+             gain: float) -> torch.Tensor:
+    """u = act^-1(y / gain)."""
+    y32 = y32 / gain
+    if act == "linear":
+        return y32
+    return torch.where(y32 >= 0, y32, y32 / alpha)
+
+
+# --------------------------------------------------------------------------
+# Launch routing and the core's autograd Function
+# --------------------------------------------------------------------------
+
+
+def _core_launch(x, wstack, s, post, bias, kind, act, alpha, gain):
     if kernel_route(x):
         return cuda_modconv.modconv_cuda(x, wstack, s, post, bias, kind, act,
                                          alpha, gain)
     return modconv_plain(x, wstack, s, post, bias, kind, act, alpha, gain)
+
+
+def modconv_dx(du4, wT, pre, post, x, taps):
+    """dx/ds: the kernel for CUDA tensors, the plain version on the CPU."""
+    if kernel_route(du4):
+        return cuda_modconv.modconv_dx_cuda(du4, wT, pre, post, x, taps)
+    return modconv_dx_plain(du4, wT, pre, post, x, taps)
+
+
+def modconv_dw(x, du4, s, pre, taps):
+    """dw: the kernel for CUDA tensors, the plain version on the CPU."""
+    if kernel_route(du4):
+        return cuda_modconv.modconv_dw_cuda(x, du4, s, pre, taps)
+    return modconv_dw_plain(x, du4, s, pre, taps)
+
+
+def _post(kind: str, d: torch.Tensor) -> torch.Tensor:
+    return d.repeat_interleave(4, dim=1) if kind == "poly" else d
+
+
+class ModconvCore(torch.autograd.Function):
+    """x, w, s, d, b -> y = act(d * conv(x * s, w) + b) * gain (or the
+    bare core when ``act`` is None), with w the [kh,kw,Ci,Co] weight in
+    x's dtype and s, d fp32.  The backward follows ``_mc_core_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, s, d, bias, kind, act, alpha, gain):
+        y = _core_launch(x, stack_weights(kind, w), s, _post(kind, d), bias,
+                         kind, act, alpha, gain)
+        ctx.spec = (kind, act, alpha, gain)
+        ctx.save_for_backward(x, w, s, d, bias, y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        kind, act, alpha, gain = ctx.spec
+        x, w, s, d, bias, y = ctx.saved_tensors
+        need_x, need_w, need_s, need_d, need_b = ctx.needs_input_grad[:5]
+        y32, ct32 = y.float(), ct.float()
+        if act is None:
+            du32, c = ct32, y32
+        else:
+            du32 = ct32 * act_grad(y32, act, alpha) * gain
+            c = _act_inv(y32, act, alpha, gain)
+            if bias is not None:
+                c = c - bias.float()
+        db = du32.sum(dim=(0, 1, 2)) if bias is not None and need_b else None
+        # dd = sum_hw du * conv(s x, w): the pre-demod conv recovered from
+        # the saved output (c = d * conv), so no recompute pass
+        dd = ((du32 * c).sum(dim=(1, 2)) / d.float()).to(d.dtype) \
+            if need_d else None
+        du = du32.to(ct.dtype)
+        du4 = (_space_to_depth(du) if kind == "poly" else du).contiguous()
+        pre = _post(kind, d)
+        dx = ds = dw = None
+        if need_x or need_s:
+            _, _, wT = _prep_adjoint(kind, w)
+            dx, ds = modconv_dx(du4, wT, pre, s, x, adjoint_taps(kind))
+            ds = ds.to(s.dtype)
+        if need_w:
+            dwt = modconv_dw(x, du4, s, pre, TAPS[kind])
+            dw = (_poly_dw_fold(dwt, w.shape[2], w.shape[3])
+                  if kind == "poly" else dwt.reshape(w.shape)).to(w.dtype)
+        return (dx if need_x else None, dw, ds if need_s else None, dd, db,
+                None, None, None, None)
+
+
+def _modconv(x, w, s, d, bias, kind, act, alpha, gain):
+    """The core on the kernel's inputs: ``ModconvCore`` when autograd
+    records on the card, else a direct launch (card) or the plain version
+    (CPU, differentiated by autograd)."""
+    if kernel_route(x) and wants_graph(x, w, s, d, bias):
+        return ModconvCore.apply(x, w, s, d, bias, kind, act, alpha, gain)
+    return _core_launch(x, stack_weights(kind, w), s, _post(kind, d), bias,
+                        kind, act, alpha, gain)
 
 
 def modulated_conv2d(
@@ -193,11 +435,8 @@ def modulated_conv2d(
     g = default_gain(act, gain) if act is not None else 1.0
     if up == 1:
         kind = "same1" if kh == 1 else "same3"
-        return _modconv(x, stack_weights(kind, w), s32, d, bias, kind, act,
-                        alpha, g)
-    y = _modconv(x, stack_weights("poly", w), s32,
-                 d.repeat_interleave(4, dim=1), None, "poly", None, alpha,
-                 1.0)
+        return _modconv(x, w, s32, d, bias, kind, act, alpha, g)
+    y = _modconv(x, w, s32, d, None, "poly", None, alpha, 1.0)
     f = setup_filter(resample_filter, gain=float(up * up))
     p = f.shape[0] - 1
     return upfirdn2d(y, f, pad=((p + 1) // 2, p // 2), bias=bias, act=act,

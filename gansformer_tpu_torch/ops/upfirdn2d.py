@@ -4,8 +4,14 @@ The counterpart of ``gansformer_tpu/ops/upfirdn2d.py`` (the XLA op) and of
 the Pallas kernel's optional ``act(y + bias) * gain`` epilogue
 (``ops/pallas_upfirdn.py``).  ``upfirdn2d`` routes by device: a CUDA
 tensor launches the hand-written kernel (``cuda_upfirdn``), a CPU tensor
-runs ``upfirdn2d_plain``.  The plain version is also the kernel's oracle
-on the card.
+runs ``upfirdn2d_plain``, which autograd differentiates.  The plain
+version is also the kernel's oracle on the card.
+
+On the card, when autograd records, the op is ``UpfirdnFunction``: the
+counterpart of ``_ufd_bwd_rule``/``_ufd_ba_bwd_rule``, whose backward
+recovers ``act'`` from the saved output, sums ``db`` in fp32 and runs the
+adjoint (flipped filter, up and down swapped, ``grad_pad4``) through the
+same kernel.  It is first-order only.
 """
 
 from __future__ import annotations
@@ -16,7 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gansformer_tpu_torch.core.device import kernel_route
+from torch.autograd.function import once_differentiable
+
+from gansformer_tpu_torch.core.device import kernel_route, wants_graph
 from gansformer_tpu_torch.ops import cuda_upfirdn
 from gansformer_tpu_torch.ops.fused_bias_act import ACTIVATIONS, default_gain
 
@@ -86,6 +94,103 @@ def upfirdn2d_plain(x: torch.Tensor, f: np.ndarray, up: int, down: int,
     return y.to(x.dtype).contiguous()
 
 
+def grad_pad4(in_h: int, in_w: int, fh: int, fw: int, up: int, down: int,
+              pads: Tuple[int, int, int, int]) -> Tuple[int, int, int, int]:
+    """Padding of the adjoint upfirdn (flipped filter, up and down
+    swapped); a copy of ``pallas_upfirdn.grad_pad4``."""
+    py0, py1, px0, px1 = pads
+    oh, ow = out_hw(in_h, in_w, fh, fw, up, down, pads)
+    return (fh - py0 - 1, in_h * up - oh * down + py0 - up + 1,
+            fw - px0 - 1, in_w * up - ow * down + px0 - up + 1)
+
+
+def adjoint_geometry(in_h: int, in_w: int, f: np.ndarray, up: int,
+                     down: int, pads: Tuple[int, int, int, int],
+                     flip: bool = True):
+    """(filter, up, down, pads) of the adjoint of the upfirdn that took an
+    ``in_h`` x ``in_w`` input.  ``flip=False`` gives what an adjoint that
+    forgot the flip would run: a planted fault for the smoke's control."""
+    fa = np.ascontiguousarray(f[::-1, ::-1] if flip else f, np.float32)
+    return fa, down, up, grad_pad4(in_h, in_w, f.shape[0], f.shape[1], up,
+                                   down, pads)
+
+
+def act_grad(y32: torch.Tensor, act: str, alpha: float) -> torch.Tensor:
+    """act'(u) recovered from the post-act output y (the gain is
+    positive, so lrelu keeps the sign): slope 1 at 0, as ``where(u >=
+    0)`` defines it."""
+    if act == "linear":
+        return torch.ones_like(y32)
+    return torch.where(y32 >= 0, 1.0, alpha).to(y32.dtype)
+
+
+def upfirdn2d_adjoint_plain(ct: torch.Tensor, f: np.ndarray, up: int,
+                            down: int, pads: Tuple[int, int, int, int],
+                            in_hw: Tuple[int, int], flip: bool = True
+                            ) -> torch.Tensor:
+    """The plain version of the adjoint launch: the input-gradient of the
+    forward upfirdn(f, up, down, pads) on an ``in_hw`` input."""
+    fa, up_a, down_a, gp = adjoint_geometry(in_hw[0], in_hw[1], f, up, down,
+                                            pads, flip)
+    return upfirdn2d_plain(ct, fa, up_a, down_a, gp)
+
+
+def upfirdn2d_adjoint(ct: torch.Tensor, f: np.ndarray, up: int, down: int,
+                      pads: Tuple[int, int, int, int],
+                      in_hw: Tuple[int, int]) -> torch.Tensor:
+    """Adjoint launch on the card, plain version on the CPU; the result
+    has exactly the forward input's spatial shape."""
+    if kernel_route(ct):
+        fa, up_a, down_a, gp = adjoint_geometry(in_hw[0], in_hw[1], f, up,
+                                                down, pads)
+        dx = cuda_upfirdn.upfirdn2d_adjoint_cuda(ct, fa, up_a, down_a, gp)
+    else:
+        dx = upfirdn2d_adjoint_plain(ct, f, up, down, pads, in_hw)
+    if tuple(dx.shape[1:3]) != tuple(in_hw):
+        raise RuntimeError(f"upfirdn adjoint gave {tuple(dx.shape)} for an "
+                           f"input of {tuple(in_hw)}")
+    return dx
+
+
+def _upfirdn_launch(x, f, up, down, pads, bias, act, alpha, gain):
+    if kernel_route(x):
+        return cuda_upfirdn.upfirdn2d_cuda(x, f, up, down, pads, bias, act,
+                                           alpha, gain)
+    return upfirdn2d_plain(x, f, up, down, pads, bias, act, alpha, gain)
+
+
+class UpfirdnFunction(torch.autograd.Function):
+    """upfirdn (+ optional ``act(y + bias) * gain``) with the adjoint
+    backward.  Forward and backward launch kernels for CUDA tensors and
+    run the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, bias, f, up, down, pads, act, alpha, gain):
+        y = _upfirdn_launch(x, f, up, down, pads, bias, act, alpha, gain)
+        ctx.geom = (f, up, down, pads, tuple(x.shape[1:3]))
+        ctx.epilogue = (act, alpha, gain, bias is not None)
+        if act is not None:
+            ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        f, up, down, pads, in_hw = ctx.geom
+        act, alpha, gain, has_bias = ctx.epilogue
+        db = None
+        if act is not None:
+            (y,) = ctx.saved_tensors
+            du32 = ct.float() * act_grad(y.float(), act, alpha) * gain
+            if has_bias and ctx.needs_input_grad[1]:
+                db = du32.sum(dim=(0, 1, 2))
+            ct = du32.to(ct.dtype)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = upfirdn2d_adjoint(ct.contiguous(), f, up, down, pads, in_hw)
+        return dx, db, None, None, None, None, None, None, None
+
+
 def upfirdn2d(x: torch.Tensor, f, up: int = 1, down: int = 1, pad: Pad = 0,
               bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
               alpha: float = 0.2, gain: Optional[float] = None
@@ -94,7 +199,8 @@ def upfirdn2d(x: torch.Tensor, f, up: int = 1, down: int = 1, pad: Pad = 0,
     optionally followed by ``act(y + bias) * gain`` (linear/lrelu).
 
     ``f`` is a static 2D filter (``setup_filter`` output).  A CUDA tensor
-    runs the kernel; a CPU tensor runs the plain version.
+    runs the kernel (inside ``UpfirdnFunction`` when autograd records); a
+    CPU tensor runs the plain version.
     """
     assert x.ndim == 4, "expected NHWC"
     f = np.asarray(f, np.float32)
@@ -108,10 +214,10 @@ def upfirdn2d(x: torch.Tensor, f, up: int = 1, down: int = 1, pad: Pad = 0,
         assert act in FUSED_ACTS, (
             f"fused epilogue supports {FUSED_ACTS}, got {act!r}")
         g = default_gain(act, gain)
-    if kernel_route(x):
-        return cuda_upfirdn.upfirdn2d_cuda(x, f, up, down, pads, bias, act,
-                                           alpha, g)
-    return upfirdn2d_plain(x, f, up, down, pads, bias, act, alpha, g)
+    if kernel_route(x) and wants_graph(x, bias):
+        return UpfirdnFunction.apply(x, bias, f, up, down, pads, act, alpha,
+                                     g)
+    return _upfirdn_launch(x, f, up, down, pads, bias, act, alpha, g)
 
 
 def upsample_2d(x: torch.Tensor, f, factor: int = 2,

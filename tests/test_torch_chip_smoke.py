@@ -1,6 +1,7 @@
-"""What of ``chip_smoke.py`` can be checked on the CPU: its launch plan,
-that its library yardsticks compute the kernels' functions, and that it
-fails without a card (here) and without the package beside it."""
+"""What of ``chip_smoke.py`` can be checked on the CPU: its launch plans,
+that its library yardsticks compute the kernels' functions, that its
+planted faults lie outside the tolerances, and that it fails without a
+card (here) and without the package beside it."""
 
 import math
 import os
@@ -13,8 +14,11 @@ import pytest
 import torch
 
 import chip_smoke
+import dataclasses
+
 from gansformer_tpu_torch.core import config as port_config
 from gansformer_tpu_torch.ops import modulated_conv as port_mc
+from gansformer_tpu_torch.ops.cuda_modconv import TAPS
 from gansformer_tpu_torch.ops.attention import attention_plain
 from gansformer_tpu_torch.ops.upfirdn2d import setup_filter, upfirdn2d_plain
 
@@ -25,7 +29,7 @@ def test_launch_plan_of_ffhq256_duplex():
     calls = chip_smoke.main_path_calls(
         port_config.get_preset("ffhq256-duplex"), 8)
     counts = {k: sum(c["kernel"] == k for c in calls)
-              for k in chip_smoke.REPLACES}
+              for k in chip_smoke.SERVE_KERNELS}
     assert counts == {"modconv": 20, "upfirdn": 12, "grid_to_latent": 7,
                       "latent_to_grid": 5}
 
@@ -73,7 +77,7 @@ def test_bound_counts_bytes_and_operations(rng):
         call, torch.float32, torch.Generator().manual_seed(0), dev="cpu")
     assert case["bytes"] == 4 * (2 * 16 * 8 + 2 * 4 * 8 * 2 + 2 * 16 * 8)
     assert math.isclose(case["ops"], 2.0 * 2 * 16 * 4 * 16)
-    assert case["fault"] is None
+    assert case["controls"] == []
 
 
 def test_bound_counts_nine_taps_for_the_up_conv():
@@ -100,11 +104,12 @@ def test_dropped_chunk_control_exceeds_the_bf16_tolerance():
         chunk=16)
     ref = case["plain"]()
     tol = chip_smoke.KERNEL_TOL["bfloat16"] * float(ref.abs().max())
-    assert float((case["fault"]() - ref).abs().max()) > tol
+    (control,) = case["controls"]
+    assert float((control["fault"]() - ref).abs().max()) > tol
     case = chip_smoke.build_case(
         call, torch.float32, torch.Generator().manual_seed(0), dev="cpu",
         chunk=64)
-    assert case["fault"] is None
+    assert case["controls"] == []
 
 
 def test_fails_without_cuda_or_without_the_package(tmp_path):
@@ -117,3 +122,103 @@ def test_fails_without_cuda_or_without_the_package(tmp_path):
     alone = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                            capture_output=True, text=True, timeout=120)
     assert alone.returncode != 0 and '"ok"' not in alone.stdout
+
+
+def test_train_launch_plan_of_ffhq256_attention_none():
+    """One d_step: G's forward, D on reals and fakes, D's backward through
+    both; one g_step: G's forward, D on the fakes, the backward of both
+    (PERF.md section 6, rows 5-7)."""
+    cfg = dataclasses.replace(port_config.get_preset("ffhq256-duplex"),
+                              attention="none")
+    calls = chip_smoke.train_path_calls(cfg, 8)
+    zero = dict.fromkeys(chip_smoke.REPLACES, 0)
+    assert chip_smoke.plan_counts(calls, "d_step") == dict(
+        zero, modconv=20, upfirdn=36, upfirdn_adjoint=24)
+    assert chip_smoke.plan_counts(calls, "g_step") == dict(
+        zero, modconv=20, upfirdn=24, modconv_dx=20, modconv_dw=20,
+        upfirdn_adjoint=24)
+    labels = {c["label"] for c in calls}
+    assert set(chip_smoke.TRAIN_FLAGSHIP) <= labels
+
+
+@pytest.mark.parametrize("kind", ["same3", "same1", "poly"])
+@pytest.mark.parametrize("which", ["dx", "dw"])
+def test_library_conv_grad_computes_the_backward(rng, kind, which):
+    """The cuDNN yardstick of kernels 5 and 6 (s = d = 1) is the plain
+    backward on the same inputs."""
+    k = 1 if kind == "same1" else 3
+    up = 2 if kind == "poly" else 1
+    x, w = _t(rng, 2, 5, 4, 6), _t(rng, k, k, 6, 3) * 0.3
+    du = _t(rng, 2, 5 * up, 4 * up, 3)
+    s, d = torch.ones(2, 6), torch.ones(2, 3)
+    du4 = port_mc._space_to_depth(du) if kind == "poly" else du
+    pre = port_mc._post(kind, d)
+    lib = chip_smoke.library_conv_grad(x, w, du, kind, which)()
+    if which == "dx":
+        _, _, wT = port_mc._prep_adjoint(kind, w)
+        ref, _ = port_mc.modconv_dx_plain(du4, wT, pre, s, x,
+                                          port_mc.adjoint_taps(kind))
+        got = lib[0].permute(0, 2, 3, 1)
+    else:
+        dwt = port_mc.modconv_dw_plain(x, du4, s, pre, TAPS[kind])
+        ref = (port_mc._poly_dw_fold(dwt, 6, 3) if kind == "poly"
+               else dwt.reshape(w.shape))
+        got = lib[1].permute(2, 3, 1, 0)
+        if kind == "poly":                 # [Ci, Co, kh, kw], flipped
+            got = torch.flip(lib[1].permute(2, 3, 0, 1), (0, 1))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("kname", ["modconv_dx", "modconv_dw",
+                                   "upfirdn_adjoint"])
+def test_backward_controls_exceed_the_tolerances(kname):
+    """Each planted fault of the backward kernels lies outside its output's
+    bf16 tolerance wherever it changes anything (the symmetric blur filter
+    makes the unflipped adjoint exact), and the bound counts the
+    forward's multiply-adds for the modconv backward."""
+    call = dict(kernel=kname, label="t", kind="same3", B=4, H=16, Ci=8,
+                Co=8, act=None, C=8, up=1, down=1, pads=(2, 1, 2, 1))
+    case = chip_smoke.build_case(
+        call, torch.float32, torch.Generator().manual_seed(0), dev="cpu")
+    ref = chip_smoke._tuple(case["plain"]())
+    assert case["controls"]
+    changed = 0
+    for ctl in case["controls"]:
+        base = (chip_smoke._tuple(ctl["plain"]()) if "plain" in ctl
+                else ref)[ctl["out"]]
+        kind = case["outputs"][ctl["out"]]
+        tol = chip_smoke.TOLS[kind]["bfloat16"] * float(base.abs().max())
+        err = float((chip_smoke._tuple(ctl["fault"]())[0] - base)
+                    .abs().max())
+        assert err == 0.0 or err > tol, ctl["desc"]
+        changed += err > 0
+    assert changed >= 1
+    if kname != "upfirdn_adjoint":
+        assert math.isclose(case["ops"], 2.0 * 4 * 16 * 16 * 9 * 8 * 8)
+
+
+def test_ptxas_summary_reads_registers_and_spills():
+    """The smoke reports each kernel's registers and spills from the
+    build's ``-Xptxas -v`` log, by demangled name."""
+    ns = "_GLOBAL__N__b9f88356_14_modconv_bwd_cu_b3b38dcb"
+
+    def sym(name, rest):
+        return f"_ZN{len(ns)}{ns}{len(name)}{name}{rest}"
+
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function "
+        f"'{sym('dw_fma_kernel', 'I13__nv_bfloat16EEvPKT_')}' for 'sm_90a'",
+        "    80 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 8704 bytes smem",
+        f"ptxas info    : Compiling entry function "
+        f"'{sym('dw_wmma_kernel', 'EPK13__nv_bfloat16')}' for 'sm_90a'",
+        "    208 bytes stack frame, 124 bytes spill stores, 132 bytes spill "
+        "loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function "
+        f"'{sym('dx_fma_kernel', 'IfEEvPKT_')}' for 'sm_90a'",
+        "ptxas info    : Used 63 registers, used 1 barriers"])
+    assert chip_smoke.ptxas_summary(log) == [
+        ("dw_fma_kernel<bf16>", 64, 0), ("dw_wmma_kernel", 255, 124),
+        ("dx_fma_kernel<float>", 63, 0)]
