@@ -23,29 +23,44 @@ In order:
 5. compares the card's images (fp32 and bf16 kernels) with the plain path
    on the host CPU (fp32) at batch 2 and noise off: a wrapper never routes
    a CUDA tensor to its plain version, so the host run is the plain path;
-6. training (ffhq256 with ``attention='none'``, full width and depth,
-   batch 8, bf16, random init from seed 0, procedural reals).  For every
-   backward launch of one d_step and one g_step (modconv dx/ds, modconv
-   dw, upfirdn adjoint), and of the discriminator's forward upfirdn
-   launches, the kernel against its plain version (bf16; fp32 too at the
-   flagship shapes), timed like phase 3, with planted-fault controls the
-   tolerance must reject: dw with one sample's term dropped, ds with one
-   64-pixel tile's partial dropped, the adjoint with its filter not
-   flipped (at the path's symmetric filter that changes nothing, so each
-   adjoint geometry also runs with an asymmetric filter);
+6. training (the ffhq256-duplex preset itself: full width and depth,
+   attention on, batch 8, bf16, random init from seed 0, noise on, style
+   mixing 0.9, procedural reals).  For every backward launch of one
+   d_step and one g_step (modconv dx/ds, modconv dw, upfirdn adjoint,
+   grid->latent and latent->grid backward), every forward attention
+   launch that writes ``lse`` (G's in the g_step; G's forward in the
+   d_step runs under no_grad and writes none), and the discriminator's
+   forward upfirdn launches: the kernel against its plain version (bf16;
+   fp32 too at the flagship shapes), timed like phase 3 (the attention
+   backward's yardstick is the backward alone of
+   ``scaled_dot_product_attention``, with the backend PyTorch picked),
+   with planted-fault controls the tolerance must reject: dw with one
+   sample's term dropped, ds with one 64-pixel tile's partial dropped,
+   the adjoint with its filter not flipped (at the path's symmetric
+   filter that changes nothing, so each adjoint geometry also runs with
+   an asymmetric filter), the attention backward with one chunk's
+   partial dropped (dk/dv of grid->latent, dq of latent->grid) and with
+   its row correction delta left out, and lse without log(den);
 7. drives ``d_step`` + ``g_step`` with the counters reset just before and
-   read just after each, and checks them against the launch plan; then 3
-   more alternating iterations: finite losses, every gradient leaf
-   finite and nonzero, parameters and EMA moved; ms per step by CUDA
-   events and the profiler's breakdown;
+   read just after each, and checks them (and the launches that wrote
+   lse) against the launch plan; then 3 more alternating iterations:
+   finite losses, every gradient leaf finite and nonzero, parameters and
+   EMA moved; ms per step by CUDA events and the profiler's breakdown;
+   then the preset with ``d_attention`` (one d_step + one g_step): its
+   counters against its plan, finite losses and gradients, and any
+   attention launch shape the preset's run did not hold against its
+   plain version;
 8. one d_step and one g_step in fp32 at batch 2 (noise off, mixing off)
    on the card and on the host: every gradient leaf held to the host's,
-   D's and G's apart; then G alone, both sides given the host's gradient
-   of the loss wrt the images (D's cuDNN convolutions out of the chain);
+   D's and G's apart, the attention leaves printed apart; then G alone,
+   both sides given the host's gradient of the loss wrt the images (D's
+   cuDNN convolutions out of the chain);
 9. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
    Every number of a kernel in the JSON line covers that kernel's
-   ``span``: the serve run's launches for the forward kernels, one
-   d_step + one g_step for the backward kernels.
+   ``span``: the serve run's launches for the forward kernels (and, in a
+   second entry with ``"lse": true``, the forward attention launches of
+   one d_step + one g_step that write lse), one d_step + one g_step for
+   the backward kernels.
 
 Exits non-zero, printing no result, on any failure, without CUDA, or
 without the ``gansformer_tpu_torch`` package beside it.
@@ -69,6 +84,8 @@ REPLACES = {
     "modconv_dx": "gansformer_tpu/ops/pallas_modconv.py:424",
     "modconv_dw": "gansformer_tpu/ops/pallas_modconv.py:472",
     "upfirdn_adjoint": "gansformer_tpu/ops/pallas_upfirdn.py:423",
+    "grid_to_latent_bwd": "gansformer_tpu/ops/pallas_attention.py:253",
+    "latent_to_grid_bwd": "gansformer_tpu/ops/pallas_attention.py:450",
 }
 SOURCES = {
     "modconv": "gansformer_tpu_torch/csrc/modconv.cu",
@@ -78,9 +95,13 @@ SOURCES = {
     "modconv_dx": "gansformer_tpu_torch/csrc/modconv_bwd.cu",
     "modconv_dw": "gansformer_tpu_torch/csrc/modconv_bwd.cu",
     "upfirdn_adjoint": "gansformer_tpu_torch/csrc/upfirdn.cu",
+    "grid_to_latent_bwd": "gansformer_tpu_torch/csrc/attention_bwd.cu",
+    "latent_to_grid_bwd": "gansformer_tpu_torch/csrc/attention_bwd.cu",
 }
 SERVE_KERNELS = ("modconv", "upfirdn", "grid_to_latent", "latent_to_grid")
-TRAIN_KERNELS = ("modconv_dx", "modconv_dw", "upfirdn_adjoint")
+TRAIN_KERNELS = ("modconv_dx", "modconv_dw", "upfirdn_adjoint",
+                 "grid_to_latent_bwd", "latent_to_grid_bwd")
+ATTENTION_KERNELS = ("grid_to_latent", "latent_to_grid")
 # Kernel-vs-plain tolerance on max |err|, relative to max |plain| of the
 # same launch and output (no floor).  "out": outputs in the compute dtype:
 # fp32 differs only by summation order over <= 4608 terms; bf16 outputs
@@ -90,10 +111,15 @@ TRAIN_KERNELS = ("modconv_dx", "modconv_dw", "upfirdn_adjoint")
 # backward (ds, dw), whose kernels and plain versions form the same
 # products (bf16 x bf16 is exact in fp32, the demod is folded and rounded
 # at the same place) and differ only in the order of fp32 sums over up to
-# 8 * 65536 terms, tensor-core accumulation included.
+# 8 * 65536 terms, tensor-core accumulation included.  "stat": the
+# attention forward's fp32 row statistic lse, computed in fp32 from the
+# same inputs on both sides whatever the storage dtype, so it takes the
+# fp32 tolerance in bf16 too.  The attention backward's dq, dk, dv are
+# "out": fp32 inside, rounded to the dtype once at the end on both sides.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ACC_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
-TOLS = {"out": KERNEL_TOL, "acc": ACC_TOL}
+STAT_TOL = {"float32": 1e-4, "bfloat16": 1e-4}
+TOLS = {"out": KERNEL_TOL, "acc": ACC_TOL, "stat": STAT_TOL}
 # The serve run's buckets: one synthesize at each batch size.
 BUCKETS = (1, 2, 4, 8)
 TRAIN_BATCH = 8
@@ -107,7 +133,8 @@ MODEL_TOL = {"float32": 2e-3, "bfloat16": 1e-1}
 # where a leaf's gradient is a sum of mixed-sign terms over batch and
 # pixels (the style affines' biases); an H100 gave up to 1.952e-3 there.
 # A kernel fault (a dropped tile, sample or tap; a wrong flip) moves a
-# leaf by tens of percent.
+# leaf by tens of percent.  The attention's key biases have an exact
+# gradient of zero (``_key_bias``) and are held at their weight's scale.
 GRAD_TOL = 1e-2
 # Published dense peaks by card (bytes/s, bf16 tensor flop/s, fp32 flop/s).
 PEAKS = {
@@ -137,8 +164,9 @@ def card_peaks(name: str):
 # --------------------------------------------------------------------------
 
 
-def main_path_calls(cfg, batch: int):
-    """Every kernel launch of one ``synthesize`` at ``cfg``, in order."""
+def main_path_calls(cfg, batch: int, lse: bool = False):
+    """Every kernel launch of one ``synthesize`` at ``cfg``, in order; the
+    attention launches write ``lse`` when a graph is wanted (``lse``)."""
     calls = []
     k = cfg.components
     attn = set(cfg.attn_resolutions())
@@ -164,11 +192,11 @@ def main_path_calls(cfg, batch: int):
                         else "latent_to_grid",
                         label=f"b{res} centroid", B=batch * cfg.num_heads,
                         Lq=k, Lk=n, D=nf // cfg.num_heads,
-                        Dv=cfg.w_dim // cfg.num_heads))
+                        Dv=cfg.w_dim // cfg.num_heads, lse=lse))
             calls.append(dict(
                 kernel="grid_to_latent" if n >= k else "latent_to_grid",
                 label=f"b{res} main", B=batch * cfg.num_heads, Lq=n, Lk=k,
-                D=nf // cfg.num_heads, Dv=nf // cfg.num_heads))
+                D=nf // cfg.num_heads, Dv=nf // cfg.num_heads, lse=lse))
         calls.append(dict(kernel="modconv", label=f"b{res}_trgb same1",
                           kind="same1", B=batch, H=res, Ci=nf,
                           Co=cfg.img_channels, act="linear"))
@@ -181,12 +209,27 @@ def main_path_calls(cfg, batch: int):
 
 
 def d_forward_calls(cfg, batch: int, tag: str):
-    """The upfirdn launches of one discriminator forward: per residual
-    block the blur-pool before the stride-2 3x3 conv (pad 2, output
-    r + 1) and the decimated 1x1 skip (down 2, pad 1)."""
+    """The kernel launches of one discriminator forward: per residual
+    block, with ``d_attention`` and the block in the attention window,
+    the duplex attention's two launches (the d_components queries over
+    the grid, then the grid over the queries; both write ``lse``, since
+    D's parameters always want a graph), then the blur-pool before the
+    stride-2 3x3 conv (pad 2, output r + 1) and the decimated 1x1 skip
+    (down 2, pad 1)."""
     calls = []
     cin = cfg.nf(cfg.resolution)
+    k, h = cfg.d_components, cfg.num_heads
     for res in reversed(cfg.block_resolutions[1:]):
+        if cfg.d_attention and cfg.attn_start_res <= res <= cfg.attn_max_res:
+            n = res * res
+            calls.append(dict(
+                kernel="grid_to_latent" if k >= n else "latent_to_grid",
+                label=f"D{tag} b{res} centroid", B=batch * h, Lq=k, Lk=n,
+                D=cin // h, Dv=cfg.w_dim // h, lse=True))
+            calls.append(dict(
+                kernel="grid_to_latent" if n >= k else "latent_to_grid",
+                label=f"D{tag} b{res} main", B=batch * h, Lq=n, Lk=k,
+                D=cin // h, Dv=cin // h, lse=True))
         calls.append(dict(kernel="upfirdn", label=f"D{tag} b{res} blur-pool",
                           B=batch, H=res, C=cin, up=1, down=1,
                           pads=(2, 2, 2, 2), gain=1.0))
@@ -210,41 +253,59 @@ def backward_calls(fwd):
                               label=c["label"] + " dx/ds"))
             calls.append(dict(c, kernel="modconv_dw",
                               label=c["label"] + " dw"))
+        elif c["kernel"] in ATTENTION_KERNELS:
+            calls.append(dict(c, kernel=c["kernel"] + "_bwd", lse=False,
+                              label=c["label"] + " backward"))
     return calls
 
 
 def train_path_calls(cfg, batch: int):
-    """Every kernel launch of one d_step and one g_step at ``cfg`` (which
-    has no generator attention), forward and backward, each tagged with
-    its ``phase``.  d_step: G's forward under no_grad, D on reals and on
-    fakes, D's backward through both.  g_step: G's forward, D on the
-    fakes, the backward through D's activations and all of G."""
-    g_fwd = main_path_calls(cfg, batch)
+    """Every kernel launch of one d_step and one g_step at ``cfg``, forward
+    and backward, each tagged with its ``phase``.  d_step: G's forward
+    under no_grad (its attention launches write no ``lse``), D on reals
+    and on fakes, D's backward through both.  g_step: G's forward (its
+    attention launches write ``lse``), D on the fakes, the backward
+    through D's activations and all of G."""
+    g_fwd = main_path_calls(cfg, batch, lse=True)
     d_real, d_fake = d_forward_calls(cfg, batch, "r"), \
         d_forward_calls(cfg, batch, "f")
-    d_step = g_fwd + d_real + d_fake + backward_calls(d_fake) \
-        + backward_calls(d_real)
+    d_step = main_path_calls(cfg, batch) + d_real + d_fake \
+        + backward_calls(d_fake) + backward_calls(d_real)
     g_step = g_fwd + d_fake + backward_calls(g_fwd + d_fake)
     return ([dict(c, phase="d_step") for c in d_step]
             + [dict(c, phase="g_step") for c in g_step])
 
 
-def attention_backward_bounds(cfg, batch: int, peaks):
+def attention_cost(call, itemsize: int):
+    """(bytes, operations) of one attention launch in a dtype of
+    ``itemsize`` bytes, each input read once and each output written
+    once.  Forward: q, k, v read, o written (+ the fp32 lse when written);
+    2 Lq Lk (D + Dv) operations.  Backward: q, k, v, do and the fp32 lse
+    read (latent_to_grid also reads its fp32 delta), dq, dk, dv written;
+    the five products of a flash-attention backward (S recomputed, dV, dP,
+    dQ, dK), 2 Lq Lk (3 D + 2 Dv) operations."""
+    b, lq, lk, d, dv = call["B"], call["Lq"], call["Lk"], call["D"], \
+        call["Dv"]
+    if call["kernel"] in ATTENTION_KERNELS:
+        nbytes = (b * lq * d + b * lk * d + b * lk * dv + b * lq * dv) \
+            * itemsize + (4 * b * lq if call.get("lse") else 0)
+        return nbytes, 2.0 * b * lq * lk * (d + dv)
+    stats = 2 if call["kernel"] == "latent_to_grid_bwd" else 1
+    nbytes = (2 * (b * lq * d + b * lk * d + b * lk * dv) + b * lq * dv) \
+        * itemsize + 4 * b * lq * stats
+    return nbytes, 2.0 * b * lq * lk * (3 * d + 2 * dv)
+
+
+def attention_backward_bounds(cfg, batch: int, peaks, itemsize: int = 2):
     """Launches per g_step and bound (ms) of the two attention backward
-    kernels, not ported yet (PERF.md section 6, rows 8 and 9), at the
-    attention launches of one synthesize of ``cfg`` in bf16: each forward
-    launch has one backward launch.  Bytes: q, k, v, o, do read and dq,
-    dk, dv written once, plus the fp32 row statistic; operations: the
-    five products of a flash-attention backward (S recomputed, dV, dP,
-    dQ, dK), 2 Lq Lk (3 D + 2 Dv) per head."""
+    kernels (PERF.md section 6, rows 8 and 9) at the attention launches
+    of one synthesize of ``cfg``: each forward launch has one backward
+    launch; bytes and operations by ``attention_cost``."""
     out = {}
-    for c in main_path_calls(cfg, batch):
-        if c["kernel"] not in ("grid_to_latent", "latent_to_grid"):
+    for c in backward_calls(main_path_calls(cfg, batch, lse=True)):
+        if c["kernel"] not in ("grid_to_latent_bwd", "latent_to_grid_bwd"):
             continue
-        b, lq, lk, d, dv = c["B"], c["Lq"], c["Lk"], c["D"], c["Dv"]
-        nbytes = 2 * (2 * b * lq * d + 2 * b * lk * d + 2 * b * lk * dv
-                      + 2 * b * lq * dv) + 4 * b * lq
-        ops = 2.0 * b * lq * lk * (3 * d + 2 * dv)
+        nbytes, ops = attention_cost(c, itemsize)
         row = out.setdefault(c["kernel"], dict(launches=0, bound_ms=0.0,
                                                bytes_ms=0.0, ops_ms=0.0))
         row["launches"] += 1
@@ -257,6 +318,14 @@ def attention_backward_bounds(cfg, batch: int, peaks):
 def plan_counts(calls, phase):
     return {k: sum(c["kernel"] == k and c["phase"] == phase for c in calls)
             for k in REPLACES}
+
+
+def plan_lse_counts(calls, phase):
+    """Of the plan's forward attention launches in ``phase``, those that
+    write ``lse``."""
+    return {k: sum(c["kernel"] == k and c["phase"] == phase
+                   and bool(c.get("lse")) for c in calls)
+            for k in ATTENTION_KERNELS}
 
 
 def library_modconv(xs, w, kind):
@@ -331,6 +400,26 @@ def library_attention(q, k, v):
                                                   v[:, None])[:, 0]
 
 
+def library_attention_bwd(q, k, v, do):
+    """The backward alone of scaled_dot_product_attention on one head: the
+    graph is built here, the call is ``torch.autograd.grad`` with
+    ``retain_graph``.  Returns (call, backend): the backend that PyTorch
+    picked (flash, efficient, cudnn or math), read from the graph."""
+    import torch
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach()[:, None].requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg)
+    node = type(out.grad_fn).__name__
+    backend = next((name for key, name in (("Flash", "flash"),
+                                           ("Efficient", "efficient"),
+                                           ("Cudnn", "cudnn"))
+                    if key in node), "math")
+    ct = do[:, None]
+    return (lambda: tuple(g[:, 0] for g in torch.autograd.grad(
+        out, (qg, kg, vg), ct, retain_graph=True))), backend
+
+
 def _modconv_inputs(call, dtype, randn):
     """x, w, s, d, the cotangent ``du`` of the core's output, and what the
     backward kernels take (du4, pre, wT) for one modconv launch."""
@@ -360,14 +449,14 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
     dict with ``desc``, the output index ``out`` it perturbs and ``fault``
     (what a broken kernel would give), and optionally its own ``kernel``
     and ``plain`` (a control on other inputs of the same launch).
-    latent_to_grid's fault drops one of its ``chunk``-key chunks (the
-    kernel's own chunk unless given)."""
+    latent_to_grid's fault drops one of its ``chunk``-key chunks, and the
+    attention backward's faults one of their ``chunk``-row chunks (the
+    kernel's own chunk unless given).  The attention backward's case also
+    names the SDPA backend of its library call (``library_backend``)."""
     import torch
 
-    from gansformer_tpu_torch.ops import _build, cuda_attention, \
-        cuda_modconv, cuda_upfirdn
+    from gansformer_tpu_torch.ops import cuda_modconv, cuda_upfirdn
     from gansformer_tpu_torch.ops import modulated_conv as mc
-    from gansformer_tpu_torch.ops.attention import attention_plain
     from gansformer_tpu_torch.ops.upfirdn2d import (adjoint_geometry,
                                                     out_hw, setup_filter,
                                                     upfirdn2d_adjoint_plain,
@@ -491,30 +580,114 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
         ops = 2.0 * out_elems * f.size / (eff_up * eff_up)
         return dict(kernel=kern, plain=plain, library=lib, bytes=nbytes,
                     ops=ops, outputs=("out",), controls=controls)
+    return _attention_case(call, dtype, randn, dev, chunk)
+
+
+def _without_middle_chunk(n: int, chunk: int, dev):
+    """Indices 0..n-1 without the middle ``chunk``-row chunk, or None when
+    n fits in one chunk."""
+    import torch
+
+    if n <= chunk:
+        return None
+    c0 = (-(-n // chunk) // 2) * chunk
+    return torch.cat([torch.arange(0, c0, device=dev),
+                      torch.arange(c0 + chunk, n, device=dev)])
+
+
+def _attention_case(call, dtype, randn, dev, chunk):
+    """``build_case`` for the four attention kernels.  Forward: o (and
+    lse when the call writes it).  Backward: dq, dk, dv on the forward's
+    lse (and, for latent_to_grid, delta = rowsum(do * o)) computed by the
+    plain version on the same inputs."""
+    import torch
+
+    from gansformer_tpu_torch.ops import _build, cuda_attention
+    from gansformer_tpu_torch.ops.attention import (attention_bwd_plain,
+                                                    attention_delta,
+                                                    attention_fwd_stats_plain,
+                                                    attention_plain)
+
+    kname = call["kernel"]
     b, lq, lk, d, dv = call["B"], call["Lq"], call["Lk"], call["D"], \
         call["Dv"]
+    it = torch.tensor([], dtype=dtype).element_size()
+    nbytes, ops = attention_cost(call, it)
     q = randn(b, lq, d).to(dtype)
     k = randn(b, lk, d).to(dtype)
-    v = randn(b, lk, dv).to(dtype)
-    fn = (cuda_attention.grid_to_latent_cuda
-          if kname == "grid_to_latent"
-          else cuda_attention.latent_to_grid_cuda)
-    nbytes = (q.numel() + k.numel() + v.numel() + b * lq * dv) * it
-    ops = 2.0 * b * lq * lk * (d + dv)
+    v = randn(b, lk, dv)
+    if kname == "latent_to_grid_bwd":
+        # values with a mean of 1, as real features have: zero-mean values
+        # average to o ~ 0 over thousands of keys, delta = rowsum(do * o)
+        # would be ~0 and the kernel's delta path would go untested
+        v = v + 1.0
+    v = v.to(dtype)
     controls = []
-    if kname == "latent_to_grid":
-        chunk = chunk or _build.load_library().gt_attn_chunk()
-        if lk > chunk:
-            c0 = (-(-lk // chunk) // 2) * chunk       # the middle chunk
-            keep = torch.cat([torch.arange(0, c0, device=dev),
-                              torch.arange(c0 + chunk, lk, device=dev)])
+    if kname in ATTENTION_KERNELS:
+        fn = (cuda_attention.grid_to_latent_cuda
+              if kname == "grid_to_latent"
+              else cuda_attention.latent_to_grid_cuda)
+        lse = bool(call.get("lse"))
+        if kname == "latent_to_grid":
+            keep = _without_middle_chunk(
+                lk, chunk or _build.load_library().gt_attn_chunk(), dev)
+            if keep is not None:
+                controls.append(dict(
+                    desc="drop-one-chunk", out=0,
+                    fault=lambda: attention_plain(q, k[:, keep], v[:, keep])))
+        if lse:
+            def max_alone():
+                s = torch.einsum("bnd,bld->bnl", q.float(), k.float())
+                return s.amax(dim=-1) / math.sqrt(d)
+
+            controls.append(dict(desc="lse = max without log(den)", out=1,
+                                 fault=max_alone))
+        return dict(
+            kernel=lambda: fn(q, k, v, with_stats=lse),
+            plain=((lambda: attention_fwd_stats_plain(q, k, v)) if lse
+                   else (lambda: attention_plain(q, k, v))),
+            library=library_attention(q, k, v), bytes=nbytes, ops=ops,
+            outputs=("out", "stat") if lse else ("out",), controls=controls)
+    do = randn(b, lq, dv).to(dtype)
+    o, lse = attention_fwd_stats_plain(q, k, v)
+    chunk = chunk or _build.load_library().gt_attn_bwd_rows()
+    library, backend = library_attention_bwd(q, k, v, do)
+    if kname == "grid_to_latent_bwd":
+        args = (q, k, v, lse, do)
+        kern = lambda: cuda_attention.grid_to_latent_bwd_cuda(*args)  # noqa
+        keep = _without_middle_chunk(lq, chunk, dev)
+        if keep is not None:
+            def drop(i):
+                return lambda: attention_bwd_plain(
+                    q[:, keep], k, v, lse[:, keep], do[:, keep])[i]
+
+            controls += [dict(desc="dk without one row chunk's partial",
+                              out=1, fault=drop(1)),
+                         dict(desc="dv without one row chunk's partial",
+                              out=2, fault=drop(2))]
+        zero = torch.zeros_like(lse)
+        controls += [dict(desc=f"{name} with dS = P dP (no delta)", out=i,
+                          fault=lambda i=i: attention_bwd_plain(
+                              *args, delta=zero)[i])
+                     for i, name in ((0, "dq"), (1, "dk"))]
+    else:
+        delta = attention_delta(o, do)
+        args = (q, k, v, lse, do, delta)
+        kern = lambda: cuda_attention.latent_to_grid_bwd_cuda(*args)  # noqa
+        keep = _without_middle_chunk(lk, chunk, dev)
+        if keep is not None:
             controls.append(dict(
-                desc="drop-one-chunk", out=0,
-                fault=lambda: attention_plain(q, k[:, keep], v[:, keep])))
-    return dict(kernel=lambda: fn(q, k, v),
-                plain=lambda: attention_plain(q, k, v),
-                library=library_attention(q, k, v), bytes=nbytes, ops=ops,
-                outputs=("out",), controls=controls)
+                desc="dq without one key chunk's partial", out=0,
+                fault=lambda: attention_bwd_plain(
+                    q, k[:, keep], v[:, keep], lse, do, delta)[0]))
+        zero = torch.zeros_like(delta)
+        controls += [dict(desc=f"{name} with delta = 0", out=i,
+                          fault=lambda i=i: attention_bwd_plain(
+                              q, k, v, lse, do, zero)[i])
+                     for i, name in ((0, "dq"), (1, "dk"))]
+    return dict(kernel=kern, plain=lambda: attention_bwd_plain(*args),
+                library=library, library_backend=backend, bytes=nbytes,
+                ops=ops, outputs=("out", "out", "out"), controls=controls)
 
 
 def time_ms(fn) -> float:
@@ -612,15 +785,19 @@ def check_kernels(calls, dtype_name, peaks, show: bool = True):
                    ops_ms=case["ops"] / rate * 1e3,
                    ms=time_ms(case["kernel"]),
                    plain_ms=time_ms(case["plain"]),
-                   library_ms=time_ms(case["library"]))
+                   library_ms=time_ms(case["library"]),
+                   library_backend=case.get("library_backend"))
         rows.append(row)
         if show:
             errs_s = "/".join(f"{e:.3e}" for e in errs)
             tols_s = "/".join(f"{t:.1e}" for t in tols)
-            print(f"  {call['kernel']:15s} {call['label']:28s} "
-                  f"{dtype_name:9s} max|err| {errs_s} (tol {tols_s}) ok "
+            backend = (f" (sdpa {row['library_backend']})"
+                       if row["library_backend"] else "")
+            print(f"  {call['kernel']:18s} {call['label']:28s} "
+                  f"{dtype_name:9s}{' lse' if call.get('lse') else ''} "
+                  f"max|err| {errs_s} (tol {tols_s}) ok "
                   f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
-                  f"library {row['library_ms']:.4f} bound "
+                  f"library {row['library_ms']:.4f}{backend} bound "
                   f"{max(row['bytes_ms'], row['ops_ms']):.4f} ms"
                   + "".join(f"; {n}" for n in notes), flush=True)
         del case
@@ -644,6 +821,8 @@ def kernel_sums(rows, names):
             "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rs),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": sum(r["library_ms"] for r in rs),
+            "library_backends": sorted({r["library_backend"] for r in rs
+                                        if r["library_backend"]}),
         }
     return out
 
@@ -651,9 +830,11 @@ def kernel_sums(rows, names):
 def print_sums(title, sums):
     print(title, flush=True)
     for kname, s in sums.items():
-        print(f"    {kname:15s} {s['launches']:3d} launches  kernel "
+        backends = (f" (sdpa {'/'.join(s['library_backends'])})"
+                    if s["library_backends"] else "")
+        print(f"    {kname:18s} {s['launches']:3d} launches  kernel "
               f"{s['ms']:8.4f} ms  plain {s['plain_ms']:8.4f}  library "
-              f"{s['library_ms']:8.4f}  bound {s['bound_ms']:.4f} "
+              f"{s['library_ms']:8.4f}{backends}  bound {s['bound_ms']:.4f} "
               f"({s['bound_by']})  worst err/tol "
               f"{s['worst_err_over_tol']:.3f}", flush=True)
 
@@ -666,7 +847,9 @@ FLAGSHIP = ("b256_conv same3", "b256 blur", "b128_conv_up poly",
 TRAIN_FLAGSHIP = ("b256_conv same3 dx/ds", "b256_conv same3 dw",
                   "b256_conv_up poly dx/ds", "b256_conv_up poly dw",
                   "b256_trgb same1 dx/ds", "b256_trgb same1 dw",
-                  "Df b256 blur-pool adjoint")
+                  "Df b256 blur-pool adjoint", "b128 main backward",
+                  "b128 centroid backward", "b8 main backward",
+                  "b128 main", "b128 centroid", "b8 main")
 
 
 # --------------------------------------------------------------------------
@@ -721,6 +904,8 @@ def serve_run(cfg, expected):
     for name in SERVE_KERNELS:
         if counts[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
+    if any(ops.lse_launch_counts().values()):
+        fail(f"the serve path wrote lse: {ops.lse_launch_counts()}")
     # throughput at the largest bucket (host clock around synchronized
     # work; excludes the first call, which the loop above already warmed)
     seeds = list(range(200, 208))
@@ -739,7 +924,9 @@ def serve_run(cfg, expected):
     return bundle, counts, synth_s
 
 
-KERNEL_GROUPS = (("modconv dx/ds", "dx_"), ("modconv dx/ds", "ds_reduce"),
+KERNEL_GROUPS = (("grid_to_latent bwd", "g2l_bwd"),
+                 ("latent_to_grid bwd", "l2g_bwd"),
+                 ("modconv dx/ds", "dx_"), ("modconv dx/ds", "ds_reduce"),
                  ("modconv dw", "dw_"), ("modconv", "modconv_"),
                  ("upfirdn", "upfirdn_kernel"),
                  ("grid_to_latent", "g2l_kernel"),
@@ -840,22 +1027,83 @@ def _named_grads(state):
     return out
 
 
-def train_run(model, train, calls):
-    """One d_step + one g_step with the counters read around each, then
-    3 more iterations; returns the launch counts of the first d_step +
-    g_step and the step times."""
+def train_state_on_card(model, train):
+    """A random train state on the card (seed 0) with the noise strengths
+    and the ReZero gates of the generator's attention styles made
+    non-zero, so no path is trivially off."""
+    from gansformer_tpu_torch.train import create_train_state
+
+    state = create_train_state(model, train, seed=0, device="cuda")
+    perturb(state.generator)
+    return state
+
+
+def counted_steps(state, reals, calls):
+    """One d_step and one g_step with the counters reset just before and
+    read just after each, held to the plan (kernel launches and the
+    attention launches that wrote lse); returns the counts per phase and
+    the lse counts over both steps."""
     import torch
 
     from gansformer_tpu_torch import ops
-    from gansformer_tpu_torch.data import SyntheticDataset
-    from gansformer_tpu_torch.train import create_train_state, d_step, \
-        g_step
+    from gansformer_tpu_torch.train import d_step, g_step
 
-    state = create_train_state(model, train, seed=0, device="cuda")
-    with torch.no_grad():
-        for name, p in state.generator.named_parameters():
-            if name.endswith("noise_strength"):
-                p.fill_(0.1)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    aux = d_step(state, reals, 0)
+    torch.cuda.synchronize()
+    after_d, lse_d = ops.launch_counts(), ops.lse_launch_counts()
+    aux.update(g_step(state, 0, TRAIN_BATCH))
+    torch.cuda.synchronize()
+    after_g, lse_g = ops.launch_counts(), ops.lse_launch_counts()
+    deltas = {"d_step": (after_d, lse_d),
+              "g_step": ({k: after_g[k] - after_d[k] for k in after_g},
+                         {k: lse_g[k] - lse_d[k] for k in lse_g})}
+    for phase, (got, got_lse) in deltas.items():
+        want, want_lse = plan_counts(calls, phase), plan_lse_counts(calls,
+                                                                    phase)
+        print(f"  {phase}: launches {got}; with lse {got_lse}", flush=True)
+        if got != want:
+            fail(f"{phase}: launches {got} != the plan's {want}")
+        if got_lse != want_lse:
+            fail(f"{phase}: launches with lse {got_lse} != the plan's "
+                 f"{want_lse}")
+    for name in TRAIN_KERNELS:
+        if after_g[name] == 0:
+            fail(f"kernel {name} was not launched on the training path")
+    losses = {k: float(v) for k, v in aux.items()}
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"non-finite loss {losses}")
+    return {p: d[0] for p, d in deltas.items()}, lse_g, losses
+
+
+def check_grads(state):
+    """Every gradient leaf of G and D present, finite and nonzero."""
+    import torch
+
+    grads = _named_grads(state)
+    for name, g in grads.items():
+        if g is None:
+            fail(f"{name}: no gradient")
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{name}: non-finite gradient")
+        if not bool((g != 0).any()):
+            fail(f"{name}: gradient is zero everywhere")
+    attn = sum(_is_attention_leaf(n) for n in grads)
+    print(f"  {len(grads)} gradient leaves finite and nonzero ({attn} of "
+          f"them attention leaves)", flush=True)
+
+
+def train_run(model, train, calls):
+    """One d_step + one g_step with the counters read around each, then
+    3 more iterations; returns the launch counts of the first d_step +
+    g_step, their lse counts and the step times."""
+    import torch
+
+    from gansformer_tpu_torch.data import SyntheticDataset
+    from gansformer_tpu_torch.train import d_step, g_step
+
+    state = train_state_on_card(model, train)
     start = {k: v.detach().clone() for k, v in
              state.generator.state_dict().items()}
     start_d = {k: v.detach().clone() for k, v in
@@ -865,24 +1113,7 @@ def train_run(model, train, calls):
     data = SyntheticDataset(model.resolution, model.img_channels).batches(
         TRAIN_BATCH, seed=0)
     batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    d_step(state, batches[0], 0)
-    torch.cuda.synchronize()
-    after_d = ops.launch_counts()
-    g_step(state, 0, TRAIN_BATCH)
-    torch.cuda.synchronize()
-    after_g = ops.launch_counts()
-    deltas = {"d_step": after_d,
-              "g_step": {k: after_g[k] - after_d[k] for k in after_g}}
-    for phase, got in deltas.items():
-        want = plan_counts(calls, phase)
-        print(f"  {phase}: launches {got}", flush=True)
-        if got != want:
-            fail(f"{phase}: launches {got} != the plan's {want}")
-    for name in TRAIN_KERNELS:
-        if after_g[name] == 0:
-            fail(f"kernel {name} was not launched on the training path")
+    deltas, lse_counts, _ = counted_steps(state, batches[0], calls)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     d_ms, g_ms, host_ms, losses = [], [], [], []
     for it in range(1, 4):
@@ -903,14 +1134,7 @@ def train_run(model, train, calls):
     for row in losses:
         if not all(math.isfinite(v) for v in row.values()):
             fail(f"non-finite loss {row}")
-    grads = _named_grads(state)
-    for name, g in grads.items():
-        if g is None:
-            fail(f"{name}: no gradient")
-        if not bool(torch.isfinite(g).all()):
-            fail(f"{name}: non-finite gradient")
-        if not bool((g != 0).any()):
-            fail(f"{name}: gradient is zero everywhere")
+    check_grads(state)
     for label, before, module in (("G", start, state.generator),
                                   ("D", start_d, state.discriminator),
                                   ("EMA", start_ema, state.ema)):
@@ -920,21 +1144,50 @@ def train_run(model, train, calls):
               flush=True)
         if moved != len(before):
             fail(f"{label}: {len(before) - moved} tensors did not move")
-    print(f"  {len(grads)} gradient leaves finite and nonzero", flush=True)
     profile(lambda: d_step(state, batches[0], 9), "one d_step")
     profile(lambda: g_step(state, 9, TRAIN_BATCH), "one g_step")
     mean = lambda xs: sum(xs) / len(xs)                    # noqa: E731
-    return deltas, dict(d_ms=mean(d_ms), g_ms=mean(g_ms),
-                        iter_host_ms=mean(host_ms))
+    return deltas, lse_counts, dict(d_ms=mean(d_ms), g_ms=mean(g_ms),
+                                    iter_host_ms=mean(host_ms))
+
+
+def d_attention_run(model, train, calls):
+    """One d_step + one g_step of ``model`` (a configuration with
+    ``d_attention``) at the training batch: counters against its plan,
+    finite losses, every gradient leaf finite and nonzero."""
+    import torch
+
+    from gansformer_tpu_torch.data import SyntheticDataset
+
+    state = train_state_on_card(model, train)
+    reals = torch.from_numpy(next(SyntheticDataset(
+        model.resolution, model.img_channels).batches(TRAIN_BATCH,
+                                                      seed=1))).cuda()
+    _, _, losses = counted_steps(state, reals, calls)
+    print(f"  losses {losses}", flush=True)
+    check_grads(state)
+
+
+def _is_attention_leaf(name: str) -> bool:
+    return "_attn." in name or "_wattn" in name or "d_queries" in name
+
+
+def _key_bias(name: str) -> bool:
+    """A bias added to every key of an attention: softmax over the keys is
+    invariant to it, so its exact gradient is zero and both sides hold
+    rounding noise; it is held at the scale of its weight's gradient."""
+    return name.endswith(("_k_x.b", ".k_y.b"))
 
 
 def _hold_leaves(title, got, ref):
     """Each leaf's max |err| relative to its max |host|, held to
-    GRAD_TOL; prints the median and the five worst."""
+    GRAD_TOL; prints the median and the five worst, of all leaves and of
+    the attention leaves apart."""
     rel, unused = [], []
     for name, r in ref.items():
         g = got[name]
-        scale = float(r.abs().max())
+        scale = float((ref[name[:-1] + "w"] if _key_bias(name) else r)
+                      .abs().max())
         err = float((g - r).abs().max())
         if scale == 0.0 and err == 0.0:
             unused.append(name)      # noise off: the strengths are unused
@@ -949,14 +1202,27 @@ def _hold_leaves(title, got, ref):
           f"unused with noise off); median {rel[len(rel) // 2][0]:.3e}, "
           f"worst " + ", ".join(f"{r:.3e} ({n})" for r, n in rel[:5]),
           flush=True)
+    attn = [(r, n) for r, n in rel if _is_attention_leaf(n)]
+    if attn:
+        print(f"    of them {len(attn)} attention leaves: median "
+              f"{attn[len(attn) // 2][0]:.3e}, worst "
+              + ", ".join(f"{r:.3e} ({n})" for r, n in attn[:5]),
+              flush=True)
 
 
 def grads_compare(model, train):
     """fp32 at batch 2, noise and mixing off, the card (kernels) against
     the host (plain path), every gradient leaf: one d_step and one g_step
-    end to end; then G alone, both sides given the host's gradient of the
-    g_step loss wrt the images, which takes D's convolutions out of the
-    comparison."""
+    end to end, from the model's own init (the ReZero gates of the
+    attention styles at 0); then G alone, both sides given the host's
+    gradient of the g_step loss wrt the images, which takes D's
+    convolutions out of the comparison, with the gates at 0.1 so the
+    attention styles' weights take a gradient too.  The image gradient
+    through D at random init is ill-conditioned (its lrelu kinks: the host
+    alone, at 1 thread against 8, moves it by up to 2.6 % of its max), and
+    with the gates at 0.1 G's end-to-end leaves inherit up to 1.3e-2 from
+    it on an H100, with or without the attention kernels; G alone is
+    well-conditioned at either gate value."""
     import torch
 
     from gansformer_tpu_torch.data import SyntheticDataset
@@ -978,6 +1244,7 @@ def grads_compare(model, train):
                       for k, g in _named_grads(state).items()}
         times[dev] = time.perf_counter() - t0
         state = create_train_state(model, train, seed=0, device=dev)
+        perturb(state.generator)
         gen = state.generator
         imgs, _ = g_forward(gen, draw_step(state, 0, "g", 2,
                                            noise_mode="none"), "none")
@@ -1090,9 +1357,8 @@ def main() -> int:
     expected = {k: sum(c["kernel"] == k for c in calls[8]) for k in REPLACES}
     print(f"launches per synthesize at ffhq256-duplex: {expected}",
           flush=True)
-    if expected != {"modconv": 20, "upfirdn": 12, "grid_to_latent": 7,
-                    "latent_to_grid": 5, "modconv_dx": 0, "modconv_dw": 0,
-                    "upfirdn_adjoint": 0}:
+    if expected != dict(dict.fromkeys(REPLACES, 0), modconv=20, upfirdn=12,
+                        grid_to_latent=7, latent_to_grid=5):
         fail(f"unexpected launch plan {expected}")
 
     flagship = [c for c in calls[8] if c["label"] in FLAGSHIP]
@@ -1131,22 +1397,21 @@ def main() -> int:
 
     # ---- training ---------------------------------------------------------
     t_train = time.perf_counter()
-    tmodel = dataclasses.replace(cfg, attention="none")
     tcfg = dataclasses.replace(get_train_preset("ffhq256-duplex"),
                                batch_size=TRAIN_BATCH)
-    tcalls = train_path_calls(tmodel, TRAIN_BATCH)
+    tcalls = train_path_calls(cfg, TRAIN_BATCH)
     plan = {p: plan_counts(tcalls, p) for p in ("d_step", "g_step")}
-    print(f"training ffhq256 attention=none, batch {TRAIN_BATCH}, bf16; "
-          f"launch plan: {plan}", flush=True)
+    print(f"training ffhq256-duplex, batch {TRAIN_BATCH}, bf16; launch "
+          f"plan: {plan}; with lse: "
+          f"{ {p: plan_lse_counts(tcalls, p) for p in plan} }", flush=True)
     for kname, row in attention_backward_bounds(cfg, TRAIN_BATCH,
                                                 peaks).items():
-        print(f"  not ported: the {kname} backward at ffhq256-duplex, "
-              f"{row['launches']} launches per g_step, bound "
+        print(f"  {kname}: {row['launches']} launches per g_step, bound "
               f"{row['bound_ms']:.4f} ms (bytes {row['bytes_ms']:.4f}, "
               f"operations {row['ops_ms']:.4f})", flush=True)
     checked = [c for c in tcalls if c["kernel"] in TRAIN_KERNELS
-               or c["label"].startswith("D")]
-    print("backward kernels vs plain, fp32, flagship shapes at batch "
+               or c["label"].startswith("D") or c.get("lse")]
+    print("train kernels vs plain, fp32, flagship shapes at batch "
           f"{TRAIN_BATCH}:", flush=True)
     seen, flag = set(), []
     for c in checked:
@@ -1155,45 +1420,86 @@ def main() -> int:
             flag.append(c)
     check_kernels(flag, "float32", peaks)
     print("kernels vs plain, bf16, every backward launch of one d_step + "
-          "one g_step and D's forward upfirdn launches:", flush=True)
+          "one g_step, every forward attention launch that writes lse, and "
+          "D's forward upfirdn launches:", flush=True)
     train_rows = check_kernels(checked, "bfloat16", peaks)
     train_sums = kernel_sums(train_rows, TRAIN_KERNELS)
+    lse_rows = [r for r in train_rows if r.get("lse")]
+    lse_sums = kernel_sums(lse_rows, ATTENTION_KERNELS)
     print_sums(f"  sums over the backward launches of one d_step + one "
                f"g_step:", train_sums)
+    print_sums("  sums over the forward attention launches with lse (one "
+               "d_step + one g_step):", lse_sums)
     print_sums("  D's forward upfirdn launches (one d_step + one g_step):",
                kernel_sums([r for r in train_rows
                             if r["kernel"] == "upfirdn"], ("upfirdn",)))
-    print("train ffhq256 attention=none (bf16, random init, batch "
+    print("train ffhq256-duplex (bf16, random init, batch "
           f"{TRAIN_BATCH}, noise on, style mixing "
           f"{tcfg.style_mixing_prob}):", flush=True)
-    deltas, times = train_run(tmodel, tcfg, tcalls)
+    deltas, lse_counts, times = train_run(cfg, tcfg, tcalls)
     for kname, s in train_sums.items():
         if s["launches"] != plan["d_step"][kname] + plan["g_step"][kname]:
             fail(f"{kname}: the checks timed {s['launches']} launches, the "
                  f"plan has {plan['d_step'][kname] + plan['g_step'][kname]}")
+    for kname, s in lse_sums.items():
+        if s["launches"] != lse_counts[kname]:
+            fail(f"{kname}: the checks timed {s['launches']} launches with "
+                 f"lse, the run made {lse_counts[kname]}")
     print(f"  d_step {times['d_ms']:.2f} ms, g_step {times['g_ms']:.2f} ms "
           f"(CUDA events), iteration {times['iter_host_ms']:.2f} ms (host "
           f"clock): {TRAIN_BATCH * 1e3 / times['iter_host_ms']:.2f} "
           f"images/s on {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    dmodel = dataclasses.replace(cfg, d_attention=True)
+    dcalls = train_path_calls(dmodel, TRAIN_BATCH)
+    dplan = {p: plan_counts(dcalls, p) for p in ("d_step", "g_step")}
+    print(f"ffhq256-duplex with d_attention, batch {TRAIN_BATCH}, bf16; "
+          f"launch plan: {dplan}", flush=True)
+
+    def shape(c):
+        return tuple(c.get(key) for key in ("kernel", "B", "Lq", "Lk", "D",
+                                            "Dv", "lse"))
+
+    held = {shape(c) for c in checked}
+    new, seen = [], set()
+    for c in dcalls:
+        if c["kernel"].startswith(ATTENTION_KERNELS) and \
+                (c.get("lse") or c["kernel"] not in ATTENTION_KERNELS) \
+                and shape(c) not in held | seen:
+            seen.add(shape(c))
+            new.append(c)
+    if new:
+        print("  its attention launch shapes that the preset's run does not "
+              "hold, kernel vs plain, bf16:", flush=True)
+        check_kernels(new, "bfloat16", peaks)
+    else:
+        print("  every attention launch shape of its d_step + g_step is "
+              "one the preset's run already held", flush=True)
+    d_attention_run(dmodel, tcfg, dcalls)
+    torch.cuda.empty_cache()
+
     print("card vs host gradients, fp32, batch 2, noise and mixing off:",
           flush=True)
-    grads_compare(tmodel, tcfg)
+    grads_compare(cfg, tcfg)
     print(f"training phases took {time.perf_counter() - t_train:.1f} s; "
           f"the smoke {time.perf_counter() - t_start:.1f} s", flush=True)
 
     train_counts = {k: deltas["d_step"][k] + deltas["g_step"][k]
                     for k in TRAIN_KERNELS}
+    span_train = f"one d_step + one g_step at batch {TRAIN_BATCH} (bf16)"
     kernels = [{
         "name": kname, "route": "cuda", "source": SOURCES[kname],
         "replaces": REPLACES[kname], "launches": launches,
         **{key: s[key] for key in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
-        "span": span,
-    } for sums, cnt, span in (
+        "span": span, **extra,
+    } for sums, cnt, span, extra in (
         (run_sums, counts, "serve run: one synthesize at each of batch "
-         "1, 2, 4, 8 (bf16)"),
-        (train_sums, train_counts, f"one d_step + one g_step at batch "
-         f"{TRAIN_BATCH} (bf16)"))
+         "1, 2, 4, 8 (bf16)", {}),
+        (lse_sums, lse_counts, span_train + ", forward launches that write "
+         "lse", {"lse": True}),
+        (train_sums, train_counts, span_train, {}))
         for kname, s in sums.items() for launches in (cnt[kname],)]
     print("kernels over each span's launches (ms, plain_ms, bound_ms and "
           "library_ms are sums over them):", flush=True)

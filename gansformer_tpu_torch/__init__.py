@@ -1,6 +1,6 @@
 """gansformer_tpu_torch: the PyTorch + CUDA port of GANsformer, for NVIDIA
 Hopper (H100): the generator's serving path and first-order training of
-the generator and discriminator.
+the generator and discriminator, attention included (D's too).
 
 Beside ``gansformer_tpu`` (the JAX reference) and independent of it: this
 package imports ``torch`` and numpy only.  Layouts match the JAX package
@@ -12,4 +12,4 @@ default to the card and raise without one unless called with
 ``device="cpu"``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

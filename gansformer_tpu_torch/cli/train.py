@@ -2,15 +2,15 @@
 the procedural dataset.
 
     python -m gansformer_tpu_torch.cli.train --preset ffhq256-duplex \\
-        --attention none --steps 4 --batch-size 8 --seed 0 [--device cpu]
+        --steps 4 --batch-size 8 --seed 0 [--device cpu]
 
 Prints one line per iteration: the losses and the milliseconds of the d
 and g steps (host clock around synchronized work).  ``--config`` reads
 the ``model`` and ``train`` sections of a JAX run's ``config.json``
-instead of a preset; the flags apply on top.  Runs on the card unless
-``--device cpu``; on the card the generator's attention has no backward
-kernel yet, so pass ``--attention none``.  The tick loop, checkpoints
-and ``--resume`` come later.
+instead of a preset (the way to ``d_attention``, which has no flag, as
+in the JAX CLI); the flags apply on top.  Runs on the card unless
+``--device cpu``.  The tick loop, checkpoints and ``--resume`` come
+later.
 """
 
 from __future__ import annotations

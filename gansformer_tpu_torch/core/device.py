@@ -29,8 +29,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def wants_graph(*ts) -> bool:
     """True when autograd is recording and any of ``ts`` (tensors or None)
     requires grad: a kernel op must then build its own graph node (an
-    ``autograd.Function`` whose backward launches kernels) or raise, since
-    a raw launch returns a tensor with no ``grad_fn``."""
+    ``autograd.Function`` whose backward launches kernels), since a raw
+    launch returns a tensor with no ``grad_fn``."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in ts)
 

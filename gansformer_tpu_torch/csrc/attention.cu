@@ -18,6 +18,12 @@
 //   block writes a partial (m, s, acc[L, Dv]) in fp32 for its chunk, and a
 //   second small kernel combines the partials.  Bound: bytes (k and v read
 //   once).
+//
+// Both forwards take an optional fp32 ``lse`` [B, Lq] output, the row
+// statistic max + log(denominator) that the backward kernels
+// (attention_bwd.cu) rebuild P from.  With a null pointer nothing is
+// written: the serving path passes null, as the TPU's no-grad path declares
+// no lse output.
 #include <math.h>
 
 #include "common.cuh"
@@ -32,8 +38,9 @@ constexpr int kChunk = 256;     // key rows per latent_to_grid block
 template <typename T>
 __global__ void __launch_bounds__(256)
     g2l_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o, int n, int L,
-               int D, int Dv, float scale) {
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, int n, int L, int D, int Dv,
+               float scale) {
   extern __shared__ float sm[];
   float* Ks = sm;                       // [L, D]
   float* Vs = Ks + L * D;               // [L, Dv]
@@ -68,7 +75,9 @@ __global__ void __launch_bounds__(256)
     const float m = warp_max(fmaxf(lg0, lg1));
     const float e0 = lane < L ? expf(lg0 - m) : 0.f;
     const float e1 = lane + 32 < L ? expf(lg1 - m) : 0.f;
-    const float inv = 1.f / warp_sum(e0 + e1);
+    const float den = warp_sum(e0 + e1);
+    const float inv = 1.f / den;
+    if (lse != nullptr && lane == 0) lse[(long long)b * n + r] = m + logf(den);
     if (lane < L) ps[lane] = round_to<T>(e0 * inv);
     if (lane + 32 < L) ps[lane + 32] = round_to<T>(e1 * inv);
     __syncwarp();
@@ -160,7 +169,8 @@ __global__ void __launch_bounds__(256)
     l2g_combine_kernel(const float* __restrict__ m_part,
                        const float* __restrict__ s_part,
                        const float* __restrict__ acc_part, T* __restrict__ o,
-                       int B, int nchunks, int L, int Dv) {
+                       float* __restrict__ lse, int B, int nchunks, int L,
+                       int Dv) {
   const long long total = (long long)B * L * Dv;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
@@ -179,6 +189,7 @@ __global__ void __launch_bounds__(256)
       num += acc_part[pl * Dv + dv] * wgt;
     }
     o[idx] = from_f<T>(num / den);
+    if (lse != nullptr && dv == 0) lse[bl] = M + logf(den);
   }
 }
 
@@ -192,22 +203,24 @@ size_t l2g_smem(int L, int D) {
 }
 
 template <typename T>
-int g2l_launch(const void* q, const void* k, const void* v, void* o, int B,
-               int n, int L, int D, int Dv, float scale, cudaStream_t st) {
+int g2l_launch(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int n, int L, int D, int Dv, float scale,
+               cudaStream_t st) {
   const size_t smem = g2l_smem(L, D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       g2l_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + kG2LRows - 1) / kG2LRows, B);
   g2l_kernel<T><<<grid, 32 * kWarps, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, n, L, D, Dv, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, n, L, D, Dv, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int LMAX>
 int l2g_launch(const void* q, const void* k, const void* v, void* o,
-               float* m_part, float* s_part, float* acc_part, int B, int n,
-               int L, int D, int Dv, float scale, cudaStream_t st) {
+               float* lse, float* m_part, float* s_part, float* acc_part,
+               int B, int n, int L, int D, int Dv, float scale,
+               cudaStream_t st) {
   const int nchunks = (n + kChunk - 1) / kChunk;
   const size_t smem = l2g_smem(L, D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -223,22 +236,23 @@ int l2g_launch(const void* q, const void* k, const void* v, void* o,
   long long blocks = (total + 255) / 256;
   if (blocks > 132LL * 32) blocks = 132LL * 32;
   l2g_combine_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
-      m_part, s_part, acc_part, (T*)o, B, nchunks, L, Dv);
+      m_part, s_part, acc_part, (T*)o, lse, B, nchunks, L, Dv);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int l2g_dispatch(const void* q, const void* k, const void* v, void* o,
-                 float* m_part, float* s_part, float* acc_part, int B, int n,
-                 int L, int D, int Dv, float scale, cudaStream_t st) {
+                 float* lse, float* m_part, float* s_part, float* acc_part,
+                 int B, int n, int L, int D, int Dv, float scale,
+                 cudaStream_t st) {
   if (L <= 16)
-    return l2g_launch<T, 16>(q, k, v, o, m_part, s_part, acc_part, B, n, L,
-                             D, Dv, scale, st);
+    return l2g_launch<T, 16>(q, k, v, o, lse, m_part, s_part, acc_part, B, n,
+                             L, D, Dv, scale, st);
   if (L <= 32)
-    return l2g_launch<T, 32>(q, k, v, o, m_part, s_part, acc_part, B, n, L,
-                             D, Dv, scale, st);
-  return l2g_launch<T, 64>(q, k, v, o, m_part, s_part, acc_part, B, n, L, D,
-                           Dv, scale, st);
+    return l2g_launch<T, 32>(q, k, v, o, lse, m_part, s_part, acc_part, B, n,
+                             L, D, Dv, scale, st);
+  return l2g_launch<T, 64>(q, k, v, o, lse, m_part, s_part, acc_part, B, n, L,
+                           D, Dv, scale, st);
 }
 
 }  // namespace
@@ -254,29 +268,31 @@ extern "C" long long gt_l2g_smem(int L, int D) {
 }
 
 extern "C" int gt_grid_to_latent(int dtype, const void* q, const void* k,
-                                 const void* v, void* o, int B, int n, int L,
-                                 int D, int Dv, float scale, void* stream) {
-  if (L < 1 || L > kMaxL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == GT_DTYPE_F32)
-    return g2l_launch<float>(q, k, v, o, B, n, L, D, Dv, scale, st);
-  if (dtype == GT_DTYPE_BF16)
-    return g2l_launch<__nv_bfloat16>(q, k, v, o, B, n, L, D, Dv, scale, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int gt_latent_to_grid(int dtype, const void* q, const void* k,
-                                 const void* v, void* o, float* m_part,
-                                 float* s_part, float* acc_part, int B, int n,
-                                 int L, int D, int Dv, float scale,
+                                 const void* v, void* o, float* lse, int B,
+                                 int n, int L, int D, int Dv, float scale,
                                  void* stream) {
   if (L < 1 || L > kMaxL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == GT_DTYPE_F32)
-    return l2g_dispatch<float>(q, k, v, o, m_part, s_part, acc_part, B, n, L,
-                               D, Dv, scale, st);
+    return g2l_launch<float>(q, k, v, o, lse, B, n, L, D, Dv, scale, st);
   if (dtype == GT_DTYPE_BF16)
-    return l2g_dispatch<__nv_bfloat16>(q, k, v, o, m_part, s_part, acc_part,
-                                       B, n, L, D, Dv, scale, st);
+    return g2l_launch<__nv_bfloat16>(q, k, v, o, lse, B, n, L, D, Dv, scale,
+                                     st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gt_latent_to_grid(int dtype, const void* q, const void* k,
+                                 const void* v, void* o, float* lse,
+                                 float* m_part, float* s_part,
+                                 float* acc_part, int B, int n, int L, int D,
+                                 int Dv, float scale, void* stream) {
+  if (L < 1 || L > kMaxL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == GT_DTYPE_F32)
+    return l2g_dispatch<float>(q, k, v, o, lse, m_part, s_part, acc_part, B,
+                               n, L, D, Dv, scale, st);
+  if (dtype == GT_DTYPE_BF16)
+    return l2g_dispatch<__nv_bfloat16>(q, k, v, o, lse, m_part, s_part,
+                                       acc_part, B, n, L, D, Dv, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -46,10 +46,12 @@ _SIGNATURES = {
                         _I, _I, _I, _P, _I, _F, _F, _P]),
     "gt_modconv": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P, _P, _I, _F, _F, _P]),
-    "gt_grid_to_latent": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                               _P]),
-    "gt_latent_to_grid": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _F, _P]),
+    "gt_grid_to_latent": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _F, _P]),
+    "gt_latent_to_grid": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _F, _P]),
+    "gt_grid_to_latent_bwd": (_I, [_I] + [_P] * 10 + [_I] * 5 + [_F, _P]),
+    "gt_latent_to_grid_bwd": (_I, [_I] + [_P] * 10 + [_I] * 5 + [_F, _P]),
     "gt_modconv_dx": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _P, _P, _P]),
     "gt_modconv_dx_tile": (_I, []),
@@ -58,6 +60,9 @@ _SIGNATURES = {
     "gt_attn_chunk": (_I, []),
     "gt_g2l_smem": (ctypes.c_longlong, [_I, _I, _I]),
     "gt_l2g_smem": (ctypes.c_longlong, [_I, _I]),
+    "gt_attn_bwd_rows": (_I, []),
+    "gt_g2l_bwd_smem": (ctypes.c_longlong, [_I, _I, _I]),
+    "gt_l2g_bwd_smem": (ctypes.c_longlong, [_I, _I, _I]),
 }
 
 

@@ -17,8 +17,10 @@ same on every device); each row's conv noise comes from its own generator
 on the device.  Callers may pass ``z`` to use their own latents.
 
 On the card the ops build their graphs through the kernels'
-``autograd.Function``s; the generator's attention has no backward kernel
-yet, so training on the card needs ``attention='none'``.
+``autograd.Function``s (the conv family's and both attention
+directions'), so every forward launch that autograd records has its
+backward kernel; G's forward under ``no_grad`` in ``d_step`` launches the
+forward kernels alone.
 """
 
 from __future__ import annotations

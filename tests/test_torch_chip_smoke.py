@@ -124,21 +124,51 @@ def test_fails_without_cuda_or_without_the_package(tmp_path):
     assert alone.returncode != 0 and '"ok"' not in alone.stdout
 
 
-def test_train_launch_plan_of_ffhq256_attention_none():
-    """One d_step: G's forward, D on reals and fakes, D's backward through
-    both; one g_step: G's forward, D on the fakes, the backward of both
-    (PERF.md section 6, rows 5-7)."""
+# Per configuration: the attention launches per d_step and per g_step
+# (forward, of them with lse, backward) on top of the conv family's.
+TRAIN_PLANS = {
+    # PERF.md section 6, rows 5-7: no attention launch at all
+    "attention-none": (dict(attention="none"), (0, 0, 0, 0, 0, 0),
+                       (0, 0, 0, 0, 0, 0)),
+    # the preset: G's 7 grid->latent and 5 latent->grid launches, without
+    # lse under no_grad in the d_step, with lse and a backward in the
+    # g_step (rows 8-9)
+    "preset": (dict(), (7, 5, 0, 0, 0, 0), (7, 5, 7, 5, 7, 5)),
+    # + D attention at 128, 64, 32, 16, 8: 5 + 5 launches with lse and
+    # their backward per D forward, two D forwards in the d_step
+    "preset-d_attention": (dict(d_attention=True), (17, 15, 10, 10, 10, 10),
+                           (12, 10, 12, 10, 12, 10)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_PLANS))
+def test_train_launch_plan_of_ffhq256_attention_none(name):
+    """One d_step: G's forward (no graph), D on reals and fakes, D's
+    backward through both; one g_step: G's forward, D on the fakes, the
+    backward of both.  Pinned for attention none (the conv family's
+    counts), the ffhq256-duplex preset and the preset with d_attention."""
+    over, d_attn, g_attn = TRAIN_PLANS[name]
     cfg = dataclasses.replace(port_config.get_preset("ffhq256-duplex"),
-                              attention="none")
+                              **over)
     calls = chip_smoke.train_path_calls(cfg, 8)
     zero = dict.fromkeys(chip_smoke.REPLACES, 0)
-    assert chip_smoke.plan_counts(calls, "d_step") == dict(
-        zero, modconv=20, upfirdn=36, upfirdn_adjoint=24)
-    assert chip_smoke.plan_counts(calls, "g_step") == dict(
-        zero, modconv=20, upfirdn=24, modconv_dx=20, modconv_dw=20,
-        upfirdn_adjoint=24)
+    for phase, conv, attn in (
+            ("d_step", dict(modconv=20, upfirdn=36, upfirdn_adjoint=24),
+             d_attn),
+            ("g_step", dict(modconv=20, upfirdn=24, modconv_dx=20,
+                            modconv_dw=20, upfirdn_adjoint=24), g_attn)):
+        g2l, l2g, g2l_lse, l2g_lse, g2l_bwd, l2g_bwd = attn
+        assert chip_smoke.plan_counts(calls, phase) == dict(
+            zero, **conv, grid_to_latent=g2l, latent_to_grid=l2g,
+            grid_to_latent_bwd=g2l_bwd, latent_to_grid_bwd=l2g_bwd), phase
+        assert chip_smoke.plan_lse_counts(calls, phase) == dict(
+            grid_to_latent=g2l_lse, latent_to_grid=l2g_lse), phase
     labels = {c["label"] for c in calls}
-    assert set(chip_smoke.TRAIN_FLAGSHIP) <= labels
+    flagship = set(chip_smoke.TRAIN_FLAGSHIP)
+    if name == "attention-none":
+        flagship = {f for f in flagship if "main" not in f
+                    and "centroid" not in f}
+    assert flagship <= labels
 
 
 @pytest.mark.parametrize("kind", ["same3", "same1", "poly"])
@@ -222,3 +252,86 @@ def test_ptxas_summary_reads_registers_and_spills():
     assert chip_smoke.ptxas_summary(log) == [
         ("dw_fma_kernel<bf16>", 64, 0), ("dw_wmma_kernel", 255, 124),
         ("dx_fma_kernel<float>", 63, 0)]
+
+
+# kernel, call shape, the controls each case must carry
+ATTENTION_CONTROLS = {
+    "grid_to_latent": (dict(B=2, Lq=64, Lk=4, D=16, Dv=8),
+                       ["lse = max without log(den)"]),
+    "latent_to_grid": (dict(B=2, Lq=4, Lk=64, D=16, Dv=8),
+                       ["drop-one-chunk", "lse = max without log(den)"]),
+    "grid_to_latent_bwd": (dict(B=2, Lq=64, Lk=4, D=16, Dv=8),
+                           ["dk without one row chunk's partial",
+                            "dv without one row chunk's partial",
+                            "dq with dS = P dP (no delta)",
+                            "dk with dS = P dP (no delta)"]),
+    "latent_to_grid_bwd": (dict(B=2, Lq=4, Lk=64, D=16, Dv=8),
+                           ["dq without one key chunk's partial",
+                            "dq with delta = 0", "dk with delta = 0"]),
+}
+
+
+@pytest.mark.parametrize("kname", sorted(ATTENTION_CONTROLS))
+def test_attention_controls_exceed_the_bf16_tolerance(kname):
+    """Each planted fault of the attention kernels (a dropped chunk of the
+    split sums, the row correction delta left out, lse without its
+    log-denominator) lies outside its output's bf16 tolerance on the
+    plain outputs; with one chunk the dropped-chunk controls vanish."""
+    shape, want = ATTENTION_CONTROLS[kname]
+    call = dict(kernel=kname, label="t", lse=True, **shape)
+    case = chip_smoke.build_case(
+        call, torch.float32, torch.Generator().manual_seed(0), dev="cpu",
+        chunk=16)
+    assert [c["desc"] for c in case["controls"]] == want
+    ref = chip_smoke._tuple(case["plain"]())
+    assert len(ref) == len(case["outputs"]) == (2 if "bwd" not in kname
+                                                else 3)
+    for ctl in case["controls"]:
+        base = ref[ctl["out"]]
+        kind = case["outputs"][ctl["out"]]
+        tol = chip_smoke.TOLS[kind]["bfloat16"] * float(base.abs().max())
+        err = float((ctl["fault"]() - base).abs().max())
+        assert err > tol, (ctl["desc"], err, tol)
+    one = chip_smoke.build_case(
+        call, torch.float32, torch.Generator().manual_seed(0), dev="cpu",
+        chunk=64)
+    assert not any("chunk" in c["desc"] for c in one["controls"])
+
+
+@pytest.mark.parametrize("direction", ["grid_to_latent", "latent_to_grid"])
+def test_library_attention_bwd_computes_the_backward(rng, direction):
+    """The SDPA yardstick of kernels 8 and 9 is the plain backward on the
+    same inputs, and names the backend PyTorch picked."""
+    from gansformer_tpu_torch.ops.attention import (attention_bwd_plain,
+                                                    attention_fwd_stats_plain)
+
+    lq, lk = (12, 3) if direction == "grid_to_latent" else (3, 12)
+    q, k, v = _t(rng, 2, lq, 8), _t(rng, 2, lk, 8), _t(rng, 2, lk, 6)
+    do = _t(rng, 2, lq, 6)
+    fn, backend = chip_smoke.library_attention_bwd(q, k, v, do)
+    assert backend in ("flash", "efficient", "cudnn", "math")
+    _, lse = attention_fwd_stats_plain(q, k, v)
+    for got, ref in zip(fn(), attention_bwd_plain(q, k, v, lse, do)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_attention_backward_bound_counts_bytes_and_operations():
+    """Backward: q, k, v, do and the fp32 lse read (latent_to_grid also
+    its fp32 delta), dq, dk, dv written; five products.  At ffhq256-duplex
+    one g_step makes 7 grid->latent and 5 latent->grid backward
+    launches, both bound by bytes."""
+    b, lq, lk, d, dv = 2, 16, 4, 8, 6
+    for kname, stats in (("grid_to_latent_bwd", 1),
+                         ("latent_to_grid_bwd", 2)):
+        nbytes, ops = chip_smoke.attention_cost(
+            dict(kernel=kname, B=b, Lq=lq, Lk=lk, D=d, Dv=dv), 2)
+        assert nbytes == 2 * (2 * (b * lq * d + b * lk * d + b * lk * dv)
+                              + b * lq * dv) + 4 * b * lq * stats
+        assert math.isclose(ops, 2.0 * b * lq * lk * (3 * d + 2 * dv))
+    bounds = chip_smoke.attention_backward_bounds(
+        port_config.get_preset("ffhq256-duplex"), 8, chip_smoke.PEAKS["H100"])
+    assert {k: r["launches"] for k, r in bounds.items()} == {
+        "grid_to_latent_bwd": 7, "latent_to_grid_bwd": 5}
+    for r in bounds.values():
+        assert r["bytes_ms"] > r["ops_ms"]

@@ -12,8 +12,8 @@ sides fp32 and differing only by summation order.  The plain backward is
 also held to autograd of the plain forward, so the card's oracle is
 itself right.  Last, the repair of the graph-less launch: with
 ``kernel_route`` made to report the card and the launches stubbed, a
-grad-requiring input goes through the Functions and the attention ops
-raise.
+grad-requiring input goes through the Functions, the attention ops
+included.
 """
 
 from importlib import import_module
@@ -35,6 +35,9 @@ from gansformer_tpu_torch import ops
 from gansformer_tpu_torch.ops import cuda_attention, cuda_modconv, \
     cuda_upfirdn
 from gansformer_tpu_torch.ops import modulated_conv as port_mc
+from gansformer_tpu_torch.ops.attention import (attention_bwd_plain,
+                                                attention_fwd_stats_plain,
+                                                attention_plain)
 from tests.tolerances import GRAD
 
 jax_mc = import_module("gansformer_tpu.ops.modulated_conv")
@@ -130,8 +133,32 @@ class _Stubs:
         return port_ufd.upfirdn2d_plain(ct, f, up, down, pads)
 
     @staticmethod
-    def attention(q, k, v):
-        raise AssertionError("the attention kernel must not be reached")
+    def _attention(q, k, v, with_stats, direction):
+        setattr(cuda_attention, f"launches_{direction}",
+                getattr(cuda_attention, f"launches_{direction}") + 1)
+        if not with_stats:
+            return attention_plain(q, k, v)
+        setattr(cuda_attention, f"launches_{direction}_lse",
+                getattr(cuda_attention, f"launches_{direction}_lse") + 1)
+        return attention_fwd_stats_plain(q, k, v)
+
+    @staticmethod
+    def g2l(q, k, v, with_stats=False):
+        return _Stubs._attention(q, k, v, with_stats, "g2l")
+
+    @staticmethod
+    def l2g(q, k, v, with_stats=False):
+        return _Stubs._attention(q, k, v, with_stats, "l2g")
+
+    @staticmethod
+    def g2l_bwd(q, k, v, lse, do):
+        cuda_attention.launches_g2l_bwd += 1
+        return attention_bwd_plain(q, k, v, lse, do)
+
+    @staticmethod
+    def l2g_bwd(q, k, v, lse, do, delta):
+        cuda_attention.launches_l2g_bwd += 1
+        return attention_bwd_plain(q, k, v, lse, do, delta)
 
 
 @pytest.fixture
@@ -145,10 +172,12 @@ def card_route(monkeypatch):
     monkeypatch.setattr(cuda_upfirdn, "upfirdn2d_cuda", _Stubs.upfirdn)
     monkeypatch.setattr(cuda_upfirdn, "upfirdn2d_adjoint_cuda",
                         _Stubs.adjoint)
-    monkeypatch.setattr(cuda_attention, "grid_to_latent_cuda",
-                        _Stubs.attention)
-    monkeypatch.setattr(cuda_attention, "latent_to_grid_cuda",
-                        _Stubs.attention)
+    monkeypatch.setattr(cuda_attention, "grid_to_latent_cuda", _Stubs.g2l)
+    monkeypatch.setattr(cuda_attention, "latent_to_grid_cuda", _Stubs.l2g)
+    monkeypatch.setattr(cuda_attention, "grid_to_latent_bwd_cuda",
+                        _Stubs.g2l_bwd)
+    monkeypatch.setattr(cuda_attention, "latent_to_grid_bwd_cuda",
+                        _Stubs.l2g_bwd)
     ops.reset_launch_counts()
     yield
     ops.reset_launch_counts()
@@ -223,6 +252,20 @@ def test_upfirdn_function_grads_match_pallas(rng, case, act):
     for name, g, r in zip(("dx", "db"), grads, vjp(jnp.asarray(ct))):
         _close(g, r, name)
     assert tuple(grads[0].shape) == x.shape
+
+
+def _finds(fn, name: str) -> bool:
+    """True when the graph below ``fn`` holds a node of type ``name``."""
+    seen, todo = set(), [fn]
+    while todo:
+        f = todo.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        if type(f).__name__ == name:
+            return True
+        todo += [g for g, _ in f.next_functions]
+    return False
 
 
 @pytest.mark.parametrize("case", sorted(UFD_CASES))
@@ -302,7 +345,8 @@ def test_graph_repair_kernel_ops_build_their_graph(rng, card_route):
     """On the card's route a grad-requiring input gets a ``grad_fn`` from
     the Functions (never a bare launch), the backward launches the dx/ds,
     dw and adjoint kernels, a second derivative through them raises
-    (first order only), and the attention ops raise instead of cutting the graph."""
+    (first order only), and the attention ops, in both directions, build
+    their graph through their Functions and launch their backward."""
     x = _t(rng.randn(2, 4, 4, 8), True)
     w = _t(rng.randn(3, 3, 8, 8) * 0.3, True)
     s = _t(rng.randn(2, 8) * 0.3 + 1.0, True)
@@ -315,7 +359,8 @@ def test_graph_repair_kernel_ops_build_their_graph(rng, card_route):
     assert ops.launch_counts() == {
         "modconv": 2, "upfirdn": 1, "grid_to_latent": 0,
         "latent_to_grid": 0, "modconv_dx": 2, "modconv_dw": 2,
-        "upfirdn_adjoint": 1}
+        "upfirdn_adjoint": 1, "grid_to_latent_bwd": 0,
+        "latent_to_grid_bwd": 0}
     z = ops.modulated_conv2d(x, w, s)
     (gx,) = torch.autograd.grad(z.square().sum(), [x], create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
@@ -324,6 +369,13 @@ def test_graph_repair_kernel_ops_build_their_graph(rng, card_route):
         assert ops.modulated_conv2d(x, w, s).grad_fn is None
     q = _t(rng.randn(2, 16, 8), True)
     kv = _t(rng.randn(2, 3, 8))
-    for lq, lk in ((q, kv), (kv, q)):
-        with pytest.raises(NotImplementedError, match="row [89]"):
-            ops.fused_multihead_attention(lq, lk, lk)
+    for (lq, lk), node, key in (
+            ((q, kv), "GridToLatentFunctionBackward", "grid_to_latent"),
+            ((kv, q), "LatentToGridFunctionBackward", "latent_to_grid")):
+        ops.reset_launch_counts()
+        o = ops.fused_multihead_attention(lq, lk, lk)
+        assert _finds(o.grad_fn, node)
+        torch.autograd.grad(o.sum(), [q])
+        counts = ops.launch_counts()
+        assert counts[key] == counts[key + "_bwd"] == 1
+        assert ops.lse_launch_counts()[key] == 1

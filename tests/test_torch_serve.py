@@ -93,7 +93,11 @@ def test_cpu_tensors_never_launch_a_kernel(progs):
     assert ops.launch_counts() == {"modconv": 0, "upfirdn": 0,
                                    "grid_to_latent": 0, "latent_to_grid": 0,
                                    "modconv_dx": 0, "modconv_dw": 0,
-                                   "upfirdn_adjoint": 0}
+                                   "upfirdn_adjoint": 0,
+                                   "grid_to_latent_bwd": 0,
+                                   "latent_to_grid_bwd": 0}
+    assert ops.lse_launch_counts() == {"grid_to_latent": 0,
+                                       "latent_to_grid": 0}
 
 
 def test_port_imports_no_jax():

@@ -71,6 +71,27 @@ def _close(got, ref, err_msg="", tol=MODEL):
                                err_msg=err_msg)
 
 
+def _key_bias(name: str) -> bool:
+    """A bias added to every key of an attention (``k_x``, ``k_y``):
+    softmax over the keys is invariant to it, so its exact gradient is
+    zero and both sides hold rounding noise only."""
+    return name.endswith(("_k_x/b", "/k_y/b"))
+
+
+def _close_leaf(got, name, refs, err_msg="", tol=MODEL):
+    """A leaf (a gradient, or a parameter after the update it drives)
+    against ``refs[name]`` at ``tol`` of the leaf's own scale; a key bias
+    at ``tol`` of its weight's scale, since its own is noise."""
+    ref = refs[name]
+    if _key_bias(name):
+        scale = float(np.abs(np.asarray(refs[name[:-1] + "w"])).max())
+        np.testing.assert_allclose(np.asarray(got, np.float64),
+                                   np.asarray(ref, np.float64), rtol=0,
+                                   atol=tol * scale, err_msg=err_msg)
+    else:
+        _close(got, ref, err_msg, tol)
+
+
 def _flat(tree):
     return {k: np.asarray(v) for k, v in
             traverse_util.flatten_dict(tree, sep="/").items()}
@@ -178,11 +199,14 @@ def test_lazy_adam_matches_optax(rng):
 
 @pytest.mark.parametrize("variant", [
     dict(), dict(label_dim=3), dict(resolution=32, mbstd_group_size=3,
-                                    mbstd_num_features=2)],
-    ids=["uncond", "label", "res32-mbstd3x2"])
+                                    mbstd_num_features=2),
+    dict(d_attention=True, d_components=3)],
+    ids=["uncond", "label", "res32-mbstd3x2", "d_attention"])
 def test_discriminator_matches_jax(rng, variant):
     """Forward logits and the gradients wrt every parameter and the
-    image, with JAX's random parameters carried by the bridge."""
+    image, with JAX's random parameters carried by the bridge.  With
+    ``d_attention`` the learned queries and a duplex attention block
+    before each residual block (here 16 and 8) join the tree."""
     mcfg = dict(MICRO, **variant)
     jcfg = jax_config.ModelConfig(**mcfg)
     r, n = mcfg["resolution"], 6
@@ -215,8 +239,11 @@ def test_discriminator_matches_jax(rng, variant):
     _close(grads[0], gx, "d/dimage")
     flat = _flat(gp)
     assert set(flat) == set(names)
+    if variant.get("d_attention"):
+        assert {"d_queries", "b16_attn/q_x/w", "b8_attn/dup0_k_x/w"} \
+            <= set(names)
     for name, g in zip(names, grads[1:]):
-        _close(g, flat[name], name)
+        _close_leaf(g, name, flat, name)
 
 
 # --------------------------------------------------------------------------
@@ -234,9 +261,23 @@ class _NoNoiseGenerator(JaxG):
         return super().synthesize(ws, noise_mode="none")
 
 
-def _jax_cfg():
+# The steps are compared with the generator's attention off and on (the
+# duplex preset's block with attention-routed styles).
+STEP_MODELS = {"none": MICRO,
+               "duplex": dict(MICRO, attention="duplex",
+                              style_mode="attention")}
+# Parameters after the update are held at 1e-5 of their scale.  A leaf
+# that was zero before the update (a bias at init) is its update alone,
+# which carries the gradient's relative error: with attention on, the
+# gradient of the centroid queries' bias (``dup0_q_y/b``) is a sum over
+# the grid whose cancellation leaves 2.5e-5 of relative agreement, so
+# there such a leaf takes the gradient's tolerance, MODEL.
+ZERO_INIT_PARAM_TOL = {"none": 1e-5, "duplex": MODEL}
+
+
+def _jax_cfg(model=MICRO):
     return jax_config.ExperimentConfig(
-        name="t", model=jax_config.ModelConfig(**MICRO),
+        name="t", model=jax_config.ModelConfig(**model),
         train=jax_config.TrainConfig(batch_size=BATCH, style_mixing_prob=0.0,
                                      ema_kimg=0.01, device_time_ticks=0),
         data=jax_config.DataConfig(resolution=16), mesh=jax_config.MeshConfig())
@@ -271,9 +312,10 @@ def _perturbed_state(cfg):
                       step=jnp.asarray(40, st.step.dtype))
 
 
-@pytest.fixture(scope="module")
-def steps_vs_jax():
-    cfg = _jax_cfg()
+@pytest.fixture(scope="module", params=sorted(STEP_MODELS))
+def steps_vs_jax(request):
+    model = STEP_MODELS[request.param]
+    cfg = _jax_cfg(model)
     st0 = _perturbed_state(cfg)
     flat0 = bridge.flatten_train_state(jax.device_get(st0))
     with pytest.MonkeyPatch.context() as mp:
@@ -291,7 +333,7 @@ def steps_vs_jax():
     z_g = np.asarray(jax.random.normal(jax.random.fold_in(rng_g, 5), shape))
 
     port = create_train_state(
-        port_config.ModelConfig(**MICRO),
+        port_config.ModelConfig(**model),
         port_config.TrainConfig(batch_size=BATCH, style_mixing_prob=0.0,
                                 ema_kimg=0.01), seed=0, device="cpu")
     bridge.load_train_state(port, flat0)
@@ -304,9 +346,17 @@ def steps_vs_jax():
     paux.update(g_step(port, 0, BATCH, z=_t(z_g), noise_mode="none"))
     g_grads = {k.replace(".", "/"): p.grad.numpy().copy()
                for k, p in port.generator.named_parameters()}
-    return dict(flat1=flat1, flat2=flat2, daux=daux, gaux=gaux, port=port,
-                paux=paux, d_grads=d_grads, g_grads=g_grads,
-                after_d=after_d)
+    return dict(flat0=flat0, flat1=flat1, flat2=flat2, daux=daux, gaux=gaux,
+                port=port, paux=paux, d_grads=d_grads, g_grads=g_grads,
+                after_d=after_d,
+                zero_init_tol=ZERO_INIT_PARAM_TOL[request.param])
+
+
+def _close_param(got, key, after, before, zero_init_tol):
+    """A parameter after the update against JAX's, at 1e-5 of its scale,
+    or ``zero_init_tol`` where it was zero before the update."""
+    zero = not np.any(np.asarray(before[key]))
+    _close_leaf(got, key, after, key, tol=zero_init_tol if zero else 1e-5)
 
 
 def test_d_step_gradients_and_update_match_jax(steps_vs_jax):
@@ -315,10 +365,12 @@ def test_d_step_gradients_and_update_match_jax(steps_vs_jax):
     for k in ("Loss/D", "Loss/scores/real", "Loss/scores/fake"):
         _close(float(r["paux"][k]), float(r["daux"][k]), k)
     assert r["d_grads"]
+    mu = {k[len("d_opt/mu/"):]: v for k, v in flat1.items()
+          if k.startswith("d_opt/mu/")}
     for name, g in r["d_grads"].items():
-        _close(g, flat1[f"d_opt/mu/{name}"], f"grad {name}")
+        _close_leaf(g, name, mu, f"grad {name}")
     for key, v in r["after_d"].items():
-        _close(v, flat1[key], key, tol=1e-5)
+        _close_param(v, key, flat1, r["flat0"], r["zero_init_tol"])
     nu = {k.replace(".", "/"): r["port"].d_opt.state[p]["exp_avg_sq"]
           for k, p in r["port"].discriminator.named_parameters()}
     for name, v in nu.items():
@@ -329,13 +381,16 @@ def test_g_step_gradients_update_ema_and_w_avg_match_jax(steps_vs_jax):
     r = steps_vs_jax
     flat2, port = r["flat2"], r["port"]
     _close(float(r["paux"]["Loss/G"]), float(r["gaux"]["Loss/G"]), "Loss/G")
+    mu = {k[len("g_opt/mu/"):]: v for k, v in flat2.items()
+          if k.startswith("g_opt/mu/")}
     for name, g in r["g_grads"].items():
-        _close(g, flat2[f"g_opt/mu/{name}"], f"grad {name}")
+        _close_leaf(g, name, mu, f"grad {name}")
     for tree, module in (("g_params", port.generator), ("ema_params",
                                                         port.ema)):
         for k, p in module.named_parameters():
             key = f"{tree}/{k.replace('.', '/')}"
-            _close(p.detach().numpy(), flat2[key], key, tol=1e-5)
+            _close_param(p.detach().numpy(), key, flat2, r["flat1"],
+                         r["zero_init_tol"])
     _close(port.w_avg.numpy(), flat2["w_avg"], "w_avg", tol=1e-5)
     assert port.step == int(flat2["step"]) == 40 + BATCH
     for k, p in port.generator.named_parameters():
@@ -369,30 +424,38 @@ def test_train_state_bridge_round_trip_and_errors(steps_vs_jax, tmp_path):
 # --------------------------------------------------------------------------
 
 
-def test_training_on_the_cards_route_launches_the_plan(card_route):
+@pytest.mark.parametrize("variant", [
+    dict(), dict(attention="duplex", style_mode="attention"),
+    dict(attention="duplex", style_mode="attention", d_attention=True,
+         d_components=3)], ids=["none", "duplex", "duplex-d_attention"])
+def test_training_on_the_cards_route_launches_the_plan(card_route, variant):
     """With every launch stubbed on the card's route, one d_step and one
     g_step of a tiny config launch exactly what ``chip_smoke``'s plan says
-    (the plan the smoke holds the card's counters to), every leaf gets a
-    finite nonzero gradient, and the attention kernels are never reached
-    (attention 'none')."""
+    (the plan the smoke holds the card's counters to), the forward
+    attention launches that write lse included, and every leaf gets a
+    finite nonzero gradient."""
     import chip_smoke
     from gansformer_tpu_torch import ops
 
-    model = port_config.ModelConfig(**dict(MICRO, resolution=32))
+    model = port_config.ModelConfig(**dict(MICRO, resolution=32, **variant))
     train = port_config.TrainConfig(batch_size=2)
     st = create_train_state(model, train, seed=1, device="cpu")
-    with torch.no_grad():
-        for name, p in st.generator.named_parameters():
-            if name.endswith("noise_strength"):
-                p.fill_(0.1)
+    chip_smoke.perturb(st.generator)
     reals = torch.from_numpy(next(SyntheticDataset(32).batches(2)))
     plan = chip_smoke.train_path_calls(model, 2)
-    ops.reset_launch_counts()
-    d_step(st, reals, 0)
-    assert ops.launch_counts() == chip_smoke.plan_counts(plan, "d_step")
-    ops.reset_launch_counts()
-    g_step(st, 0, 2)
-    assert ops.launch_counts() == chip_smoke.plan_counts(plan, "g_step")
+    for phase, step in (("d_step", lambda: d_step(st, reals, 0)),
+                        ("g_step", lambda: g_step(st, 0, 2))):
+        ops.reset_launch_counts()
+        step()
+        assert ops.launch_counts() == chip_smoke.plan_counts(plan, phase)
+        assert ops.lse_launch_counts() == chip_smoke.plan_lse_counts(plan,
+                                                                     phase)
+    if variant:
+        assert ops.launch_counts()["latent_to_grid_bwd"] > 0
+    for module in (st.generator, st.discriminator):
+        for name, p in module.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+            assert (p.grad != 0).any(), name
     for module in (st.generator, st.discriminator):
         for name, p in module.named_parameters():
             assert p.grad is not None and torch.isfinite(p.grad).all(), name
@@ -415,6 +478,31 @@ def test_step_draws_follow_the_seed():
     assert a.step == 2
     lc = g_step(a, 4, 2)
     assert float(lc["Loss/G"]) != float(gb["Loss/G"])
+
+
+def test_train_cli_with_attention_imports_no_jax(tmp_path):
+    """``cli.train --device cpu`` with the generator's attention and D
+    attention on (a config.json written by the port's own dataclasses)
+    leaves jax, flax and the JAX package out of sys.modules."""
+    model = port_config.ModelConfig(**dict(
+        MICRO, attention="duplex", style_mode="attention", d_attention=True,
+        d_components=3))
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps({
+        "model": dataclasses.asdict(model),
+        "train": dataclasses.asdict(port_config.TrainConfig())}))
+    code = (
+        "import sys\n"
+        "from gansformer_tpu_torch.cli import train\n"
+        f"assert train.main(['--config', {str(path)!r}, '--steps', '1', "
+        "'--batch-size', '2', '--device', 'cpu']) == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'gansformer_tpu')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "Loss/G" in out.stdout
 
 
 def test_train_cli_runs_two_steps_on_cpu(tmp_path):
