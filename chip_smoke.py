@@ -5,7 +5,9 @@
 
 In order:
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the kernels from ``gansformer_tpu_torch/csrc``;
+2. builds the kernels from ``gansformer_tpu_torch/csrc``, prints each
+   kernel's registers and spills (ptxas) and fails unless the SASS of the
+   modconv backward's wgmma kernels holds HGMMA (``cuobjdump -sass``);
 3. serving.  For every kernel launch of the serve run below (one
    ``synthesize`` of ffhq256-duplex at each of batch 1, 2, 4 and 8,
    bf16), and for the flagship shapes in fp32 too: runs the kernel and
@@ -27,7 +29,9 @@ In order:
    attention on, batch 8, bf16, random init from seed 0, noise on, style
    mixing 0.9, procedural reals).  For every backward launch of one
    d_step and one g_step (modconv dx/ds, modconv dw, upfirdn adjoint,
-   grid->latent and latent->grid backward), every forward attention
+   grid->latent and latent->grid backward; first the library's dx tile
+   and shared memory of each modconv launch against the wrapper's),
+   every forward attention
    launch that writes ``lse`` (G's in the g_step; G's forward in the
    d_step runs under no_grad and writes none), and the discriminator's
    forward upfirdn launches: the kernel against its plain version (bf16;
@@ -35,7 +39,8 @@ In order:
    backward's yardstick is the backward alone of
    ``scaled_dot_product_attention``, with the backend PyTorch picked),
    with planted-fault controls the tolerance must reject: dw with one
-   sample's term dropped, ds with one 64-pixel tile's partial dropped,
+   sample's term dropped, ds with one tile's partial dropped (the
+   launch's own dx tile, as the library reports it),
    the adjoint with its filter not flipped (at the path's symmetric
    filter that changes nothing, so each adjoint geometry also runs with
    an asymmetric filter), the attention backward with one chunk's
@@ -505,7 +510,10 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
             # du, w and x read once; dx in the dtype and ds in fp32 written
             nbytes = ((m["du"].numel() + m["w"].numel() + 2 * m["x"].numel())
                       * it + sd_bytes + b * ci * 4)
-            tile = cuda_modconv.dx_tile_pixels() if dev == "cuda" else 64
+            path = cuda_modconv.bwd_path("dx", dtype, m["du4"].shape[3], ci,
+                                         h, taps)
+            tile = (cuda_modconv.dx_tile_pixels(path) if dev == "cuda"
+                    else cuda_modconv.TILE_PIXELS[path])
 
             def drop_tile():
                 u = mc.adjoint_u_plain(m["du4"], m["wT"], m["pre"], taps)
@@ -1284,6 +1292,13 @@ def _demangled_name(mangled: str) -> str:
         name += "<bf16>"
     elif rest.startswith("If"):
         name += "<float>"
+    else:
+        import re
+
+        ints = re.match(r"I((?:Li\d+E)+)E", rest)
+        if ints:
+            name += "<" + ",".join(re.findall(r"Li(\d+)E", ints.group(1))) \
+                + ">"
     return name
 
 
@@ -1306,6 +1321,60 @@ def ptxas_summary(log: str):
             out.append((name, int(m.group(1)), spill))
             name = None
     return out
+
+
+def sass_hgmma(lib_path: str):
+    """{kernel: HGMMA instructions} of each kernel in the built library's
+    SASS (``cuobjdump -sass``): the proof that a kernel issues wgmma."""
+    import re
+
+    from gansformer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()[-500:]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _demangled_name(m.group(1))
+            counts.setdefault(name, 0)
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def check_bwd_configs(calls):
+    """The built library's dx tile and dynamic shared memory of every
+    modconv backward launch agree with the wrapper's (which sizes the ds
+    partials and refuses a launch above the card's limit)."""
+    import torch
+
+    from gansformer_tpu_torch.ops import _build, cuda_modconv
+    from gansformer_tpu_torch.ops import modulated_conv as mc
+
+    lib = _build.load_library()
+    for c in calls:
+        if c["kernel"] not in ("modconv_dx", "modconv_dw"):
+            continue
+        cok = c["Co"] * (4 if c["kind"] == "poly" else 1)
+        which = "dx" if c["kernel"] == "modconv_dx" else "dw"
+        taps = (mc.adjoint_taps(c["kind"]) if which == "dx"
+                else cuda_modconv.TAPS[c["kind"]])
+        for dtype in (torch.float32, torch.bfloat16):
+            path = cuda_modconv.bwd_path(which, dtype, cok, c["Ci"], c["H"],
+                                         taps)
+            hw = c["H"] * c["H"]
+            got = (lib.gt_modconv_bwd_smem(which == "dw", path, cok,
+                                           c["Ci"], hw),
+                   lib.gt_modconv_dx_tile(path))
+            want = (cuda_modconv.bwd_smem(which, path, cok, c["Ci"], hw),
+                    cuda_modconv.TILE_PIXELS[path])
+            if got != want:
+                fail(f"{c['label']} {which} {dtype}: the library's (smem, "
+                     f"dx tile) {got} != the wrapper's {want}")
 
 
 def main() -> int:
@@ -1350,6 +1419,12 @@ def main() -> int:
                                                                   "")):
         print(f"  ptxas: {kname} {regs} registers, {spill} bytes spilled",
               flush=True)
+    hgmma = sass_hgmma(_build.build_info["path"])
+    for kname in ("dx_wgmma_kernel", "dw_wgmma_kernel"):
+        found = {k: v for k, v in hgmma.items() if k.startswith(kname)}
+        if not found or not all(found.values()):
+            fail(f"{kname}: no HGMMA in the SASS ({found})")
+        print(f"  sass: HGMMA instructions {found}", flush=True)
 
     # ---- serving ----------------------------------------------------------
     cfg = get_preset("ffhq256-duplex")
@@ -1409,6 +1484,7 @@ def main() -> int:
         print(f"  {kname}: {row['launches']} launches per g_step, bound "
               f"{row['bound_ms']:.4f} ms (bytes {row['bytes_ms']:.4f}, "
               f"operations {row['ops_ms']:.4f})", flush=True)
+    check_bwd_configs(tcalls)
     checked = [c for c in tcalls if c["kernel"] in TRAIN_KERNELS
                or c["label"].startswith("D") or c.get("lse")]
     print("train kernels vs plain, fp32, flagship shapes at batch "

@@ -6,11 +6,14 @@ the procedural dataset.
 
 Prints one line per iteration: the losses and the milliseconds of the d
 and g steps (host clock around synchronized work).  ``--config`` reads
-the ``model`` and ``train`` sections of a JAX run's ``config.json``
-instead of a preset (the way to ``d_attention``, which has no flag, as
-in the JAX CLI); the flags apply on top.  Runs on the card unless
-``--device cpu``.  The tick loop, checkpoints and ``--resume`` come
-later.
+the ``model`` and ``train`` sections and ``data.mirror_augment`` of a
+JAX run's ``config.json`` instead of a preset (the way to
+``d_attention``, which has no flag, as in the JAX CLI); the flags apply
+on top, and ``--seed`` replaces ``train.seed`` only when given.  The
+result is validated as the JAX CLI validates it (a batch that
+``mbstd_group_size`` does not divide is refused).  Runs on the card
+unless ``--device cpu``.  The tick loop, checkpoints and ``--resume``
+come later.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 
 from gansformer_tpu_torch.core.config import (PRESETS,
                                               get_preset, get_train_preset,
+                                              mirror_augment_from_json,
                                               model_config_from_json,
-                                              train_config_from_json)
+                                              train_config_from_json,
+                                              validate)
 from gansformer_tpu_torch.core.device import resolve_device
 from gansformer_tpu_torch.data.dataset import SyntheticDataset
 from gansformer_tpu_torch.train.state import create_train_state
@@ -46,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int)
     p.add_argument("--steps", type=int, default=4,
                    help="alternating d/g iterations")
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int,
+                   help="overrides train.seed (default: the config's)")
     p.add_argument("--mirror-augment", action="store_true")
     p.add_argument("--device", default=None,
                    help="'cpu' for the plain path on the host (default: "
@@ -55,35 +61,42 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def configs(args):
+    """(model, train, mirror_augment) from the preset or ``--config`` with
+    the flags on top, validated."""
+    mirror = args.mirror_augment
     if args.config:
         with open(args.config) as f:
             text = f.read()
         model, train = model_config_from_json(text), \
             train_config_from_json(text)
+        mirror = mirror or mirror_augment_from_json(text)
     else:
         model, train = get_preset(args.preset), \
             get_train_preset(args.preset)
     over = {k: getattr(args, k) for k in ("attention", "resolution", "dtype")
             if getattr(args, k) is not None}
     model = dataclasses.replace(model, **over)
-    if args.batch_size is not None:
-        train = dataclasses.replace(train, batch_size=args.batch_size)
-    return model, train
+    tover = {k: v for k, v in (("batch_size", args.batch_size),
+                               ("seed", args.seed)) if v is not None}
+    train = dataclasses.replace(train, **tover)
+    validate(model, train)
+    return model, train, mirror
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    model, train = configs(args)
+    model, train, mirror = configs(args)
     if model.label_dim:
         raise SystemExit("conditional training needs a labelled dataset, "
                          "which the port does not read yet")
     dev = resolve_device(args.device)
-    state = create_train_state(model, train, args.seed, dev)
+    state = create_train_state(model, train, train.seed, dev)
     data = SyntheticDataset(model.resolution, model.img_channels).batches(
-        train.batch_size, seed=args.seed)
+        train.batch_size, seed=train.seed)
     print(json.dumps({"model": dataclasses.asdict(model),
                       "train": dataclasses.asdict(train),
-                      "device": str(dev)}, default=str), flush=True)
+                      "mirror_augment": mirror, "device": str(dev)},
+                     default=str), flush=True)
 
     def sync():
         if dev.type == "cuda":
@@ -93,7 +106,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         reals = torch.from_numpy(next(data))
         sync()
         t0 = time.perf_counter()
-        d_aux = d_step(state, reals, it, mirror_augment=args.mirror_augment)
+        d_aux = d_step(state, reals, it, mirror_augment=mirror)
         sync()
         t1 = time.perf_counter()
         g_aux = g_step(state, it, train.batch_size)

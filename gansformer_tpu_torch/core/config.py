@@ -4,7 +4,9 @@ A copy of ``gansformer_tpu/core/config.py``'s ``ModelConfig`` (the same
 fields with the same defaults, the same fmap schedule) and of the part of
 its ``TrainConfig`` that the first-order training steps use, with the
 model and train parts of the named presets.  It reads the ``model`` and
-``train`` sections of a ``config.json`` written by the JAX trainer.
+``train`` sections of a ``config.json`` written by the JAX trainer, and
+its ``data.mirror_augment``; ``validate`` runs the checks of the JAX
+``ExperimentConfig.validate()`` that these fields reach.
 ``conv_backend`` and ``attention_backend`` are accepted and ignored: in
 the port the device of the tensor picks the path (kernel on the card,
 plain version on the CPU).  The attention-free configuration of a preset
@@ -156,6 +158,7 @@ class TrainConfig:
     style_mixing_prob: float = 0.9
     ema_kimg: float = 10.0
     ema_rampup: Optional[float] = None
+    seed: int = 0
 
 
 # Keys of the JAX ``TrainConfig`` that the port reads and does not use yet
@@ -164,7 +167,7 @@ IGNORED_TRAIN_KEYS = frozenset({
     "total_kimg", "r1_batch_shrink", "pl_weight", "pl_decay",
     "pl_batch_shrink", "fused_cycle", "async_checkpoint", "kimg_per_tick",
     "snapshot_ticks", "image_snapshot_ticks", "metric_ticks", "metrics",
-    "seed", "debug_nans", "profile_dir", "device_time_ticks"})
+    "debug_nans", "profile_dir", "device_time_ticks"})
 
 
 def train_config_from_dict(d: Dict[str, Any]) -> TrainConfig:
@@ -180,6 +183,47 @@ def train_config_from_dict(d: Dict[str, Any]) -> TrainConfig:
 def train_config_from_json(text: str) -> TrainConfig:
     """The ``train`` section of a JAX run's ``config.json``."""
     return train_config_from_dict(json.loads(text)["train"])
+
+
+def mirror_augment_from_json(text: str) -> bool:
+    """``data.mirror_augment`` of a JAX run's ``config.json`` (False
+    where the section or the key is missing, the JAX default)."""
+    return bool(json.loads(text).get("data", {}).get("mirror_augment",
+                                                      False))
+
+
+def validate(model: ModelConfig, train: TrainConfig) -> None:
+    """The checks of the JAX ``ExperimentConfig.validate()`` that the
+    port's model and train fields reach; raises ``ValueError`` listing
+    every failure, with the JAX messages."""
+    m, t = model, train
+    errs = []
+    if m.resolution < 8 or m.resolution & (m.resolution - 1):
+        errs.append(f"model.resolution must be a power of two ≥ 8, "
+                    f"got {m.resolution}")
+    for name, allowed in (("attention", ("none", "simplex", "duplex")),
+                          ("style_mode", ("global", "attention")),
+                          ("integration", ("add", "mul", "both")),
+                          ("attention_backend", ("xla", "pallas")),
+                          ("conv_backend", ("xla", "pallas")),
+                          ("dtype", ("float32", "bfloat16"))):
+        if getattr(m, name) not in allowed:
+            errs.append(f"model.{name} must be {'|'.join(allowed)}, "
+                        f"got {getattr(m, name)!r}")
+    if m.attention != "none" and m.attn_start_res > m.attn_max_res:
+        errs.append(f"attn_start_res ({m.attn_start_res}) > "
+                    f"attn_max_res ({m.attn_max_res})")
+    if m.components < 1:
+        errs.append(f"model.components must be ≥ 1, got {m.components}")
+    if t.batch_size < 1:
+        errs.append(f"train.batch_size must be ≥ 1, got {t.batch_size}")
+    if m.mbstd_group_size > 1 and t.batch_size % m.mbstd_group_size:
+        errs.append(
+            f"train.batch_size ({t.batch_size}) must be divisible by "
+            f"model.mbstd_group_size ({m.mbstd_group_size}) — the "
+            f"stddev layer would silently use a smaller group")
+    if errs:
+        raise ValueError("invalid config:\n  - " + "\n  - ".join(errs))
 
 
 # The train part of the JAX presets.

@@ -1,0 +1,249 @@
+// Hopper building blocks of the port's wgmma kernels (sm_90a only): a
+// ring of shared-memory slots that one producer thread fills by TMA
+// (cp.async.bulk.tensor, completion counted on mbarriers, boxes outside
+// the tensor read as zeros) and consumer warpgroups drain with the
+// warpgroup matrix multiply (wgmma.mma_async, bf16 operands read from
+// shared memory through matrix descriptors, fp32 accumulators in
+// registers).
+//
+// Operand layout: the 128-byte swizzle that TMA writes and wgmma reads.
+// A tile is stored as rows of 128 bytes (64 bf16 along the row's
+// contiguous axis) in 8-row atoms of 1 KB aligned to 1 KB, the 16-byte
+// chunk c of row r at chunk c ^ (r % 8) of its row, so that the eight rows
+// of a core matrix, and the eight chunks of one row, fall in distinct
+// banks.  Wider tiles are blocks of 64 such rows, side by side.  For a
+// K-major operand (K along the row) the descriptor's stride offset is the
+// 1 KB between 8-row atoms and a 16-deep K step moves the start by 32
+// bytes; for an MN-major operand (M or N along the row, transpose bit
+// set) the leading offset is the stride between 64-element blocks and the
+// stride offset the 1 KB between atoms along K.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarrier of a TMA ring slot: one arrival (the thread that issues the
+// copies, announcing their bytes) completes a phase once those bytes land.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Named barrier `id` among the first `count` threads of the block (the
+// consumer warpgroups of a warp-specialized kernel; barrier 0 is
+// __syncthreads).
+template <int id, int count>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(id), "n"(count) : "memory");
+}
+
+// Block until the phase of parity `parity` of the barrier has completed.
+// A copy that never lands (a fault of the kernel) traps after about 2^34
+// cycles instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// The ring of S shared-memory slots between one producer thread, which
+// lands stage j in slot j % S by TMA, and the consumer warpgroups, which
+// run wgmma on it: full[s] completes a phase when the slot's bytes have
+// landed, empty[s] when every consumer warpgroup has handed the slot
+// back.  The k-th use of a slot (stage j = s + k S) waits for phase k of
+// full[s], and its refill for phase k of empty[s].
+template <int S>
+struct TmaRing {
+  uint64_t full[S], empty[S];
+
+  // By one thread, before a __syncthreads.
+  __device__ __forceinline__ void init(int consumer_groups) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], consumer_groups);
+    }
+    fence_mbar_init();
+  }
+  // Producer: wait until stage j's slot is free, announce its bytes, and
+  // return the barrier its TMA copies complete.
+  __device__ __forceinline__ uint64_t* acquire(int j, uint32_t bytes) {
+    if (j >= S) mbar_wait(&empty[j % S], (j / S - 1) & 1);
+    mbar_expect_tx(&full[j % S], bytes);
+    return &full[j % S];
+  }
+  // Consumers: wait until stage j has landed.
+  __device__ __forceinline__ void wait(int j) {
+    mbar_wait(&full[j % S], (j / S) & 1);
+  }
+  // One thread of each consumer warpgroup, once the warpgroup's wgmma
+  // that read stage j has completed.
+  __device__ __forceinline__ void release(int j) {
+    mbar_arrive(&empty[j % S]);
+  }
+};
+
+// TMA: a box of a tensor map (a __grid_constant__ kernel parameter) into
+// shared memory, completing `bytes` of the barrier's transaction count;
+// coordinates outside the tensor read as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N wgmma groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma region (the registers change without its knowledge
+// between the issue and the wait).
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte swizzled operand: start
+// address, leading and stride byte offsets (each in 16-byte units, 14
+// bits), layout type 1 (128-byte swizzle), base offset 0 (atoms 1 KB
+// aligned).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// D[64 x N] += A[64 x 16] * B[16 x N], bf16 operands from shared memory,
+// fp32 accumulators in registers.  TransA / TransB = 1: the operand is
+// MN-major (M or N contiguous in the chunks).  Accumulator i of thread
+// l of warp w (of the warpgroup) is row w * 16 + (l % 32) / 4 + 8 * (i %
+// 4 / 2), column 8 * (i / 4) + 2 * (l % 4) + i % 2.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TransA), "n"(TransB));
+}
+
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TransA), "n"(TransB));
+}
+
+template <int BN, int TransA, int TransB>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db) {
+  static_assert(BN == 64 || BN == 128, "wgmma tile width");
+  if constexpr (BN == 64)
+    wgmma_m64n64k16<TransA, TransB>(d, da, db);
+  else
+    wgmma_m64n128k16<TransA, TransB>(d, da, db);
+}

@@ -8,34 +8,47 @@
 //     ds[c]    = sum_p x[p, c] * u[p, c]   (fp32)
 //   with the adjoint taps of _prep_adjoint (same3: flipped 3x3; poly: the
 //   phase-folded cotangent [N,H,W,4Co] at offsets (-dh, -dw)).  d is folded
-//   into the weight-tile load (rounded to the compute dtype, as _bwd_body
-//   does) and s into the epilogue: the forward's folds, transposed.
-//   ds sums over every pixel of the image.  The TPU kernel revisits one
-//   output block across its sequential row axis; Hopper blocks run in no
-//   order, so each 64-pixel tile writes an fp32 partial [N, tiles, Ci] and
-//   a second pass sums the tiles in a fixed order.  Not atomicAdd: the
-//   result must not change from run to run, and the smoke's planted-fault
-//   control (one tile's partial dropped) is defined on these partials.
+//   into the weights and rounded to the compute dtype, as _bwd_body does,
+//   once per sample by a first pass; s goes into the epilogue.  ds sums
+//   over every pixel of the image.  The TPU kernel revisits one output
+//   block across its sequential row axis; Hopper blocks run in no order,
+//   so each pixel tile writes an fp32 partial [N, tiles, Ci] and a second
+//   pass sums the tiles in a fixed order.  Not atomicAdd: the result must
+//   not change from run to run, and the smoke's planted-fault control (one
+//   tile's partial dropped) is defined on these partials.
 //
 // dw - replaces _dw_body (launched by _dw_call):
 //     dw[t, c, k] = sum_n s[n, c] d[n, k] sum_p x[n, p + off_t, c] du[n, p, k]
-//   A GEMM with a long contraction (N * H * W, up to 8 * 65536) and a small
-//   output (T * Ci * CoK <= 9 * 512 * 512): one block per output tile
-//   cannot fill 132 SMs, so the contraction is split (split-K) over
-//   (sample, row-strip) chunks; each block walks a contiguous run of
-//   chunks, applies the rank-1 scale s_n (x) d_n to its [64 x 64] tap
-//   result whenever the sample changes (never to a modulated copy of x),
-//   and writes an fp32 partial; a second pass sums the partials in a fixed
-//   order (deterministic, no atomics).
+//   A GEMM with a long contraction (N * H * W, up to 8 * 65536) and an
+//   output of T * Ci * CoK (up to 4 * 512 * 2048): where the output tiles
+//   alone cannot fill 132 SMs the contraction is split (split-K) along
+//   (sample, pixel) units, cut at sample boundaries (ops/cuda_modconv.py
+//   dw_split): a split is part of one sample, or whole samples.  (Splits
+//   inside single samples only would need 8 splits at res 4-32, whose
+//   partials of 75-134 MB cost more than the dw they sum.)  The rank-1
+//   scale s_n (x) d_n is applied in fp32 to each sample's product, in
+//   registers, never to a modulated copy of x; each split writes an fp32
+//   partial and a second pass sums them in a fixed order (deterministic,
+//   no atomics; one split writes dw itself).  Each block takes one tap: a
+//   loop over the 9 taps inside the block would reuse the du tile, but
+//   would hold 9 accumulator tiles (288 registers a thread at 64 x 64), so
+//   du is re-read per tap, from L2.
 //
-// Both: bf16 with channel counts that are multiples of 8 use the tensor
-// cores through WMMA (16x16x16, fp32 accumulators, 4 warps of 32x32);
-// fp32 and the 3-channel tRGB run on the fp32 FMA units.  Bound:
-// operations (the forward's multiply-adds), like the forward kernel; the
-// loads are not pipelined yet (no cp.async/TMA, no wgmma).
-#include <mma.h>
-
+// Bound on the H100: the forward's multiply-adds over the bf16 tensor
+// peak (dw; dx/ds at 512 channels), or the bytes of du, x and dx (dx/ds
+// at 64-128 channels), PERF.md section 6 rows 5-6.  Design for it: bf16
+// operands go through wgmma (sm_90a, fp32 accumulators in registers) on
+// 128-byte swizzled tiles that a producer warp lands by TMA in a ring of
+// 3-5 shared-memory slots, zero-filled outside the image, while the
+// consumer warpgroups drain it (hopper.cuh TmaRing); 128 x 128 output
+// tiles (two consumer warpgroups) where the channel counts reach 128 and
+// 64-wide tiles below.  The 3-channel tRGB (CoK = 3) runs small-K kernels
+// bound by the bytes of x and dx; fp32 runs the FMA kernels.  The poly
+// kind multiplies the 7 of 16 (tap, phase) weight blocks that are zero
+// by construction too: phases are interleaved within every 16-byte chunk
+// of the cotangent, so no whole chunk of work is zero.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -145,145 +158,234 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ---- dx/ds, bf16 tensor-core path ------------------------------------------
+// ---- dx/ds, bf16 wgmma path ------------------------------------------------
+//
+// A first pass folds d into the adjoint weights once per sample,
+// wtd[n, t, k, c] = round(wT[t, k, c] * d[n, k]) in bf16 (the rounding
+// point of _bwd_body), rather than in every pixel tile of the sample
+// (folding in the kernel's consumers, or in a producer warpgroup, put the
+// scaling on the wgmma's critical path: 1.5-2x slower on the H100).
+// Then per sample an implicit GEMM: M = 128 pixels (two consumer
+// warpgroups of 64 rows), N = BN input channels, contraction = taps x CoK
+// in 64-deep stages.  Stage j = (tap j / kchunks, cotangent channels k0
+// .. k0 + 64): A is the cotangent window at the tap's offset (K-major), B
+// the weight tile wtd[n, t, k0 .., c0 ..] (MN-major).  A producer warp
+// lands them by TMA (zero-filled outside the image) into a ring of S
+// slots as the consumers hand slots back; the consumer warpgroups wait
+// only for landed slots and never for each other.
 
-constexpr int kWK = 32;        // contraction slice of the WMMA paths
-constexpr int kLdA = kWK + 8;  // dx: bf16 pitch of the A tile [64][40]
-constexpr int kLdB = kBN + 8;  // bf16 pitch of a [32][72] tile
-constexpr int kLdC = kBN + 4;  // fp32 pitch of the C tile [64][68]
-constexpr int kDxSmemAB = (kBM * kLdA + kWK * kLdB) * 2;
-constexpr int kDxSmemC = kBM * kLdC * 4;
-constexpr int kDxSmem = kDxSmemAB > kDxSmemC ? kDxSmemAB : kDxSmemC;
+constexpr int kDxBM = 128;        // pixels per dx tile (and per ds partial)
+constexpr int kDxBK = 64;         // cotangent channels per stage
+constexpr int kDxConsumers = 256; // two consumer warpgroups
+constexpr int kDxThreads = 288;   // and the producer warp
+constexpr int kBlock = 64 * 128;  // 64 swizzled rows of 128 bytes
+constexpr int kAlign = 1024;      // slack to align the ring to 1 KB
 
-__global__ void __launch_bounds__(128)
-    dx_wmma_kernel(const __nv_bfloat16* __restrict__ du,
-                   const __nv_bfloat16* __restrict__ wt,
-                   const float* __restrict__ pre,
-                   const float* __restrict__ post,
-                   const __nv_bfloat16* __restrict__ x,
-                   __nv_bfloat16* __restrict__ dx, float* __restrict__ ds_part,
-                   int H, int W, int K, int C, Taps taps) {
-  namespace wm = nvcuda::wmma;
-  __shared__ __align__(128) unsigned char smem[kDxSmem];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][kLdA]
-  __nv_bfloat16* Bs = As + kBM * kLdA;                          // [32][kLdB]
-  float* Cs = reinterpret_cast<float*>(smem);  // [64][kLdC], after the loop
-  const int n = blockIdx.z;
-  const int p0 = blockIdx.x * kBM;
-  const int j0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-  const int HW = H * W;
-  const __nv_bfloat16* dun = du + (long long)n * HW * K;
-  const float* pn = pre + (long long)n * K;
+// Ring slots: the 64-wide tile (a short contraction of 9 stages at 64
+// channels) takes three, so that three blocks share an SM and overlap
+// one another's prologue and epilogue.
+template <int BN>
+__host__ __device__ constexpr int dx_stages() {
+  return BN == 64 ? 3 : 5;
+}
 
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wm::fill_fragment(acc[i][j], 0.f);
+template <int BN>
+__host__ __device__ constexpr int dx_stage_bytes() {
+  return kDxBM * 128 + (BN / 64) * kBlock;
+}
 
-  for (int t = 0; t < taps.n; ++t) {
-    const int oy = taps.oy[t], ox = taps.ox[t];
-    const __nv_bfloat16* wtt = wt + (long long)t * K * C;
-    for (int c0 = 0; c0 < K; c0 += kWK) {
-      // A: 64 pixels x 32 cotangent channels, as 256 vectors of 8
+// wtd [N, T, K, C] = round(wT [T, K, C] * d [N, K]), 8 channels a thread.
+__global__ void dx_prescale_kernel(const __nv_bfloat16* __restrict__ wt,
+                                   const float* __restrict__ pre,
+                                   __nv_bfloat16* __restrict__ wtd, int N,
+                                   int T, int K, int C) {
+  const long long chunks = (long long)N * T * K * C / 8;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < chunks; i += (long long)gridDim.x * blockDim.x) {
+    const long long e = i * 8;
+    const long long row = e / C;                  // (n * T + t) * K + k
+    const int k = (int)(row % K);
+    const long long nt = row / K;
+    const int n = (int)(nt / T), t = (int)(nt % T);
+    const float sc = pre[(long long)n * K + k];
+    uint4 v = *reinterpret_cast<const uint4*>(
+        wt + ((long long)t * K + k) * C + e % C);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int v = tid + 128 * r;
-        const int p = v / 4, cv = (v % 4) * 8;
-        const int pg = p0 + p, cg = c0 + cv;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (pg < HW && cg < K) {
-          const int hh = pg / W + oy, ww = pg % W + ox;
-          if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-            val = *reinterpret_cast<const uint4*>(
-                dun + ((long long)hh * W + ww) * K + cg);
-        }
-        *reinterpret_cast<uint4*>(As + p * kLdA + cv) = val;
-      }
-      // B: 32 cotangent channels x 64 columns of wT * d, rounded to bf16
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int v = tid + 128 * r;
-        const int c = v / 8, jv = (v % 8) * 8;
-        const int cg = c0 + c, jg = j0 + jv;
-        uint4 out = make_uint4(0, 0, 0, 0);
-        if (cg < K && jg < C) {
-          const uint4 raw =
-              *reinterpret_cast<const uint4*>(wtt + (long long)cg * C + jg);
-          const __nv_bfloat162* in =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
-          __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-          const float sc = pn[cg];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(in[e]);
-            o[e] = __floats2bfloat162_rn(f.x * sc, f.y * sc);
-          }
-        }
-        *reinterpret_cast<uint4*>(Bs + c * kLdB + jv) = out;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kWK; kk += 16) {
-        wm::fragment<wm::matrix_a, 16, 16, 16, __nv_bfloat16, wm::row_major>
-            a[2];
-        wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, wm::row_major>
-            b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wm::load_matrix_sync(a[i], As + (wr + 16 * i) * kLdA + kk, kLdA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wm::load_matrix_sync(b[j], Bs + kk * kLdB + wc + 16 * j, kLdB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wm::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      h[q] = __floats2bfloat162_rn(f.x * sc, f.y * sc);
     }
+    *reinterpret_cast<uint4*>(wtd + e) = v;
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wm::store_matrix_sync(Cs + (wr + 16 * i) * kLdC + wc + 16 * j,
-                            acc[i][j], kLdC, wm::mem_row_major);
+template <int BN>
+__global__ void __launch_bounds__(kDxThreads, 1)
+    dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_du,
+                    const __grid_constant__ CUtensorMap tm_wtd,
+                    const float* __restrict__ post,
+                    const __nv_bfloat16* __restrict__ x,
+                    __nv_bfloat16* __restrict__ dx,
+                    float* __restrict__ ds_part, int H, int W, int K, int C,
+                    Taps taps) {
+  constexpr int S = dx_stages<BN>();
+  constexpr int kABytes = kDxBM * 128;
+  constexpr int kStage = dx_stage_bytes<BN>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int s_oy[kMaxTaps], s_ox[kMaxTaps];
+  __shared__ __align__(8) TmaRing<S> ring;
+  unsigned char* smem =
+      smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) &
+                  (kAlign - 1));
+
+  const int n = blockIdx.z;
+  const int p0 = blockIdx.y * kDxBM;
+  const int c0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int HW = H * W;
+  const int kchunks = (K + kDxBK - 1) / kDxBK;
+  const int iters = taps.n * kchunks;
+  if (tid < taps.n) {
+    s_oy[tid] = taps.oy[tid];
+    s_ox[tid] = taps.ox[tid];
+  }
+  if (tid == 0) ring.init(kDxConsumers / 128);
   __syncthreads();
 
-  const float* sn = post + (long long)n * C;
-  for (int e = tid; e < kBM * kBN; e += 128) {
-    const int p = p0 + e / kBN, jg = j0 + e % kBN;
-    if (p >= HW || jg >= C) continue;
-    dx[((long long)n * HW + p) * C + jg] =
-        __float2bfloat16(Cs[(e / kBN) * kLdC + e % kBN] * sn[jg]);
+  // Producer: stage j into slot j % S once both consumer warpgroups have
+  // handed back the slot's previous stage: the cotangent box of the
+  // tile's pixels (kDxBM pixels as rows of the image, shifted by the tap)
+  // and the BN / 64 weight boxes.
+  const int h0 = p0 / W, w0 = p0 % W;
+  auto issue = [&](int j) {
+    uint64_t* bar = ring.acquire(j, kStage);
+    unsigned char* sa = smem + (j % S) * kStage;
+    const int t = j / kchunks, k0 = (j % kchunks) * kDxBK;
+    tma_load_4d(sa, &tm_du, bar, k0, w0 + s_ox[t], h0 + s_oy[t], n);
+#pragma unroll
+    for (int b = 0; b < BN / 64; ++b)
+      tma_load_4d(sa + kABytes + b * kBlock, &tm_wtd, bar, c0 + 64 * b, k0,
+                  t, n);
+  };
+
+  if (tid >= kDxConsumers) {
+    if (tid == kDxConsumers)
+      for (int j = 0; j < iters; ++j) issue(j);
+    return;
   }
-  if (tid < kBN && j0 + tid < C) {
-    const int jg = j0 + tid;
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int j = 0; j < iters; ++j) {
+    ring.wait(j);
+    const uint32_t a0 = smem_u32(smem + (j % S) * kStage) + wg * kBlock;
+    const uint32_t b0 = smem_u32(smem + (j % S) * kStage + kABytes);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kDxBK / 16; ++ks)
+      wgmma_tile<BN, 0, 1>(acc, gmma_desc(a0 + ks * 32, 16, 1024),
+                           gmma_desc(b0 + ks * 16 * 128, kBlock, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc);
+    // stage j-1's wgmma of this warpgroup is done: its slot may refill
+    if (j > 0 && tid % 128 == 0) ring.release(j - 1);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // Epilogue: u goes through shared memory (fp32, padded rows) so that
+  // dx = s * u (bf16) is stored and x read 16 bytes a thread, a row of
+  // the tile per BN / 8 threads; each thread sums x * u over its rows for
+  // its 8 channels, and the row groups' sums are added in a fixed order.
+  constexpr int kULd = BN + 4;
+  constexpr int kGroups = kDxConsumers / (BN / 8);   // row groups
+  bar_sync<1, kDxConsumers>();  // both warpgroups are done with the ring
+  float* us = reinterpret_cast<float*>(smem);       // [kDxBM][kULd]
+  float* red = us + kDxBM * kULd;                   // [kGroups][BN]
+  {
+    const int lane = tid % 32;
+    const int r0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; ++jb)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(us + (r0 + 8 * hf) * kULd + jb * 8 +
+                                   2 * (lane % 4)) =
+            make_float2(acc[jb * 4 + 2 * hf], acc[jb * 4 + 2 * hf + 1]);
+  }
+  bar_sync<1, kDxConsumers>();
+  const int cc = tid % (BN / 8), rg = tid / (BN / 8);
+  const int c = c0 + cc * 8;
+  float part[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) part[e] = 0.f;
+  if (c < C) {
+    const float* sn = post + (long long)n * C + c;
+    const float4 s_lo = *reinterpret_cast<const float4*>(sn);
+    const float4 s_hi = *reinterpret_cast<const float4*>(sn + 4);
+    const float sc[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w,
+                         s_hi.x, s_hi.y, s_hi.z, s_hi.w};
+    for (int r = rg; r < kDxBM && p0 + r < HW; r += kGroups) {
+      const long long off = ((long long)n * HW + p0 + r) * C + c;
+      const float* ur = us + r * kULd + cc * 8;
+      const float4 u_lo = *reinterpret_cast<const float4*>(ur);
+      const float4 u_hi = *reinterpret_cast<const float4*>(ur + 4);
+      const float u[8] = {u_lo.x, u_lo.y, u_lo.z, u_lo.w,
+                          u_hi.x, u_hi.y, u_hi.z, u_hi.w};
+      const uint4 xr = *reinterpret_cast<const uint4*>(x + off);
+      const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xr);
+      uint4 o;
+      __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xh[e]);
+        part[2 * e] += xf.x * u[2 * e];
+        part[2 * e + 1] += xf.y * u[2 * e + 1];
+        oh[e] = __floats2bfloat162_rn(u[2 * e] * sc[2 * e],
+                                      u[2 * e + 1] * sc[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(dx + off) = o;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[rg * BN + cc * 8 + e] = part[e];
+  bar_sync<1, kDxConsumers>();
+  for (int cl = tid; cl < BN; cl += kDxConsumers) {
+    if (c0 + cl >= C) continue;
     float sum = 0.f;
-    for (int r = 0; r < kBM && p0 + r < HW; ++r)
-      sum += Cs[r * kLdC + tid] *
-             __bfloat162float(x[((long long)n * HW + p0 + r) * C + jg]);
-    ds_part[((long long)n * gridDim.x + blockIdx.x) * C + jg] = sum;
+    for (int g = 0; g < kGroups; ++g) sum += red[g * BN + cl];
+    ds_part[((long long)n * gridDim.y + blockIdx.y) * C + c0 + cl] = sum;
   }
 }
 
 // ds[n, c] = sum over tiles of ds_part[n, tile, c], tiles in order.
-__global__ void ds_reduce_kernel(const float* __restrict__ part,
-                                 float* __restrict__ ds, int N, int tiles,
-                                 int C) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= N * C) return;
-  const int n = idx / C, c = idx % C;
-  const float* pn = part + (long long)n * tiles * C + c;
+// A block of 32 channels x 8 tile rows per (sample, 32 channels): thread
+// row r sums tiles r, r + 8, ... in order, then row 0 adds the 8 sums in
+// order (deterministic, and 8 loads in flight per channel).
+__global__ void __launch_bounds__(256)
+    ds_reduce_kernel(const float* __restrict__ part, float* __restrict__ ds,
+                     int N, int tiles, int C) {
+  __shared__ float red[8][32];
+  const int n = blockIdx.y, c = blockIdx.x * 32 + threadIdx.x;
+  const int r = threadIdx.y;
   float sum = 0.f;
-  for (int i = 0; i < tiles; ++i) sum += pn[(long long)i * C];
-  ds[idx] = sum;
+  if (c < C) {
+    const float* pn = part + (long long)n * tiles * C + c;
+    for (int i = r; i < tiles; i += 8) sum += pn[(long long)i * C];
+  }
+  red[r][threadIdx.x] = sum;
+  __syncthreads();
+  if (r == 0 && c < C) {
+    float tot = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tot += red[i][threadIdx.x];
+    ds[(long long)n * C + c] = tot;
+  }
 }
 
 // ---- dw: the split-K walk shared by both paths -----------------------------
@@ -400,127 +502,330 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ---- dw, bf16 tensor-core path ---------------------------------------------
+// ---- dw, bf16 wgmma path ---------------------------------------------------
+//
+// One block per (k tile, ci tile, tap, split): D[ci, k] += A[ci, p] * B[p,
+// k] over the split's pixels in stages of BP = 64 or 128 pixels, A = x at
+// the tap's offset (MN-major, zero-filled outside the image) and B = du
+// (MN-major), landed by TMA from a producer warp into a ring of S slots
+// as the consumer warpgroups hand slots back.  WGS warpgroups take 64 ci
+// rows each; BN = 64 or 128 k columns.  A stage never straddles two
+// samples: when the sample changes, the warpgroup waits for its wgmma,
+// adds the sample's product times s_n (x) d_n (fp32, in registers) to its
+// running sum and restarts the accumulator, so the scale is applied once
+// per sample and never to a modulated copy of x.
 
-__global__ void __launch_bounds__(128)
-    dw_wmma_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ du,
-                   const float* __restrict__ s, const float* __restrict__ pre,
-                   float* __restrict__ part, int N, int H, int W, int Ci,
-                   int K, Taps taps, Split sp) {
-  namespace wm = nvcuda::wmma;
-  __shared__ __align__(128) __nv_bfloat16 As[kWK * kLdB];  // [pixel][ci]
-  __shared__ __align__(128) __nv_bfloat16 Bs[kWK * kLdB];  // [pixel][k]
-  __shared__ __align__(128) float Cs[kBM * kLdC];          // [ci][k]
-  // The block's scaled sum; each thread owns elements tid + 128 r (kept
-  // in shared memory, not registers: 32 more floats a thread spill).
-  __shared__ __align__(128) float Ts[kBM * kLdC];
-  const int ci0 = blockIdx.x * kBM, k0 = blockIdx.y * kBN;
-  const int t = blockIdx.z / sp.P, split = blockIdx.z % sp.P;
-  const int oy = taps.oy[t], ox = taps.ox[t];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-  const int HW = H * W;
-  const long long chunks = (long long)N * sp.S;
-  const long long cb = chunks * split / sp.P;
-  const long long ce = chunks * (split + 1) / sp.P;
+constexpr int kDwRows = 128;   // a stage's pixels tile the image's rows
 
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wm::fill_fragment(acc[i][j], 0.f);
-  for (int e = tid; e < kBM * kBN; e += 128)
-    Ts[(e / kBN) * kLdC + e % kBN] = 0.f;
+// Pixels per stage (BP): 128 where the image has them (half as many ring
+// round trips per pixel), 64 at res <= 8 and for the 64 x 64 tile, which
+// shares its SM with two more blocks instead (dw_stage_pixels in
+// ops/cuda_modconv.py).
+template <int WGS, int BN, int BP>
+__host__ __device__ constexpr int dw_stage_bytes() {
+  return (WGS + BN / 64) * BP * 128;
+}
 
-  auto flush = [&](int n) {  // Ts += (s_n (x) d_n) * acc; acc = 0
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wm::store_matrix_sync(Cs + (wr + 16 * i) * kLdC + wc + 16 * j,
-                              acc[i][j], kLdC, wm::mem_row_major);
-        wm::fill_fragment(acc[i][j], 0.f);
-      }
-    __syncthreads();
-    for (int e = tid; e < kBM * kBN; e += 128) {
-      const int ci = ci0 + e / kBN, k = k0 + e % kBN;
-      const int o = (e / kBN) * kLdC + e % kBN;
-      if (ci < Ci && k < K)
-        Ts[o] += Cs[o] * s[(long long)n * Ci + ci] * pre[(long long)n * K + k];
-    }
-    __syncthreads();
-  };
+// Ring slots, within 227 KB.
+template <int WGS, int BN, int BP>
+__host__ __device__ constexpr int dw_stages() {
+  return BP == 64 ? (WGS == 1 && BN == 64 ? 4 : 5)
+                  : (WGS == 2 && BN == 128 ? 3 : 4);
+}
 
-  int cur = -1;
-  for (long long c = cb; c < ce; ++c) {
-    const int n = (int)(c / sp.S);
-    const int pb = (int)(c % sp.S) * sp.R;
-    const int pe = min(HW, pb + sp.R);
-    if (n != cur) {
-      if (cur >= 0) flush(cur);
-      cur = n;
-    }
-    const __nv_bfloat16* xn = x + (long long)n * HW * Ci;
-    const __nv_bfloat16* dun = du + (long long)n * HW * K;
-    for (int q0 = pb; q0 < pe; q0 += kWK) {
-      // A: 32 pixels x 64 input channels of x at this tap, 8 per vector
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int v = tid + 128 * r;
-        const int pp = v / 8, cv = (v % 8) * 8;
-        const int q = q0 + pp, cg = ci0 + cv;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (q < pe && cg < Ci) {
-          const int hh = q / W + oy, ww = q % W + ox;
-          if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-            val = *reinterpret_cast<const uint4*>(
-                xn + ((long long)hh * W + ww) * Ci + cg);
-        }
-        *reinterpret_cast<uint4*>(As + pp * kLdB + cv) = val;
-      }
-      // B: 32 pixels x 64 cotangent channels
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int v = tid + 128 * r;
-        const int pp = v / 8, kv = (v % 8) * 8;
-        const int q = q0 + pp, kg = k0 + kv;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (q < pe && kg < K)
-          val = *reinterpret_cast<const uint4*>(dun + (long long)q * K + kg);
-        *reinterpret_cast<uint4*>(Bs + pp * kLdB + kv) = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kWK; kk += 16) {
-        // A^T: element (ci, pixel) at As[pixel * kLdB + ci], column-major
-        wm::fragment<wm::matrix_a, 16, 16, 16, __nv_bfloat16, wm::col_major>
-            a[2];
-        wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, wm::row_major>
-            b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wm::load_matrix_sync(a[i], As + kk * kLdB + wr + 16 * i, kLdB);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wm::load_matrix_sync(b[j], Bs + kk * kLdB + wc + 16 * j, kLdB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wm::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+// The split's walk over (sample, pixel) stages: unit u = (sample u / S,
+// pixels [(u % S) R, min(HW, (u % S + 1) R))), in stages of bp pixels (R
+// is a multiple of bp, or HW).
+struct DwCursor {
+  long long u;
+  int q, qe, n, bp;
+  __device__ __forceinline__ void start(long long u0, const Split& sp,
+                                        int HW, int pixels) {
+    u = u0;
+    bp = pixels;
+    enter(sp, HW);
+  }
+  __device__ __forceinline__ void enter(const Split& sp, int HW) {
+    n = (int)(u / sp.S);
+    q = (int)(u % sp.S) * sp.R;
+    qe = min(HW, q + sp.R);
+  }
+  __device__ __forceinline__ void next(const Split& sp, int HW) {
+    q += bp;
+    if (q >= qe) {
+      ++u;
+      enter(sp, HW);
     }
   }
-  if (cur >= 0) flush(cur);
+};
+
+template <int WGS, int BN, int BP>
+__global__ void __launch_bounds__(WGS * 128 + 32, 1)
+    dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_du,
+                    const float* __restrict__ s,
+                    const float* __restrict__ pre, float* __restrict__ part,
+                    int N, int H, int W, int Ci, int K, Taps taps, Split sp) {
+  constexpr int kConsumers = WGS * 128;
+  constexpr int BM = WGS * 64;
+  constexpr int kOperand = BP * 128;     // one 64-channel block of a stage
+  constexpr int kABytes = WGS * kOperand;
+  constexpr int kStage = dw_stage_bytes<WGS, BN, BP>();
+  constexpr int S = dw_stages<WGS, BN, BP>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) TmaRing<S> ring;
+  unsigned char* smem =
+      smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) &
+                  (kAlign - 1));
+
+  const int k0 = blockIdx.x * BN;
+  const int ci_tiles = (Ci + BM - 1) / BM;
+  const int ci0 = (blockIdx.y % ci_tiles) * BM;
+  const int t = blockIdx.y / ci_tiles;
+  const int split = blockIdx.z;
+  const int oy = taps.oy[t], ox = taps.ox[t];
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int HW = H * W;
+  const long long units = (long long)N * sp.S;
+  const long long u_end = units * (split + 1) / sp.P;
+
+  if (tid == 0) ring.init(WGS);
+  __syncthreads();
+
+  // Producer: stage j into slot j % S once the consumers handed back the
+  // slot's previous stage: BP pixels of one sample as rows of the
+  // image; x's boxes at the tap's offset (TMA zero-fills outside the
+  // image) and du's boxes.
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      DwCursor pc;
+      pc.start(units * split / sp.P, sp, HW, BP);
+      for (int j = 0; pc.u < u_end; ++j) {
+        uint64_t* bar = ring.acquire(j, kStage);
+        unsigned char* sa = smem + (j % S) * kStage;
+        const int h0 = pc.q / W, w0 = pc.q % W;
+#pragma unroll
+        for (int b = 0; b < WGS; ++b)
+          tma_load_4d(sa + b * kOperand, &tm_x, bar, ci0 + 64 * b, w0 + ox,
+                      h0 + oy, pc.n);
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          tma_load_4d(sa + kABytes + b * kOperand, &tm_du, bar, k0 + 64 * b,
+                      w0, h0, pc.n);
+        pc.next(sp, HW);
+      }
+    }
+    return;
+  }
+
+  // This thread's accumulator rows (ci) and column pairs (k).
+  const int lane = tid % 32;
+  const int r0 = ci0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  const int kc0 = k0 + 2 * (lane % 4);
+  float acc[BN / 2], tot[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = tot[i] = 0.f;
+  auto flush = [&](int n) {  // tot += acc * (s_n (x) d_n); acc = 0
+    const float* sn = s + (long long)n * Ci;
+    const float* dn = pre + (long long)n * K;
+    const float sr[2] = {r0 < Ci ? sn[r0] : 0.f,
+                         r0 + 8 < Ci ? sn[r0 + 8] : 0.f};
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; ++jb) {
+      const int k = kc0 + jb * 8;
+      const float d0 = k < K ? dn[k] : 0.f, d1 = k < K ? dn[k + 1] : 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = jb * 4 + 2 * hf;
+        tot[i] += acc[i] * (sr[hf] * d0);
+        tot[i + 1] += acc[i + 1] * (sr[hf] * d1);
+        acc[i] = acc[i + 1] = 0.f;
+      }
+    }
+  };
+
+  DwCursor cc;  // the stage to compute
+  cc.start(units * split / sp.P, sp, HW, BP);
+  int cur = cc.n;
+  for (int j = 0; cc.u < u_end; ++j) {
+    ring.wait(j);
+    if (cc.n != cur) {
+      wgmma_wait<0>();
+      fence_acc(acc);
+      flush(cur);
+      cur = cc.n;
+    }
+    const uint32_t a0 =
+        smem_u32(smem + (j % S) * kStage) + wg * kOperand;
+    const uint32_t b0 = smem_u32(smem + (j % S) * kStage + kABytes);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BP / 16; ++ks)
+      wgmma_tile<BN, 1, 1>(acc, gmma_desc(a0 + ks * 2048, kOperand, 1024),
+                           gmma_desc(b0 + ks * 2048, kOperand, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc);
+    // stage j-1's wgmma of this warpgroup is done: its slot may refill
+    if (j > 0 && tid % 128 == 0) ring.release(j - 1);
+    cc.next(sp, HW);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  flush(cur);
 
   float* out = part + ((long long)split * taps.n + t) * Ci * K;
-  for (int e = tid; e < kBM * kBN; e += 128) {
-    const int ci = ci0 + e / kBN, k = k0 + e % kBN;
-    if (ci < Ci && k < K)
-      out[(long long)ci * K + k] = Ts[(e / kBN) * kLdC + e % kBN];
+#pragma unroll
+  for (int jb = 0; jb < BN / 8; ++jb) {
+    const int k = kc0 + jb * 8;
+    if (k >= K) continue;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int ci = r0 + 8 * hf;
+      if (ci < Ci)
+        *reinterpret_cast<float2*>(out + (long long)ci * K + k) =
+            make_float2(tot[jb * 4 + 2 * hf], tot[jb * 4 + 2 * hf + 1]);
+    }
+  }
+}
+
+// ---- dx/ds and dw at a cotangent of at most kSmallK channels (tRGB) --------
+//
+// The 1x1 tRGB conv has CoK = 3: too few channels for a tensor-core tile,
+// and almost no arithmetic (6 flops per byte of x), so both kernels are
+// bound by the bytes of x and dx.  A thread owns 8 channels (16 bytes) of
+// a pixel and the block walks kSmallTile pixels of one sample.
+
+constexpr int kSmallK = 4;       // cotangent channels of this path, at most
+constexpr int kSmallTile = 256;  // pixels per dx block (and ds partial)
+
+// dx = s * u, u[p, c] = sum_k du[p, k] round(wT[k, c] d[k]); ds partial of
+// the tile.  Single tap at offset 0 (same1).
+__global__ void __launch_bounds__(256)
+    dx_smallk_kernel(const __nv_bfloat16* __restrict__ du,
+                     const __nv_bfloat16* __restrict__ wt,
+                     const float* __restrict__ pre,
+                     const float* __restrict__ post,
+                     const __nv_bfloat16* __restrict__ x,
+                     __nv_bfloat16* __restrict__ dx,
+                     float* __restrict__ ds_part, int HW, int K, int C) {
+  __shared__ float red[256 * 8];
+  const int n = blockIdx.y, tile = blockIdx.x;
+  const int chunks = C / 8;            // threads per pixel
+  const int rows = 256 / chunks;       // pixels per pass
+  const int tid = threadIdx.x;
+  const int cc = tid % chunks, rg = tid / chunks;
+  const int c = cc * 8;
+  float part[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) part[e] = 0.f;
+  if (rg < rows) {
+    float w[kSmallK][8];
+#pragma unroll
+    for (int k = 0; k < kSmallK; ++k) {
+      const float dk = k < K ? pre[(long long)n * K + k] : 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        w[k][e] = k < K ? __bfloat162float(__float2bfloat16(
+                              __bfloat162float(wt[(long long)k * C + c + e]) *
+                              dk))
+                        : 0.f;
+    }
+    float sc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sc[e] = post[(long long)n * C + c + e];
+    const int pend = min(HW, (tile + 1) * kSmallTile);
+    for (int p = tile * kSmallTile + rg; p < pend; p += rows) {
+      const long long pix = (long long)n * HW + p;
+      float g[kSmallK];
+#pragma unroll
+      for (int k = 0; k < kSmallK; ++k)
+        g[k] = k < K ? __bfloat162float(du[pix * K + k]) : 0.f;
+      const uint4 xr = *reinterpret_cast<const uint4*>(x + pix * C + c);
+      const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xr);
+      uint4 o;
+      __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+        for (int k = 0; k < kSmallK; ++k) {
+          u0 += g[k] * w[k][2 * e];
+          u1 += g[k] * w[k][2 * e + 1];
+        }
+        const float2 xf = __bfloat1622float2(xh[e]);
+        part[2 * e] += xf.x * u0;
+        part[2 * e + 1] += xf.y * u1;
+        oh[e] = __floats2bfloat162_rn(u0 * sc[2 * e], u1 * sc[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(dx + pix * C + c) = o;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[tid * 8 + e] = part[e];
+  __syncthreads();
+  for (int cl = tid; cl < C; cl += 256) {
+    float sum = 0.f;
+    for (int r = 0; r < rows; ++r)
+      sum += red[(r * chunks + cl / 8) * 8 + cl % 8];
+    ds_part[((long long)n * gridDim.x + tile) * C + cl] = sum;
+  }
+}
+
+// One block per unit (sample b / S, pixels [(b % S) R, (b % S + 1) R)):
+// its term of dw [Ci, K], times s_n (x) d_n, as the block's fp32 partial.
+__global__ void __launch_bounds__(256)
+    dw_smallk_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ du,
+                     const float* __restrict__ s,
+                     const float* __restrict__ pre, float* __restrict__ part,
+                     int HW, int Ci, int K, int S, int R) {
+  __shared__ float red[256 * 8 * kSmallK];
+  const int b = blockIdx.x, n = b / S, piece = b % S;
+  const int chunks = Ci / 8, rows = 256 / chunks;
+  const int tid = threadIdx.x;
+  const int cc = tid % chunks, rg = tid / chunks;
+  const int c = cc * 8;
+  float acc[kSmallK][8];
+#pragma unroll
+  for (int k = 0; k < kSmallK; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
+  if (rg < rows) {
+    const int pend = min(HW, (piece + 1) * R);
+    for (int p = piece * R + rg; p < pend; p += rows) {
+      const long long pix = (long long)n * HW + p;
+      const uint4 xr = *reinterpret_cast<const uint4*>(x + pix * Ci + c);
+      const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xr);
+      float xf[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(xh[e]);
+        xf[2 * e] = f.x;
+        xf[2 * e + 1] = f.y;
+      }
+#pragma unroll
+      for (int k = 0; k < kSmallK; ++k) {
+        const float g = k < K ? __bfloat162float(du[pix * K + k]) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[k][e] += xf[e] * g;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kSmallK; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[(tid * kSmallK + k) * 8 + e] = acc[k][e];
+  __syncthreads();
+  for (int o = tid; o < Ci * K; o += 256) {
+    const int ci = o / K, k = o % K;
+    float sum = 0.f;
+    for (int r = 0; r < rows; ++r)
+      sum += red[((r * chunks + ci / 8) * kSmallK + k) * 8 + ci % 8];
+    part[(long long)b * Ci * K + o] =
+        sum * (s[(long long)n * Ci + ci] * pre[(long long)n * K + k]);
   }
 }
 
@@ -545,80 +850,313 @@ bool make_taps(int ntaps, const int* oy, const int* ox, Taps* taps) {
   return true;
 }
 
+
+// The paths of a launch, chosen by the wrapper (ops/cuda_modconv.py
+// bwd_path) and checked here: the FMA kernels (fp32, or any shape), the
+// wgmma kernels (bf16, channel counts that are multiples of 8, and an
+// image width whose rows tile the `rows` pixels of a TMA box: whole rows
+// of the image, or a run of one row), and the small-K kernels (bf16, at
+// most kSmallK cotangent channels, one tap at offset 0: the tRGB).
+enum Path { kPathFma = 0, kPathWgmma = 1, kPathSmallK = 2 };
+
+bool path_fits(int path, int dtype, int K, int C, int W, int rows,
+               const Taps& taps) {
+  if (path == kPathFma)
+    return dtype == GT_DTYPE_F32 || dtype == GT_DTYPE_BF16;
+  if (dtype != GT_DTYPE_BF16 || C % 8 != 0) return false;
+  if (path == kPathWgmma)
+    return K % 8 == 0 && W > 0 && (W >= rows ? W % rows == 0 : rows % W == 0);
+  return path == kPathSmallK && K <= kSmallK && 256 % (C / 8) == 0 &&
+         taps.n == 1 && taps.oy[0] == 0 && taps.ox[0] == 0;
+}
+
+// Dynamic shared memory of a launch, checked against the card's limit.
+constexpr int kMaxSmem = 232448;
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links only the runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Tensor map of a dense bf16 tensor with `rank` dims (innermost first),
+// read in boxes of `box` elements with the 128-byte swizzle; outside the
+// tensor a box reads zeros.  Encoding one costs the host tens of
+// microseconds, as much as the whole launch of a small layer, so the maps
+// are kept in a small per-thread cache keyed by everything that defines
+// them (address, dims, box); PyTorch's caching allocator hands a training
+// step the same addresses step after step.
+struct MapKey {
+  const void* ptr;
+  int rank;
+  cuuint64_t dims[4];
+  cuuint32_t box[4];
+  bool operator==(const MapKey& o) const {
+    if (ptr != o.ptr || rank != o.rank) return false;
+    for (int i = 0; i < rank; ++i)
+      if (dims[i] != o.dims[i] || box[i] != o.box[i]) return false;
+    return true;
+  }
+};
+
+constexpr int kMapCache = 64;
+
+int bf16_map(CUtensorMap* map, const void* ptr, int rank,
+             const cuuint64_t* dims, const cuuint32_t* box) {
+  struct Entry {
+    MapKey key;
+    CUtensorMap map;
+    bool used;
+  };
+  thread_local Entry cache[kMapCache] = {};
+  MapKey key{ptr, rank, {0, 0, 0, 0}, {0, 0, 0, 0}};
+  unsigned long long h = reinterpret_cast<unsigned long long>(ptr) >> 8;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    h = h * 1000003ull ^ (dims[i] * 31ull + box[i]);
+  }
+  Entry& e = cache[h % kMapCache];
+  if (e.used && e.key == key) {
+    *map = e.map;
+    return 0;
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t strides[4];
+  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  cuuint64_t bytes = 2;
+  for (int i = 0; i + 1 < rank; ++i) {
+    bytes *= dims[i];
+    strides[i] = bytes;
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(ptr), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  e.key = key;
+  e.map = *map;
+  e.used = true;
+  return 0;
+}
+
+// Map of an NHWC activation [N, H, W, Ch] in boxes of 64 channels x
+// `pixels` pixels (whole rows, or a run of one row).
+int nhwc_map(CUtensorMap* map, const void* ptr, int N, int H, int W, int Ch,
+             int pixels) {
+  const int bw = W < pixels ? W : pixels;
+  const cuuint64_t dims[4] = {(cuuint64_t)Ch, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)(pixels / bw),
+                             1};
+  return bf16_map(map, ptr, 4, dims, box);
+}
+
+template <int BN>
+int launch_dx(const void* du, const void* wt, const float* pre,
+              const float* post, const void* x, void* dx, void* wtd,
+              float* ds_part, int N, int H, int W, int K, int C, Taps taps,
+              cudaStream_t st) {
+  constexpr int smem = dx_stages<BN>() * dx_stage_bytes<BN>() + kAlign;
+  static const int attr = set_smem(dx_wgmma_kernel<BN>, smem);
+  if (attr != 0) return attr;
+  const long long chunks = (long long)N * taps.n * K * C / 8;
+  const int blocks = (int)(chunks < 132 * 16 * 256 ? (chunks + 255) / 256
+                                                   : 132 * 16);
+  dx_prescale_kernel<<<blocks, 256, 0, st>>>(
+      (const __nv_bfloat16*)wt, pre, (__nv_bfloat16*)wtd, N, taps.n, K, C);
+  int rc = (int)cudaGetLastError();
+  CUtensorMap tm_du, tm_wtd;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)K,
+                              (cuuint64_t)taps.n, (cuuint64_t)N};
+  const cuuint32_t box[4] = {64, kDxBK, 1, 1};
+  if (rc == 0) rc = bf16_map(&tm_wtd, wtd, 4, dims, box);
+  if (rc == 0) rc = nhwc_map(&tm_du, du, N, H, W, K, kDxBM);
+  if (rc != 0) return rc;
+  dim3 grid((C + BN - 1) / BN, (H * W + kDxBM - 1) / kDxBM, N);
+  dx_wgmma_kernel<BN><<<grid, kDxThreads, smem, st>>>(
+      tm_du, tm_wtd, post, (const __nv_bfloat16*)x, (__nv_bfloat16*)dx,
+      ds_part, H, W, K, C, taps);
+  return (int)cudaGetLastError();
+}
+
+template <int WGS, int BN, int BP>
+int launch_dw(const void* x, const void* du, const float* s,
+              const float* pre, float* dst, int N, int H, int W, int Ci,
+              int K, Taps taps, Split sp, cudaStream_t st) {
+  constexpr int smem =
+      dw_stages<WGS, BN, BP>() * dw_stage_bytes<WGS, BN, BP>() + kAlign;
+  static const int attr = set_smem(dw_wgmma_kernel<WGS, BN, BP>, smem);
+  if (attr != 0) return attr;
+  CUtensorMap tm_x, tm_du;
+  int rc = nhwc_map(&tm_x, x, N, H, W, Ci, BP);
+  if (rc == 0) rc = nhwc_map(&tm_du, du, N, H, W, K, BP);
+  if (rc != 0) return rc;
+  dim3 grid((K + BN - 1) / BN, ((Ci + WGS * 64 - 1) / (WGS * 64)) * taps.n,
+            sp.P);
+  dw_wgmma_kernel<WGS, BN, BP><<<grid, WGS * 128 + 32, smem, st>>>(
+      tm_x, tm_du, s, pre, dst, N, H, W, Ci, K, taps, sp);
+  return (int)cudaGetLastError();
+}
+
+using DwLaunch = int (*)(const void*, const void*, const float*,
+                         const float*, float*, int, int, int, int, int, Taps,
+                         Split, cudaStream_t);
+
+// 128-pixel dw stages: for every tile but 64 x 64, where a sample has 128
+// pixels (res >= 16).
+bool dw_wide(int Ci, int K, int HW) {
+  return (Ci >= 128 || K >= 128) && HW >= 128;
+}
+
 }  // namespace
 
-// Pixels per ds partial (one dx tile).
-extern "C" int gt_modconv_dx_tile() { return kBM; }
+// Pixels per ds partial (one dx tile) of a dx/ds launch on `path`.
+extern "C" int gt_modconv_dx_tile(int path) {
+  return path == kPathWgmma ? kDxBM : path == kPathSmallK ? kSmallTile : kBM;
+}
+
+// Dynamic shared memory of a launch on `path` (which = 0: dx/ds, 1: dw)
+// with CoK = K and Ci = C on HW pixels a sample; 0 bytes off the wgmma
+// path, whose kernels' tiles are static.
+extern "C" int gt_modconv_bwd_smem(int which, int path, int K, int C,
+                                   int HW) {
+  if (path != kPathWgmma) return 0;
+  if (which == 0)
+    return kAlign + (C >= 128 ? dx_stages<128>() * dx_stage_bytes<128>()
+                              : dx_stages<64>() * dx_stage_bytes<64>());
+  const int wgs = C >= 128 ? 2 : 1, bn = K >= 128 ? 128 : 64;
+  const int bp = dw_wide(C, K, HW) ? 128 : 64;
+  const int stages = bp == 64 ? (wgs == 1 && bn == 64 ? 4 : 5)
+                              : (wgs == 2 && bn == 128 ? 3 : 4);
+  return kAlign + stages * (wgs + bn / 64) * bp * 128;
+}
 
 // dx [N,H,W,C] and ds [N,C] (fp32) from the cotangent du [N,H,W,K], the
 // adjoint weights wT [T,K,C], pre = d [N,K] and post = s [N,C] (fp32), and
-// x [N,H,W,C]; ds_part is fp32 scratch of [N, ceil(H*W/64), C].
-extern "C" int gt_modconv_dx(int dtype, const void* du, const void* wt,
-                             const float* pre, const float* post,
-                             const void* x, void* dx, float* ds_part,
-                             float* ds, int N, int H, int W, int K, int C,
-                             int ntaps, const int* tap_oy, const int* tap_ox,
+// x [N,H,W,C]; ds_part is fp32 scratch of [N, ceil(H*W / tile), C] with
+// tile = gt_modconv_dx_tile(path), and wtd bf16 scratch of [N, T, K, C]
+// for the weights with d folded in on the wgmma path (else unused).
+extern "C" int gt_modconv_dx(int path, int dtype, const void* du,
+                             const void* wt, const float* pre,
+                             const float* post, const void* x, void* dx,
+                             void* wtd, float* ds_part, float* ds, int N,
+                             int H, int W, int K, int C, int ntaps,
+                             const int* tap_oy, const int* tap_ox,
                              void* stream) {
   Taps taps;
-  if (!make_taps(ntaps, tap_oy, tap_ox, &taps))
+  if (!make_taps(ntaps, tap_oy, tap_ox, &taps) ||
+      !path_fits(path, dtype, K, C, W, kDxBM, taps))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (H * W + kBM - 1) / kBM;
-  dim3 grid(tiles, (C + kBN - 1) / kBN, N);
-  if (dtype == GT_DTYPE_F32)
-    dx_fma_kernel<float><<<grid, 256, 0, st>>>(
-        (const float*)du, (const float*)wt, pre, post, (const float*)x,
-        (float*)dx, ds_part, H, W, K, C, taps);
-  else if (dtype == GT_DTYPE_BF16 && K % 8 == 0 && C % 8 == 0)
-    dx_wmma_kernel<<<grid, 128, 0, st>>>(
+  const int tile = gt_modconv_dx_tile(path);
+  const int tiles = (H * W + tile - 1) / tile;
+  int rc = 0;
+  if (path == kPathWgmma) {
+    if (wtd == nullptr) return (int)cudaErrorInvalidValue;
+    rc = C >= 128 ? launch_dx<128>(du, wt, pre, post, x, dx, wtd, ds_part,
+                                   N, H, W, K, C, taps, st)
+                  : launch_dx<64>(du, wt, pre, post, x, dx, wtd, ds_part, N,
+                                  H, W, K, C, taps, st);
+  } else if (path == kPathSmallK) {
+    dx_smallk_kernel<<<dim3(tiles, N), 256, 0, st>>>(
         (const __nv_bfloat16*)du, (const __nv_bfloat16*)wt, pre, post,
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)dx, ds_part, H, W, K, C,
-        taps);
-  else if (dtype == GT_DTYPE_BF16)
-    dx_fma_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        (const __nv_bfloat16*)du, (const __nv_bfloat16*)wt, pre, post,
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)dx, ds_part, H, W, K, C,
-        taps);
-  else
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ds_reduce_kernel<<<(N * C + 255) / 256, 256, 0, st>>>(ds_part, ds, N,
-                                                        tiles, C);
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)dx, ds_part, H * W, K, C);
+    rc = (int)cudaGetLastError();
+  } else {
+    dim3 grid(tiles, (C + kBN - 1) / kBN, N);
+    if (dtype == GT_DTYPE_F32)
+      dx_fma_kernel<float><<<grid, 256, 0, st>>>(
+          (const float*)du, (const float*)wt, pre, post, (const float*)x,
+          (float*)dx, ds_part, H, W, K, C, taps);
+    else
+      dx_fma_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
+          (const __nv_bfloat16*)du, (const __nv_bfloat16*)wt, pre, post,
+          (const __nv_bfloat16*)x, (__nv_bfloat16*)dx, ds_part, H, W, K, C,
+          taps);
+    rc = (int)cudaGetLastError();
+  }
+  if (rc != 0) return rc;
+  ds_reduce_kernel<<<dim3((C + 31) / 32, N), dim3(32, 8), 0, st>>>(
+      ds_part, ds, N, tiles, C);
   return (int)cudaGetLastError();
 }
 
 // dw [T, Ci, K] (fp32) from x [N,H,W,Ci], the cotangent du [N,H,W,K],
 // s [N,Ci] and pre = d [N,K] (fp32), split over P blocks of the N * S
-// chunks of R pixels; part is fp32 scratch of [P, T, Ci, K].
-extern "C" int gt_modconv_dw(int dtype, const void* x, const void* du,
-                             const float* s, const float* pre, float* part,
-                             float* out, int N, int H, int W, int Ci, int K,
-                             int ntaps, const int* tap_oy, const int* tap_ox,
-                             int S, int R, int P, void* stream) {
+// units of R pixels (ops/cuda_modconv.py dw_split); part is fp32 scratch
+// of [P, T, Ci, K] (unused when P == 1: the split writes dw).
+extern "C" int gt_modconv_dw(int path, int dtype, const void* x,
+                             const void* du, const float* s,
+                             const float* pre, float* part, float* out,
+                             int N, int H, int W, int Ci, int K, int ntaps,
+                             const int* tap_oy, const int* tap_ox, int S,
+                             int R, int P, void* stream) {
   Taps taps;
-  if (!make_taps(ntaps, tap_oy, tap_ox, &taps) || S < 1 || R < 1 || P < 1 ||
-      (long long)S * R < (long long)H * W || P > N * S)
+  if (!make_taps(ntaps, tap_oy, tap_ox, &taps) ||
+      !path_fits(path, dtype, K, Ci, W, kDwRows, taps) || S < 1 || R < 1 ||
+      P < 1 || (long long)S * R < (long long)H * W || P > N * S ||
+      (path == kPathSmallK && P != N * S))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Split sp{S, R, P};
-  dim3 grid((Ci + kBM - 1) / kBM, (K + kBN - 1) / kBN, ntaps * P);
-  if (dtype == GT_DTYPE_F32)
-    dw_fma_kernel<float><<<grid, 256, 0, st>>>(
-        (const float*)x, (const float*)du, s, pre, part, N, H, W, Ci, K, taps,
-        sp);
-  else if (dtype == GT_DTYPE_BF16 && Ci % 8 == 0 && K % 8 == 0)
-    dw_wmma_kernel<<<grid, 128, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)du, s, pre, part, N, H,
-        W, Ci, K, taps, sp);
-  else if (dtype == GT_DTYPE_BF16)
-    dw_fma_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)du, s, pre, part, N, H,
-        W, Ci, K, taps, sp);
-  else
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  float* dst = P == 1 ? out : part;
+  int rc = 0;
+  if (path == kPathWgmma) {
+    const bool wide = dw_wide(Ci, K, H * W);
+    const DwLaunch launch =
+        Ci >= 128 ? (K >= 128 ? (wide ? launch_dw<2, 128, 128>
+                                      : launch_dw<2, 128, 64>)
+                              : (wide ? launch_dw<2, 64, 128>
+                                      : launch_dw<2, 64, 64>))
+                  : (K >= 128 ? (wide ? launch_dw<1, 128, 128>
+                                      : launch_dw<1, 128, 64>)
+                              : launch_dw<1, 64, 64>);
+    rc = launch(x, du, s, pre, dst, N, H, W, Ci, K, taps, sp, st);
+  } else if (path == kPathSmallK) {
+    dw_smallk_kernel<<<P, 256, 0, st>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)du, s, pre, dst,
+        H * W, Ci, K, S, R);
+    rc = (int)cudaGetLastError();
+  } else {
+    dim3 grid((Ci + kBM - 1) / kBM, (K + kBN - 1) / kBN, ntaps * P);
+    if (dtype == GT_DTYPE_F32)
+      dw_fma_kernel<float><<<grid, 256, 0, st>>>(
+          (const float*)x, (const float*)du, s, pre, dst, N, H, W, Ci, K,
+          taps, sp);
+    else
+      dw_fma_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
+          (const __nv_bfloat16*)x, (const __nv_bfloat16*)du, s, pre, dst, N,
+          H, W, Ci, K, taps, sp);
+    rc = (int)cudaGetLastError();
+  }
+  if (rc != 0 || P == 1) return rc;
   const long long total = (long long)ntaps * Ci * K;
   dw_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       part, out, total, P);

@@ -52,11 +52,12 @@ _SIGNATURES = {
                                _I, _I, _I, _F, _P]),
     "gt_grid_to_latent_bwd": (_I, [_I] + [_P] * 10 + [_I] * 5 + [_F, _P]),
     "gt_latent_to_grid_bwd": (_I, [_I] + [_P] * 10 + [_I] * 5 + [_F, _P]),
-    "gt_modconv_dx": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _P, _P, _P]),
-    "gt_modconv_dx_tile": (_I, []),
-    "gt_modconv_dw": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _P, _P, _I, _I, _I, _P]),
+    "gt_modconv_dx": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _I, _I, _I, _P, _P, _P]),
+    "gt_modconv_dx_tile": (_I, [_I]),
+    "gt_modconv_bwd_smem": (_I, [_I, _I, _I, _I, _I]),
+    "gt_modconv_dw": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _P, _P, _I, _I, _I, _P]),
     "gt_attn_chunk": (_I, []),
     "gt_g2l_smem": (ctypes.c_longlong, [_I, _I, _I]),
     "gt_l2g_smem": (ctypes.c_longlong, [_I, _I]),
@@ -163,18 +164,30 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
+SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
+
+
+def check_smem(nbytes: int, what: str) -> None:
+    """Raise where a launch would need more shared memory than a block may
+    opt in to (the launch would be refused)."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {nbytes} bytes of shared memory, "
+                         f"more than the {SMEM_LIMIT} a block may use")
+
+
 def stream_ptr(t) -> int:
-    """The current CUDA stream of ``t``'s device, as an address."""
+    """The current CUDA stream of ``t``'s device, as an address (the raw
+    handle, without building a ``torch.cuda.Stream``)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 
 def dtype_code(t) -> int:
-    name = str(t.dtype).replace("torch.", "")
+    name = str(t.dtype)[6:]                 # "torch.bfloat16" -> "bfloat16"
     if name not in DTYPE_CODES:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[name]

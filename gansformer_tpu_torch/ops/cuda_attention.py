@@ -56,7 +56,6 @@ launches_g2l_lse = 0
 launches_l2g_lse = 0
 
 MAX_LATENTS = 64
-SMEM_LIMIT = 232448        # bytes a Hopper block may opt in to
 
 
 def _check(q, k, v):
@@ -78,12 +77,6 @@ def _check_latents(l: int, what: str) -> None:
                          f"got {l}")
 
 
-def _check_smem(nbytes: int, what: str) -> None:
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{what} needs {nbytes} bytes of shared memory, "
-                         f"more than the {SMEM_LIMIT} a block may use")
-
-
 def _stats(q: torch.Tensor, rows: int, with_stats: bool):
     return (torch.empty((q.shape[0], rows), dtype=torch.float32,
                         device=q.device) if with_stats else None)
@@ -103,8 +96,8 @@ def grid_to_latent_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l, dv = v.shape[1], v.shape[2]
     _check_latents(l, "grid_to_latent")
     lib = _build.load_library()
-    _check_smem(lib.gt_g2l_smem(l, d, dv), f"grid_to_latent K/V of "
-                f"{l}x({d}+{dv})")
+    _build.check_smem(lib.gt_g2l_smem(l, d, dv),
+                      f"grid_to_latent K/V of {l}x({d}+{dv})")
     o = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
     lse = _stats(q, n, with_stats)
     rc = lib.gt_grid_to_latent(
@@ -129,7 +122,8 @@ def latent_to_grid_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n, dv = v.shape[1], v.shape[2]
     _check_latents(l, "latent_to_grid")
     lib = _build.load_library()
-    _check_smem(lib.gt_l2g_smem(l, d), f"latent_to_grid Q of {l}x{d}")
+    _build.check_smem(lib.gt_l2g_smem(l, d),
+                      f"latent_to_grid Q of {l}x{d}")
     chunks = -(-n // lib.gt_attn_chunk())
     f32 = dict(dtype=torch.float32, device=q.device)
     m_part = torch.empty((b, chunks, l), **f32)
@@ -173,8 +167,8 @@ def grid_to_latent_bwd_cuda(q, k, v, lse, do):
     l, dv = v.shape[1], v.shape[2]
     _check_latents(l, "grid_to_latent backward")
     lib = _build.load_library()
-    _check_smem(lib.gt_g2l_bwd_smem(l, d, dv), f"grid_to_latent backward "
-                f"of {l}x({d}+{dv})")
+    _build.check_smem(lib.gt_g2l_bwd_smem(l, d, dv),
+                      f"grid_to_latent backward of {l}x({d}+{dv})")
     chunks = -(-n // lib.gt_attn_bwd_rows())
     f32 = dict(dtype=torch.float32, device=q.device)
     dk_part = torch.empty((b, chunks, l, d), **f32)
@@ -205,8 +199,8 @@ def latent_to_grid_bwd_cuda(q, k, v, lse, do, delta):
     delta = delta.contiguous()
     _check_latents(l, "latent_to_grid backward")
     lib = _build.load_library()
-    _check_smem(lib.gt_l2g_bwd_smem(l, d, dv), f"latent_to_grid backward "
-                f"of {l}x({d}+{dv})")
+    _build.check_smem(lib.gt_l2g_bwd_smem(l, d, dv),
+                      f"latent_to_grid backward of {l}x({d}+{dv})")
     chunks = -(-n // lib.gt_attn_bwd_rows())
     dq_part = torch.empty((b, chunks, l, d), dtype=torch.float32,
                           device=q.device)

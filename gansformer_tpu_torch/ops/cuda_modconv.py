@@ -15,23 +15,32 @@ bf16 convs run on the tensor cores through WMMA, fp32 and the 3-channel
 tRGB on the fp32 FMA units.  Its loads are not pipelined (no cp.async,
 TMA or wgmma yet), so it sits well above the bound; its design (style
 folded into the activation load, demod into the epilogue, one weight
-tile for the whole batch) is what a wgmma version keeps.
+tile for the whole batch) is what a wgmma version keeps, on the mainloop
+of ``csrc/hopper.cuh`` that the backward kernels use.
 
 ``modconv_dx_cuda`` replaces ``_bwd_call`` -> ``pl.pallas_call`` (body
 ``_bwd_body``): dx = s * u and ds = sum_hw x * u with u the transposed
-conv of the cotangent, d folded into the weight-tile load; ds goes through
-per-tile fp32 partials and a fixed-order second pass.
-``modconv_dw_cuda`` replaces ``_dw_call`` -> ``pl.pallas_call`` (body
-``_dw_body``): the per-tap weight gradient, split over (sample,
-row-strip) chunks so the long contraction fills the card, with the
-rank-1 scale s_n (x) d_n applied to each sample's tap product and a
-fixed-order reduce of the fp32 partials.  Both are bound by operations
-(the forward's multiply-adds) and share the forward's design: WMMA for
-bf16, FMA for fp32 and the tRGB, no load pipelining yet.
+conv of the cotangent, d folded into the weights once per sample and
+rounded where ``_bwd_body`` rounds it; ds goes through per-tile fp32
+partials and a fixed-order second pass.  ``modconv_dw_cuda`` replaces
+``_dw_call`` -> ``pl.pallas_call`` (body ``_dw_body``): the per-tap
+weight gradient, split along (sample, pixel) units cut at sample
+boundaries (``dw_split``) so the long contraction fills the card, with
+the rank-1 scale s_n (x) d_n applied in fp32 to each sample's product and
+a fixed-order reduce of the fp32 partials.  Bound: the forward's
+multiply-adds (dw, and dx/ds at 512 channels) or the bytes of du, x and
+dx (dx/ds at 64-128 channels).  Each launch takes one of three paths
+(``bwd_path``).  bf16 3x3 and up-convs: wgmma fed by TMA through a ring
+of 3-5 shared-memory slots (a producer warp fills it, two consumer
+warpgroups drain it), 128 x 128 tiles where the channels reach 128
+(``dx_tile``, ``dw_tile``), the dynamic shared memory of ``bwd_smem``
+opted in per kernel.  bf16 tRGB (CoK = 3): small-K kernels bound by the
+bytes of x and dx.  fp32: FMA kernels with 64 x 64 tiles.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -44,9 +53,31 @@ launches = 0
 launches_dx = 0
 launches_dw = 0
 
-# dw split-K: pixels per chunk, and the blocks per SM the split aims for.
-DW_CHUNK_PIXELS = 256
-DW_BLOCKS_PER_SM = 4
+# The backward kernels' tiles (csrc/modconv_bwd.cu): pixels per dx tile
+# and per ds partial on the wgmma path and the cotangent channels of one
+# dx stage, 64 x 64 FMA tiles, the pixels of one dw stage (128 on the
+# wgmma path but for its 64 x 64 tile), the rows of the image a dw stage
+# must tile, and the ring's slots; the small-K path's bounds and tiles.
+DX_TILE = 128
+DX_STAGE_K = 64
+FMA_TILE = 64
+DW_STAGE_PIXELS = 64
+DW_WIDE_STAGE_PIXELS = 128
+DW_ROWS = 128
+# ring slots by (kernel, tile[, dw stage pixels]): within 227 KB; the
+# 64-wide dx tile takes three so that more blocks share an SM
+STAGES = {("dx", 64): 3, ("dx", 128): 5, ("dw", 64, 64, 64): 4,
+          ("dw", 64, 128, 64): 5, ("dw", 128, 64, 64): 5,
+          ("dw", 128, 128, 64): 5, ("dw", 64, 128, 128): 4,
+          ("dw", 128, 64, 128): 4, ("dw", 128, 128, 128): 3}
+SMALL_K = 4               # cotangent channels of the small-K path, at most
+SMALL_TILE = 256          # pixels per small-K dx tile
+# dw split-K: the blocks per SM the split aims for (wgmma; the FMA and
+# small-K kernels, on the CUDA cores), and the least number of pixels a
+# wgmma split keeps.
+DW_BLOCKS_PER_SM = 2
+SIMT_BLOCKS_PER_SM = 4
+DW_MIN_PIXELS = 1024
 
 # Tap offsets (dy, dx) relative to the output pixel, in input coordinates;
 # tap t reads weight slab t of the stacked [T, Ci, Co*phases] weights.
@@ -109,15 +140,125 @@ def modconv_cuda(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
     return y
 
 
+# The backward kernels' paths (csrc/modconv_bwd.cu): the FMA kernels
+# (fp32, or any shape), the wgmma kernels, and the small-K kernels of the
+# 3-channel tRGB.
+PATH_FMA, PATH_WGMMA, PATH_SMALLK = 0, 1, 2
+TILE_PIXELS = {PATH_FMA: FMA_TILE, PATH_WGMMA: DX_TILE,
+               PATH_SMALLK: SMALL_TILE}
+
+
+def bwd_path(which: str, dtype: torch.dtype, cok: int, ci: int, w: int,
+             taps) -> int:
+    """The path of a dx/ds (``which='dx'``) or dw launch: wgmma for bf16
+    with channel counts ``cok`` and ``ci`` that are multiples of 8 and an
+    image width ``w`` whose rows tile the pixels of one TMA box (whole
+    rows of the image, or a run of one row); the small-K kernels for bf16
+    at most ``SMALL_K`` cotangent channels and one tap at offset 0; else
+    the FMA kernels."""
+    if dtype == torch.bfloat16 and ci % 8 == 0:
+        rows = DX_TILE if which == "dx" else DW_ROWS
+        if cok % 8 == 0 and w > 0 and (w % rows == 0 if w >= rows
+                                       else rows % w == 0):
+            return PATH_WGMMA
+        if cok <= SMALL_K and 256 % (ci // 8) == 0 and \
+                tuple(map(tuple, taps)) == ((0, 0),):
+            return PATH_SMALLK
+    return PATH_FMA
+
+
+def dx_tile(path: int, ci: int):
+    """(pixels, channels) of one dx/ds output tile on ``path``; the pixels
+    are also those one ds partial sums."""
+    if path == PATH_WGMMA:
+        return DX_TILE, 128 if ci >= 128 else 64
+    return TILE_PIXELS[path], FMA_TILE if path == PATH_FMA else ci
+
+
+def dw_tile(path: int, ci: int, cok: int):
+    """(ci, CoK) of one dw output tile on ``path``."""
+    if path == PATH_WGMMA:
+        return 128 if ci >= 128 else 64, 128 if cok >= 128 else 64
+    if path == PATH_SMALLK:
+        return ci, cok
+    return FMA_TILE, FMA_TILE
+
+
+def bwd_smem(which: str, path: int, cok: int, ci: int, hw: int) -> int:
+    """Dynamic shared memory of a dx/ds (``which='dx'``) or dw launch: the
+    ring's slots of 128-byte swizzled tiles (blocks of 64 rows of 128
+    bytes; dx's pixel tile is 128 rows of its 64 cotangent channels), and
+    1 KB of slack to align the ring to its 1 KB atoms; 0 off the wgmma
+    path, whose kernels' tiles are static."""
+    if path != PATH_WGMMA:
+        return 0
+    block = 64 * 128
+    if which == "dx":
+        _, bn = dx_tile(path, ci)
+        return (STAGES["dx", bn]
+                * (DX_TILE * DX_STAGE_K * 2 + (bn // 64) * block) + 1024)
+    bm, bn = dw_tile(path, ci, cok)
+    bp = dw_stage_pixels(path, ci, cok, hw)
+    return STAGES["dw", bm, bn, bp] * (bm // 64 + bn // 64) * bp * 128 + 1024
+
+
+def dw_stage_pixels(path: int, ci: int, cok: int, hw: int) -> int:
+    """Pixels of one dw stage: 128 on the wgmma path (half the ring round
+    trips) where a sample has 128 pixels, but for the 64 x 64 tile; else
+    64."""
+    if path == PATH_WGMMA and dw_tile(path, ci, cok) != (64, 64) \
+            and hw >= DW_WIDE_STAGE_PIXELS:
+        return DW_WIDE_STAGE_PIXELS
+    return DW_STAGE_PIXELS
+
+
+def dx_tile_pixels(path: int) -> int:
+    """Pixels each ds partial of a dx/ds launch on ``path`` sums (one dx
+    tile), as the built library reports it."""
+    return int(_build.load_library().gt_modconv_dx_tile(path))
+
+
+@functools.lru_cache(maxsize=None)
 def _taps_arrays(taps):
-    oy = np.asarray([o[0] for o in taps], np.int32)
-    ox = np.asarray([o[1] for o in taps], np.int32)
-    return oy, ox
+    """(dy, dx) int32 arrays of a tuple of tap offsets, for the library."""
+    return (np.asarray([o[0] for o in taps], np.int32),
+            np.asarray([o[1] for o in taps], np.int32))
 
 
-def dx_tile_pixels() -> int:
-    """Pixels each ds partial of the dx/ds kernel sums (one dx tile)."""
-    return int(_build.load_library().gt_modconv_dx_tile())
+@functools.lru_cache(maxsize=None)
+def _dx_plan(dtype: torch.dtype, h: int, w: int, cok: int, ci: int, taps):
+    """(path, pixel tiles) of a dx/ds launch, its shared memory checked
+    (a launch shape repeats every step: worked out once)."""
+    path = bwd_path("dx", dtype, cok, ci, w, taps)
+    _build.check_smem(bwd_smem("dx", path, cok, ci, h * w),
+                      "modconv dx/ds")
+    return path, -(-(h * w) // TILE_PIXELS[path])
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_plan(dtype: torch.dtype, n: int, h: int, w: int, ci: int, cok: int,
+             taps, sms: int):
+    """(path, S, R, P) of a dw launch, its shared memory checked."""
+    path = bwd_path("dw", dtype, cok, ci, w, taps)
+    _build.check_smem(bwd_smem("dw", path, cok, ci, h * w), "modconv dw")
+    return (path,) + dw_split(n, h, w, ci, cok, len(taps), sms, path)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _f32(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if t.dtype != torch.float32 or t.device != like.device:
+        t = t.to(device=like.device, dtype=torch.float32)
+    return _aligned(t.contiguous())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` at a 16-byte aligned address (what TMA and the 16-byte loads
+    need; a view into a larger tensor may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def modconv_dx_cuda(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
@@ -129,7 +270,7 @@ def modconv_dx_cuda(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
     global launches_dx
     if not (du4.is_cuda and x.is_cuda):
         raise ValueError("modconv_dx_cuda takes CUDA tensors")
-    du4, x = du4.contiguous(), x.contiguous()
+    du4, x = _aligned(du4.contiguous()), _aligned(x.contiguous())
     if du4.dtype != x.dtype:
         raise TypeError(f"dtypes differ: {du4.dtype} {x.dtype}")
     n, h, w, cok = du4.shape
@@ -137,22 +278,26 @@ def modconv_dx_cuda(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
     if x.shape != (n, h, w, ci) or wk != cok or t != len(taps):
         raise ValueError(f"du {tuple(du4.shape)}, wT {tuple(wT.shape)}, x "
                          f"{tuple(x.shape)} and {len(taps)} taps do not fit")
-    wT = wT.to(device=x.device, dtype=x.dtype).contiguous()
-    pre = pre.to(device=x.device, dtype=torch.float32).contiguous()
-    post = post.to(device=x.device, dtype=torch.float32).contiguous()
+    if wT.dtype != x.dtype or wT.device != x.device:
+        wT = wT.to(device=x.device, dtype=x.dtype)
+    wT, pre, post = _aligned(wT.contiguous()), _f32(pre, x), _f32(post, x)
     if pre.shape != (n, cok) or post.shape != (n, ci):
         raise ValueError(f"pre {tuple(pre.shape)} / post {tuple(post.shape)} "
                          f"!= ({n}, {cok}) / ({n}, {ci})")
-    lib = _build.load_library()
-    tiles = -(-(h * w) // lib.gt_modconv_dx_tile())
-    dx = torch.empty_like(x)
+    taps = tuple(map(tuple, taps))
+    path, tiles = _dx_plan(x.dtype, h, w, cok, ci, taps)
     f32 = dict(dtype=torch.float32, device=x.device)
-    ds_part = torch.empty((n, tiles, ci), **f32)
+    dx = torch.empty_like(x)
     ds = torch.empty((n, ci), **f32)
+    ds_part = torch.empty(n * tiles * ci, **f32)
+    # the wgmma path's weights with d folded in, per sample [N, T, CoK, Ci]
+    wtd = (torch.empty((n, t, cok, ci), dtype=x.dtype, device=x.device)
+           if path == PATH_WGMMA else None)
     oy, ox = _taps_arrays(taps)
-    rc = lib.gt_modconv_dx(
-        _build.dtype_code(x), du4.data_ptr(), wT.data_ptr(), pre.data_ptr(),
-        post.data_ptr(), x.data_ptr(), dx.data_ptr(), ds_part.data_ptr(),
+    rc = _build.load_library().gt_modconv_dx(
+        path, _build.dtype_code(x), du4.data_ptr(), wT.data_ptr(),
+        pre.data_ptr(), post.data_ptr(), x.data_ptr(), dx.data_ptr(),
+        wtd.data_ptr() if wtd is not None else None, ds_part.data_ptr(),
         ds.data_ptr(), n, h, w, cok, ci, len(taps), oy.ctypes.data,
         ox.ctypes.data, _build.stream_ptr(x))
     _build.check(rc, "modconv dx/ds kernel")
@@ -161,16 +306,40 @@ def modconv_dx_cuda(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
 
 
 def dw_split(n: int, h: int, w: int, ci: int, cok: int, ntaps: int,
-             sms: int):
-    """(S, R, P): chunks per sample, pixels per chunk and the number of
-    blocks the dw contraction splits into, so that tiles * taps * P blocks
-    fill ``sms`` SMs ``DW_BLOCKS_PER_SM`` times over where the chunks
-    allow."""
-    r = DW_CHUNK_PIXELS
-    s = -(-(h * w) // r)
-    tiles = -(-ci // 64) * -(-cok // 64) * ntaps
-    p = -(-(DW_BLOCKS_PER_SM * sms) // tiles)
-    return s, r, max(1, min(p, n * s))
+             sms: int, path: int = PATH_WGMMA):
+    """(S, R, P) of the dw launch: each sample's H * W pixels are cut into
+    S units of R pixels (whole stages, ``dw_stage_pixels``) and split b
+    of P takes units [b * N*S / P, (b + 1) * N*S / P).  The cut falls on
+    sample boundaries: a split is one unit of one sample (S > 1) or a run
+    of whole samples (S = 1, P dividing N), so each sample's scale s_n (x)
+    d_n is applied once per split that sees it.  P is the least such count
+    whose blocks (``dw_tile`` tiles x taps x P) fill ``sms`` SMs
+    ``DW_BLOCKS_PER_SM`` (FMA: ``SIMT_BLOCKS_PER_SM``) times over, and no
+    wgmma split keeps fewer than ``DW_MIN_PIXELS`` pixels where P > 1.
+    The small-K path takes one unit per block, units of whole stages cut
+    so that the blocks fill the SMs ``SIMT_BLOCKS_PER_SM`` times over."""
+    hw = h * w
+    if path == PATH_SMALLK:
+        per = -(-(SIMT_BLOCKS_PER_SM * sms) // n)   # units per sample
+        r = -(-hw // per)
+        r = min(hw, -(-r // DW_STAGE_PIXELS) * DW_STAGE_PIXELS)
+        s = -(-hw // r)
+        return s, r, n * s
+    bm, bn = dw_tile(path, ci, cok)
+    tiles = -(-ci // bm) * -(-cok // bn) * ntaps
+    stage = dw_stage_pixels(path, ci, cok, hw)
+    stages = -(-hw // stage)
+    per_sm = DW_BLOCKS_PER_SM if path == PATH_WGMMA else SIMT_BLOCKS_PER_SM
+    want = max(1, -(-(per_sm * sms) // tiles))
+    if path == PATH_WGMMA:
+        want = max(1, min(want, n * hw // DW_MIN_PIXELS))
+    if want <= n:
+        p = min(d for d in range(1, n + 1) if n % d == 0 and d >= want)
+        return 1, hw, p
+    per = min(-(-want // n), stages)
+    r = -(-stages // per) * stage
+    s = -(-hw // r)
+    return s, r, n * s
 
 
 def modconv_dw_cuda(x: torch.Tensor, du4: torch.Tensor, s: torch.Tensor,
@@ -181,7 +350,7 @@ def modconv_dw_cuda(x: torch.Tensor, du4: torch.Tensor, s: torch.Tensor,
     global launches_dw
     if not (du4.is_cuda and x.is_cuda):
         raise ValueError("modconv_dw_cuda takes CUDA tensors")
-    du4, x = du4.contiguous(), x.contiguous()
+    du4, x = _aligned(du4.contiguous()), _aligned(x.contiguous())
     if du4.dtype != x.dtype:
         raise TypeError(f"dtypes differ: {du4.dtype} {x.dtype}")
     n, h, w, ci = x.shape
@@ -189,22 +358,21 @@ def modconv_dw_cuda(x: torch.Tensor, du4: torch.Tensor, s: torch.Tensor,
     if du4.shape != (n, h, w, cok):
         raise ValueError(f"du {tuple(du4.shape)} does not fit x "
                          f"{tuple(x.shape)}")
-    s = s.to(device=x.device, dtype=torch.float32).contiguous()
-    pre = pre.to(device=x.device, dtype=torch.float32).contiguous()
+    s, pre = _f32(s, x), _f32(pre, x)
     if s.shape != (n, ci) or pre.shape != (n, cok):
         raise ValueError(f"s {tuple(s.shape)} / pre {tuple(pre.shape)} != "
                          f"({n}, {ci}) / ({n}, {cok})")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunks, r, p = dw_split(n, h, w, ci, cok, len(taps), sms)
+    taps = tuple(map(tuple, taps))
+    path, units, r, p = _dw_plan(x.dtype, n, h, w, ci, cok, taps,
+                                 _sms(x.device.index))
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((p, len(taps), ci, cok), **f32)
     out = torch.empty((len(taps), ci, cok), **f32)
+    part = torch.empty((p, len(taps), ci, cok), **f32) if p > 1 else out
     oy, ox = _taps_arrays(taps)
-    lib = _build.load_library()
-    rc = lib.gt_modconv_dw(
-        _build.dtype_code(x), x.data_ptr(), du4.data_ptr(), s.data_ptr(),
+    rc = _build.load_library().gt_modconv_dw(
+        path, _build.dtype_code(x), x.data_ptr(), du4.data_ptr(), s.data_ptr(),
         pre.data_ptr(), part.data_ptr(), out.data_ptr(), n, h, w, ci, cok,
-        len(taps), oy.ctypes.data, ox.ctypes.data, chunks, r, p,
+        len(taps), oy.ctypes.data, ox.ctypes.data, units, r, p,
         _build.stream_ptr(x))
     _build.check(rc, "modconv dw kernel")
     launches_dw += 1

@@ -254,6 +254,21 @@ def test_ptxas_summary_reads_registers_and_spills():
         ("dx_fma_kernel<float>", 63, 0)]
 
 
+def test_demangled_name_keeps_integer_template_arguments():
+    """The wgmma kernels are templates on tile sizes: the ptxas and SASS
+    reports name each instantiation apart."""
+    ns = "_GLOBAL__N__b9f88356_14_modconv_bwd_cu_b3b38dcb"
+    pre = f"_ZN{len(ns)}{ns}"
+    assert chip_smoke._demangled_name(
+        pre + "15dw_wgmma_kernelILi2ELi128EEEv14CUtensorMap_stS1_PKf") \
+        == "dw_wgmma_kernel<2,128>"
+    assert chip_smoke._demangled_name(
+        pre + "15dx_wgmma_kernelILi64EEEv14CUtensorMap_st") \
+        == "dx_wgmma_kernel<64>"
+    assert chip_smoke._demangled_name(pre + "16dw_reduce_kernelEPKfPfxi") \
+        == "dw_reduce_kernel"
+
+
 # kernel, call shape, the controls each case must carry
 ATTENTION_CONTROLS = {
     "grid_to_latent": (dict(B=2, Lq=64, Lk=4, D=16, Dv=8),

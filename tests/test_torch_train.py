@@ -495,7 +495,7 @@ def test_train_cli_with_attention_imports_no_jax(tmp_path):
         "import sys\n"
         "from gansformer_tpu_torch.cli import train\n"
         f"assert train.main(['--config', {str(path)!r}, '--steps', '1', "
-        "'--batch-size', '2', '--device', 'cpu']) == 0\n"
+        "'--batch-size', '4', '--device', 'cpu']) == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'gansformer_tpu')]\n"
         "assert not bad, bad\n")
@@ -511,7 +511,7 @@ def test_train_cli_runs_two_steps_on_cpu(tmp_path):
     path.write_text(cfg.to_json())
     out = subprocess.run(
         [sys.executable, "-m", "gansformer_tpu_torch.cli.train", "--config",
-         str(path), "--steps", "2", "--batch-size", "2", "--seed", "1",
+         str(path), "--steps", "2", "--batch-size", "4", "--seed", "1",
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
         timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -520,3 +520,63 @@ def test_train_cli_runs_two_steps_on_cpu(tmp_path):
     assert head["model"]["resolution"] == 16 and head["device"] == "cpu"
     steps = [ln for ln in lines if ln.startswith("step ")]
     assert len(steps) == 2 and "Loss/D" in steps[0] and "g_ms" in steps[1]
+
+
+def test_train_cli_config_reads_mirror_seed_and_validates(tmp_path,
+                                                         monkeypatch):
+    """``cli.train --config`` on a JAX ``ExperimentConfig.to_json()``:
+    ``data.mirror_augment`` reaches ``d_step``, ``train.seed`` is used
+    unless ``--seed`` is given, and a batch that ``mbstd_group_size``
+    does not divide is refused, as the JAX ``validate()`` refuses it."""
+    from gansformer_tpu_torch.cli import train as train_cli
+
+    cfg = _jax_cfg()
+    cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, seed=7),
+        data=dataclasses.replace(cfg.data, mirror_augment=True))
+    path = tmp_path / "config.json"
+    path.write_text(cfg.to_json())
+    parse = train_cli.build_parser().parse_args
+
+    model, train, mirror = train_cli.configs(parse(["--config", str(path)]))
+    assert mirror is True and train.seed == 7
+    assert train.batch_size == BATCH and model.mbstd_group_size == 4
+    _, train, _ = train_cli.configs(parse(["--config", str(path),
+                                           "--seed", "3"]))
+    assert train.seed == 3
+    plain = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, mirror_augment=False))
+    path2 = tmp_path / "plain.json"
+    path2.write_text(plain.to_json())
+    assert train_cli.configs(parse(["--config", str(path2)]))[2] is False
+    assert train_cli.configs(parse(["--config", str(path2),
+                                    "--mirror-augment"]))[2] is True
+
+    with pytest.raises(ValueError, match="mbstd_group_size"):
+        jax_config.ExperimentConfig.validate(dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, batch_size=6)))
+    with pytest.raises(ValueError, match="mbstd_group_size"):
+        train_cli.configs(parse(["--config", str(path), "--batch-size",
+                                 "6"]))
+
+    seen = {}
+
+    def fake_d_step(state, reals, it, mirror_augment=False):
+        seen["mirror"] = mirror_augment
+        return {"Loss/D": 0.0, "Loss/scores/real": 0.0,
+                "Loss/scores/fake": 0.0}
+
+    def fake_create(model, train, seed, dev):
+        seen["seed"] = seed
+
+        class _State:
+            step = 0
+        return _State()
+
+    monkeypatch.setattr(train_cli, "d_step", fake_d_step)
+    monkeypatch.setattr(train_cli, "g_step",
+                        lambda state, it, n: {"Loss/G": 0.0})
+    monkeypatch.setattr(train_cli, "create_train_state", fake_create)
+    assert train_cli.main(["--config", str(path), "--steps", "1",
+                           "--device", "cpu"]) == 0
+    assert seen == {"mirror": True, "seed": 7}
