@@ -6,17 +6,22 @@
 In order:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels from ``gansformer_tpu_torch/csrc``, prints each
-   kernel's registers and spills (ptxas) and fails unless the SASS of the
-   modconv backward's wgmma kernels holds HGMMA (``cuobjdump -sass``);
-3. serving.  For every kernel launch of the serve run below (one
-   ``synthesize`` of ffhq256-duplex at each of batch 1, 2, 4 and 8,
-   bf16), and for the flagship shapes in fp32 too: runs the kernel and
-   its plain PyTorch version on the same inputs on the card and holds
-   them to the stated tolerance; times the kernel, the plain version and
-   one library call computing the same function (the yardstick), and
-   computes the least time the card could take (the bound).  Where
-   latent_to_grid splits n into chunks, it also shows the tolerance
-   rejects the output of a kernel that dropped one chunk;
+   kernel's registers and spills (ptxas; it fails where a kernel of
+   ``NO_SPILL`` spills) and fails unless the SASS of the modconv wgmma
+   kernels, forward and backward, holds HGMMA (``cuobjdump -sass``);
+3. serving.  First the library's tile and shared memory of each modconv
+   forward launch against the wrapper's.  For every kernel launch of the
+   serve run below (one ``synthesize`` of ffhq256-duplex at each of batch
+   1, 2, 4 and 8, bf16), and for the flagship shapes in fp32 too: runs
+   the kernel and its plain PyTorch version on the same inputs on the
+   card and holds them to the stated tolerance; times the kernel, the
+   plain version and one library call computing the same function (the
+   yardstick), each the median of three runs, and computes the least
+   time the card could take (the bound).  Planted faults the tolerance
+   must reject: latent_to_grid with one chunk dropped where it splits n
+   into chunks; the modconv forward with the styles of samples 0 and 1
+   swapped, with its middle tap dropped and, where the launch splits its
+   contraction, with one split's partial dropped;
 4. serves ffhq256-duplex at full width from a random init (bf16):
    ``map_seeds`` + ``synthesize`` over buckets 1, 2, 4 and 8 with mixed
    psi, with the launch counters reset just before and read just after;
@@ -54,7 +59,13 @@ In order:
    then the preset with ``d_attention`` (one d_step + one g_step): its
    counters against its plan, finite losses and gradients, and any
    attention launch shape the preset's run did not hold against its
-   plain version;
+   plain version; then each other preset (cityscapes256-duplex at L = 32,
+   ffhq1024-duplex at 512^2 and 1024^2, clevr64-simplex in fp32; the
+   ModelConfig of bedroom256-duplex is ffhq256-duplex's, which the
+   script asserts), at batch 8: every launch of one synthesize and one
+   d_step + g_step at a shape no earlier phase held, kernel against
+   plain, then the synthesize and the two steps with their counters held
+   to the plans, finite losses and gradients, and the phase's seconds;
 8. one d_step and one g_step in fp32 at batch 2 (noise off, mixing off)
    on the card and on the host: every gradient leaf held to the host's,
    D's and G's apart, the attention leaves printed apart; then G alone,
@@ -498,7 +509,8 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
         return dict(kernel=lambda: cuda_modconv.modconv_cuda(*args),
                     plain=lambda: mc.modconv_plain(*args),
                     library=library_modconv(xs, w, kind), bytes=nbytes,
-                    ops=ops, outputs=("out",), controls=[])
+                    ops=ops, outputs=("out",),
+                    controls=_modconv_controls(call, dtype, args, dev))
     if kname in ("modconv_dx", "modconv_dw"):
         m = _modconv_inputs(call, dtype, randn)
         b, h, ci, co = call["B"], call["H"], call["Ci"], call["Co"]
@@ -589,6 +601,61 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
         return dict(kernel=kern, plain=plain, library=lib, bytes=nbytes,
                     ops=ops, outputs=("out",), controls=controls)
     return _attention_case(call, dtype, randn, dev, chunk)
+
+
+def fwd_plan(call, dtype, dev="cuda"):
+    """(path, P) of the forward launch ``call``: the wrapper's path and
+    split (on the host, split as for a card of 132 SMs)."""
+    import torch
+
+    from gansformer_tpu_torch.ops import cuda_modconv
+
+    kind, phases = call["kind"], cuda_modconv.PHASES[call["kind"]]
+    cok = call["Co"] * phases
+    taps = cuda_modconv.TAPS[kind]
+    path = cuda_modconv.fwd_path(dtype, call["H"], call["H"], call["Ci"],
+                                 cok, phases, taps)
+    sms = (cuda_modconv._sms(torch.cuda.current_device()) if dev == "cuda"
+           else 132)
+    return path, cuda_modconv.fwd_split(call["B"], call["H"], call["H"],
+                                        call["Ci"], cok, len(taps), sms,
+                                        path)
+
+
+def _modconv_controls(call, dtype, args, dev):
+    """The forward's planted faults: the styles of samples 0 and 1
+    swapped (a tile that spans samples scaling a row by another sample's
+    s; batch >= 2), the middle tap's contribution dropped, and, where the
+    launch splits its stages, the middle split's partial dropped (its
+    taps x 64-channel slabs of the weights zeroed)."""
+    from gansformer_tpu_torch.ops import cuda_modconv
+    from gansformer_tpu_torch.ops import modulated_conv as mc
+
+    x, ws, s = args[:3]
+    rest = args[3:]
+    controls = []
+    if call["B"] >= 2:
+        swapped = s.clone()
+        swapped[[0, 1]] = s[[1, 0]]
+        controls.append(dict(desc="styles of samples 0 and 1 swapped", out=0,
+                             fault=lambda: mc.modconv_plain(x, ws, swapped,
+                                                            *rest)))
+    tap = ws.shape[0] // 2
+    no_tap = ws.clone()
+    no_tap[tap] = 0
+    controls.append(dict(desc=f"tap {tap} dropped", out=0,
+                         fault=lambda: mc.modconv_plain(x, no_tap, s, *rest)))
+    _, p = fwd_plan(call, dtype, dev)
+    if p > 1:
+        mid = p // 2
+        no_split = ws.clone()
+        for t, c0 in cuda_modconv.fwd_split_stages(call["Ci"], ws.shape[0], p,
+                                                   mid):
+            no_split[t, c0:c0 + cuda_modconv.FWD_STAGE_K] = 0
+        controls.append(dict(desc=f"split {mid} of {p} dropped", out=0,
+                             fault=lambda: mc.modconv_plain(x, no_split, s,
+                                                            *rest)))
+    return controls
 
 
 def _without_middle_chunk(n: int, chunk: int, dev):
@@ -699,7 +766,9 @@ def _attention_case(call, dtype, randn, dev, chunk):
 
 
 def time_ms(fn) -> float:
-    """Mean device time of one call, by CUDA events over a run of calls."""
+    """Device time of one call: the mean over a run of calls by CUDA
+    events, the median of three runs (a host stall inside one run, a
+    collection or an allocation, shows as idle device time there)."""
     import torch
 
     fn()
@@ -711,12 +780,15 @@ def time_ms(fn) -> float:
     reps = max(3, min(50, int(0.03 / once)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    runs = []
+    for _ in range(3):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / reps)
+    return sorted(runs)[len(runs) // 2]
 
 
 def _tuple(out):
@@ -936,6 +1008,8 @@ KERNEL_GROUPS = (("grid_to_latent bwd", "g2l_bwd"),
                  ("latent_to_grid bwd", "l2g_bwd"),
                  ("modconv dx/ds", "dx_"), ("modconv dx/ds", "ds_reduce"),
                  ("modconv dw", "dw_"), ("modconv", "modconv_"),
+                 ("modconv", "fwd_wgmma"), ("modconv", "fwd_smallk"),
+                 ("modconv", "fwd_reduce"),
                  ("upfirdn", "upfirdn_kernel"),
                  ("grid_to_latent", "g2l_kernel"),
                  ("latent_to_grid", "l2g_"), ("matmul", "gemm"),
@@ -1076,9 +1150,6 @@ def counted_steps(state, reals, calls):
         if got_lse != want_lse:
             fail(f"{phase}: launches with lse {got_lse} != the plan's "
                  f"{want_lse}")
-    for name in TRAIN_KERNELS:
-        if after_g[name] == 0:
-            fail(f"kernel {name} was not launched on the training path")
     losses = {k: float(v) for k, v in aux.items()}
     if not all(math.isfinite(v) for v in losses.values()):
         fail(f"non-finite loss {losses}")
@@ -1122,6 +1193,9 @@ def train_run(model, train, calls):
         TRAIN_BATCH, seed=0)
     batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
     deltas, lse_counts, _ = counted_steps(state, batches[0], calls)
+    for name in TRAIN_KERNELS:
+        if deltas["d_step"][name] + deltas["g_step"][name] == 0:
+            fail(f"kernel {name} was not launched on the training path")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     d_ms, g_ms, host_ms, losses = [], [], [], []
     for it in range(1, 4):
@@ -1377,6 +1451,144 @@ def check_bwd_configs(calls):
                      f"dx tile) {got} != the wrapper's {want}")
 
 
+def check_fwd_configs(calls):
+    """The built library's tile and dynamic shared memory of every modconv
+    forward launch agree with the wrapper's (which sizes the split's
+    partials and refuses a launch above the card's limit), in both
+    dtypes."""
+    import torch
+
+    from gansformer_tpu_torch.ops import _build, cuda_modconv
+
+    lib = _build.load_library()
+    for c in calls:
+        if c["kernel"] != "modconv":
+            continue
+        cok = c["Co"] * cuda_modconv.PHASES[c["kind"]]
+        for dtype in (torch.float32, torch.bfloat16):
+            path, _ = fwd_plan(c, dtype)
+            got = (lib.gt_modconv_fwd_smem(path, cok),
+                   lib.gt_modconv_fwd_tile(path))
+            want = (cuda_modconv.fwd_smem(path, cok),
+                    cuda_modconv.FWD_TILE_PIXELS[path])
+            if got != want:
+                fail(f"{c['label']} forward {dtype}: the library's (smem, "
+                     f"tile) {got} != the wrapper's {want}")
+
+
+# The kernels of this round's redesigns: ptxas must report no spill in
+# them, and those that run wgmma must show HGMMA in their SASS.
+NO_SPILL = ("fwd_wgmma_kernel", "fwd_reduce_kernel", "fwd_smallk_kernel",
+            "dx_wgmma_kernel", "dw_wgmma_kernel", "dx_smallk_kernel",
+            "dw_smallk_kernel")
+WGMMA_KERNELS = ("fwd_wgmma_kernel", "dx_wgmma_kernel", "dw_wgmma_kernel")
+# The presets beside ffhq256-duplex, each driven once at its new launch
+# shapes; bedroom256-duplex is ffhq256-duplex's ModelConfig field for
+# field.
+PRESET_PHASES = ("cityscapes256-duplex", "ffhq1024-duplex",
+                 "clevr64-simplex")
+
+
+def call_key(call, dtype_name: str):
+    """What defines a launch's shape (every field but its label and
+    phase), in a dtype."""
+    return (dtype_name,) + tuple(sorted(
+        (k, v) for k, v in call.items() if k not in ("label", "phase")))
+
+
+def checked_train_calls(calls):
+    """Of a d_step + g_step plan, the launches the smoke holds against
+    their plain versions: every backward launch, every forward attention
+    launch that writes lse, and D's forward upfirdn launches."""
+    return [c for c in calls if c["kernel"] in TRAIN_KERNELS
+            or c["label"].startswith("D") or c.get("lse")]
+
+
+def synthesize_once(cfg, calls):
+    """One ``synthesize`` of ``cfg`` from a random init (seed 0) at the
+    batch of ``calls``, the counters reset just before and held to the
+    plan just after; finite images of the right shape."""
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.serve import ServePrograms, init_generator
+
+    batch = calls[0]["B"]
+    bundle = init_generator(cfg, seed=0, device="cuda")
+    perturb(bundle.generator)
+    progs = ServePrograms(bundle)
+    seeds = list(range(300, 300 + batch))
+    ws = progs.map_seeds(seeds)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    img = progs.synthesize(ws, [0.7, 1.0] * (batch // 2), seed=7, tags=seeds)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    want = {k: sum(c["kernel"] == k for c in calls) for k in REPLACES}
+    if tuple(img.shape) != (batch, cfg.resolution, cfg.resolution,
+                            cfg.img_channels):
+        fail(f"synthesize: image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()):
+        fail("synthesize: non-finite pixels")
+    if got != want:
+        fail(f"synthesize: launches {got} != the plan's {want}")
+    print(f"  synthesize at batch {batch}: images {tuple(img.shape)} finite, "
+          f"launches {got}", flush=True)
+    del bundle, progs
+
+
+def preset_phase(name, peaks, held):
+    """One preset beside ffhq256-duplex at batch ``TRAIN_BATCH`` in its
+    own dtype: every launch of one synthesize and of one d_step + g_step
+    at a shape no earlier phase held, kernel against plain; then the
+    synthesize and the two steps with the counters held to their plans,
+    finite losses and every gradient leaf finite and nonzero.  Adds the
+    shapes it held to ``held``."""
+    import torch
+
+    from gansformer_tpu_torch.core import get_preset, get_train_preset
+    from gansformer_tpu_torch.data import SyntheticDataset
+
+    t0 = time.perf_counter()
+    model = get_preset(name)
+    train = dataclasses.replace(get_train_preset(name),
+                                batch_size=TRAIN_BATCH)
+    serve = main_path_calls(model, TRAIN_BATCH)
+    tcalls = train_path_calls(model, TRAIN_BATCH)
+    plan = {p: plan_counts(tcalls, p) for p in ("d_step", "g_step")}
+    per_synth = {k: sum(c["kernel"] == k for c in serve)
+                 for k in SERVE_KERNELS}
+    print(f"{name} ({model.dtype}, batch {TRAIN_BATCH}, {model.attention} "
+          f"attention, {model.components} components, res "
+          f"{model.resolution}): launches per synthesize {per_synth}; "
+          f"d_step + g_step plan {plan}", flush=True)
+    check_fwd_configs(serve)
+    check_bwd_configs(tcalls)
+    new, seen = [], set()
+    for c in serve + checked_train_calls(tcalls):
+        key = call_key(c, model.dtype)
+        if key not in held and key not in seen:
+            seen.add(key)
+            new.append(c)
+    print(f"  {len(new)} launch shapes no earlier phase held, kernel vs "
+          f"plain, {model.dtype}:", flush=True)
+    check_kernels(new, model.dtype, peaks)
+    held |= seen
+    torch.cuda.empty_cache()
+    synthesize_once(model, serve)
+    state = train_state_on_card(model, train)
+    reals = torch.from_numpy(next(SyntheticDataset(
+        model.resolution, model.img_channels).batches(TRAIN_BATCH,
+                                                      seed=2))).cuda()
+    _, _, losses = counted_steps(state, reals, tcalls)
+    print(f"  losses {losses}", flush=True)
+    check_grads(state)
+    del state, reals
+    torch.cuda.empty_cache()
+    print(f"  {name} phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -1415,12 +1627,17 @@ def main() -> int:
           f"{os.path.relpath(_build.build_info['path'])} in "
           f"{time.perf_counter() - t0:.1f} s "
           f"(compiled: {_build.build_info['built']})", flush=True)
-    for kname, regs, spill in ptxas_summary(_build.build_info.get("log",
-                                                                  "")):
+    log = _build.build_info.get("log", "")
+    for kname, regs, spill in ptxas_summary(log):
         print(f"  ptxas: {kname} {regs} registers, {spill} bytes spilled",
               flush=True)
+        if spill and kname.startswith(NO_SPILL):
+            fail(f"{kname} spills {spill} bytes")
+    for line in log.splitlines():
+        if "serialized" in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
     hgmma = sass_hgmma(_build.build_info["path"])
-    for kname in ("dx_wgmma_kernel", "dw_wgmma_kernel"):
+    for kname in WGMMA_KERNELS:
         found = {k: v for k, v in hgmma.items() if k.startswith(kname)}
         if not found or not all(found.values()):
             fail(f"{kname}: no HGMMA in the SASS ({found})")
@@ -1436,9 +1653,13 @@ def main() -> int:
                         grid_to_latent=7, latent_to_grid=5):
         fail(f"unexpected launch plan {expected}")
 
+    for b in BUCKETS:
+        check_fwd_configs(calls[b])
     flagship = [c for c in calls[8] if c["label"] in FLAGSHIP]
     print("kernels vs plain, fp32, flagship shapes at batch 8:", flush=True)
     check_kernels(flagship, "float32", peaks)
+    held = {call_key(c, "float32") for c in flagship}
+    held |= {call_key(c, "bfloat16") for b in BUCKETS for c in calls[b]}
     rows = []
     for b in BUCKETS:
         print(f"kernels vs plain, bf16, every launch of one synthesize at "
@@ -1485,8 +1706,7 @@ def main() -> int:
               f"{row['bound_ms']:.4f} ms (bytes {row['bytes_ms']:.4f}, "
               f"operations {row['ops_ms']:.4f})", flush=True)
     check_bwd_configs(tcalls)
-    checked = [c for c in tcalls if c["kernel"] in TRAIN_KERNELS
-               or c["label"].startswith("D") or c.get("lse")]
+    checked = checked_train_calls(tcalls)
     print("train kernels vs plain, fp32, flagship shapes at batch "
           f"{TRAIN_BATCH}:", flush=True)
     seen, flag = set(), []
@@ -1495,6 +1715,8 @@ def main() -> int:
             seen.add(c["label"])
             flag.append(c)
     check_kernels(flag, "float32", peaks)
+    held |= {call_key(c, "float32") for c in flag}
+    held |= {call_key(c, "bfloat16") for c in checked}
     print("kernels vs plain, bf16, every backward launch of one d_step + "
           "one g_step, every forward attention launch that writes lse, and "
           "D's forward upfirdn launches:", flush=True)
@@ -1533,27 +1755,32 @@ def main() -> int:
     print(f"ffhq256-duplex with d_attention, batch {TRAIN_BATCH}, bf16; "
           f"launch plan: {dplan}", flush=True)
 
-    def shape(c):
-        return tuple(c.get(key) for key in ("kernel", "B", "Lq", "Lk", "D",
-                                            "Dv", "lse"))
-
-    held = {shape(c) for c in checked}
     new, seen = [], set()
     for c in dcalls:
+        key = call_key(c, "bfloat16")
         if c["kernel"].startswith(ATTENTION_KERNELS) and \
                 (c.get("lse") or c["kernel"] not in ATTENTION_KERNELS) \
-                and shape(c) not in held | seen:
-            seen.add(shape(c))
+                and key not in held | seen:
+            seen.add(key)
             new.append(c)
     if new:
         print("  its attention launch shapes that the preset's run does not "
               "hold, kernel vs plain, bf16:", flush=True)
         check_kernels(new, "bfloat16", peaks)
+        held |= seen
     else:
         print("  every attention launch shape of its d_step + g_step is "
               "one the preset's run already held", flush=True)
     d_attention_run(dmodel, tcfg, dcalls)
     torch.cuda.empty_cache()
+
+    # ---- the other presets ------------------------------------------------
+    if get_preset("bedroom256-duplex") != cfg:
+        fail("bedroom256-duplex is no longer ffhq256-duplex's ModelConfig")
+    print("bedroom256-duplex: the ModelConfig of ffhq256-duplex field for "
+          "field, so its launches are the ones above", flush=True)
+    for preset in PRESET_PHASES:
+        preset_phase(preset, peaks, held)
 
     print("card vs host gradients, fp32, batch 2, noise and mixing off:",
           flush=True)

@@ -3,8 +3,11 @@
 // (cp.async.bulk.tensor, completion counted on mbarriers, boxes outside
 // the tensor read as zeros) and consumer warpgroups drain with the
 // warpgroup matrix multiply (wgmma.mma_async, bf16 operands read from
-// shared memory through matrix descriptors, fp32 accumulators in
-// registers).
+// shared memory through matrix descriptors, or A from registers after
+// ldmatrix; fp32 accumulators in registers).  On the host side, the
+// tensor maps (cuTensorMapEncodeTiled, cached per thread) and the opt-in
+// to more than 48 KB of dynamic shared memory, shared by csrc/modconv.cu
+// and csrc/modconv_bwd.cu.
 //
 // Operand layout: the 128-byte swizzle that TMA writes and wgmma reads.
 // A tile is stored as rows of 128 bytes (64 bf16 along the row's
@@ -246,4 +249,204 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
     wgmma_m64n64k16<TransA, TransB>(d, da, db);
   else
     wgmma_m64n128k16<TransA, TransB>(d, da, db);
+}
+
+// D[64 x N] += A[64 x 16] * B[16 x N] with A from registers (bf16 pairs,
+// the fragment ldmatrix_x4 loads: register q holds row (l % 32) / 4 + 8 *
+// (q % 2) of the warp's 16 rows, columns 8 * (q / 2) + 2 * (l % 4) + {0,
+// 1}) and B from shared memory; TransB = 1: B is N-major.  The registers
+// must not change until a wgmma_wait covers the instruction.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TransB));
+}
+
+template <int BN, int TransB>
+__device__ __forceinline__ void wgmma_tile_rs(float (&d)[BN / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  static_assert(BN == 64 || BN == 128, "wgmma tile width");
+  if constexpr (BN == 64)
+    wgmma_m64n64k16_rs<TransB>(d, a, db);
+  else
+    wgmma_m64n128k16_rs<TransB>(d, a, db);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory into the A fragment of
+// wgmma_tile_rs: lane l gives the address of row l % 16 of the 16-row
+// slice, at column 8 * (l / 16).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t saddr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr));
+}
+
+// ---- host side: tensor maps and shared-memory opt-in ----------------------
+
+// Dynamic shared memory of a launch, checked against the card's limit.
+constexpr int kMaxSmem = 232448;
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links only the runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Tensor map of a dense bf16 tensor with `rank` dims (innermost first),
+// read in boxes of `box` elements with the 128-byte swizzle; outside the
+// tensor a box reads zeros (a box may be larger than the tensor).
+// Encoding one costs the host tens of microseconds, as much as the whole
+// launch of a small layer, so the maps are kept in a small per-thread
+// cache keyed by everything that defines them (address, dims, box);
+// PyTorch's caching allocator hands a training step the same addresses
+// step after step.
+struct MapKey {
+  const void* ptr;
+  int rank;
+  cuuint64_t dims[4];
+  cuuint32_t box[4];
+  bool operator==(const MapKey& o) const {
+    if (ptr != o.ptr || rank != o.rank) return false;
+    for (int i = 0; i < rank; ++i)
+      if (dims[i] != o.dims[i] || box[i] != o.box[i]) return false;
+    return true;
+  }
+};
+
+constexpr int kMapCache = 64;
+
+inline int bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                    const cuuint64_t* dims, const cuuint32_t* box) {
+  struct Entry {
+    MapKey key;
+    CUtensorMap map;
+    bool used;
+  };
+  thread_local Entry cache[kMapCache] = {};
+  MapKey key{ptr, rank, {0, 0, 0, 0}, {0, 0, 0, 0}};
+  unsigned long long h = reinterpret_cast<unsigned long long>(ptr) >> 8;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    h = h * 1000003ull ^ (dims[i] * 31ull + box[i]);
+  }
+  Entry& e = cache[h % kMapCache];
+  if (e.used && e.key == key) {
+    *map = e.map;
+    return 0;
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t strides[4];
+  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  cuuint64_t bytes = 2;
+  for (int i = 0; i + 1 < rank; ++i) {
+    bytes *= dims[i];
+    strides[i] = bytes;
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(ptr), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  e.key = key;
+  e.map = *map;
+  e.used = true;
+  return 0;
+}
+
+// Map of an NHWC activation [N, H, W, Ch] in boxes of 64 channels x
+// `pixels` pixels (whole rows, or a run of one row).
+inline int nhwc_map(CUtensorMap* map, const void* ptr, int N, int H, int W,
+                    int Ch, int pixels) {
+  const int bw = W < pixels ? W : pixels;
+  const cuuint64_t dims[4] = {(cuuint64_t)Ch, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)(pixels / bw),
+                             1};
+  return bf16_map(map, ptr, 4, dims, box);
 }

@@ -870,114 +870,6 @@ bool path_fits(int path, int dtype, int K, int C, int W, int rows,
          taps.n == 1 && taps.oy[0] == 0 && taps.ox[0] == 0;
 }
 
-// Dynamic shared memory of a launch, checked against the card's limit.
-constexpr int kMaxSmem = 232448;
-
-template <typename Kernel>
-int set_smem(Kernel kernel, int bytes) {
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (the library
-// links only the runtime).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// Tensor map of a dense bf16 tensor with `rank` dims (innermost first),
-// read in boxes of `box` elements with the 128-byte swizzle; outside the
-// tensor a box reads zeros.  Encoding one costs the host tens of
-// microseconds, as much as the whole launch of a small layer, so the maps
-// are kept in a small per-thread cache keyed by everything that defines
-// them (address, dims, box); PyTorch's caching allocator hands a training
-// step the same addresses step after step.
-struct MapKey {
-  const void* ptr;
-  int rank;
-  cuuint64_t dims[4];
-  cuuint32_t box[4];
-  bool operator==(const MapKey& o) const {
-    if (ptr != o.ptr || rank != o.rank) return false;
-    for (int i = 0; i < rank; ++i)
-      if (dims[i] != o.dims[i] || box[i] != o.box[i]) return false;
-    return true;
-  }
-};
-
-constexpr int kMapCache = 64;
-
-int bf16_map(CUtensorMap* map, const void* ptr, int rank,
-             const cuuint64_t* dims, const cuuint32_t* box) {
-  struct Entry {
-    MapKey key;
-    CUtensorMap map;
-    bool used;
-  };
-  thread_local Entry cache[kMapCache] = {};
-  MapKey key{ptr, rank, {0, 0, 0, 0}, {0, 0, 0, 0}};
-  unsigned long long h = reinterpret_cast<unsigned long long>(ptr) >> 8;
-  for (int i = 0; i < rank; ++i) {
-    key.dims[i] = dims[i];
-    key.box[i] = box[i];
-    h = h * 1000003ull ^ (dims[i] * 31ull + box[i]);
-  }
-  Entry& e = cache[h % kMapCache];
-  if (e.used && e.key == key) {
-    *map = e.map;
-    return 0;
-  }
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  cuuint64_t strides[4];
-  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  cuuint64_t bytes = 2;
-  for (int i = 0; i + 1 < rank; ++i) {
-    bytes *= dims[i];
-    strides[i] = bytes;
-  }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(ptr), dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  e.key = key;
-  e.map = *map;
-  e.used = true;
-  return 0;
-}
-
-// Map of an NHWC activation [N, H, W, Ch] in boxes of 64 channels x
-// `pixels` pixels (whole rows, or a run of one row).
-int nhwc_map(CUtensorMap* map, const void* ptr, int N, int H, int W, int Ch,
-             int pixels) {
-  const int bw = W < pixels ? W : pixels;
-  const cuuint64_t dims[4] = {(cuuint64_t)Ch, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)N};
-  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)(pixels / bw),
-                             1};
-  return bf16_map(map, ptr, 4, dims, box);
-}
-
 template <int BN>
 int launch_dx(const void* du, const void* wt, const float* pre,
               const float* post, const void* x, void* dx, void* wtd,

@@ -44,8 +44,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gt_upfirdn": (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P, _I, _F, _F, _P]),
-    "gt_modconv": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _P, _P, _I, _F, _F, _P]),
+    "gt_modconv": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _P, _P, _I, _I, _F, _F, _P]),
+    "gt_modconv_fwd_tile": (_I, [_I]),
+    "gt_modconv_fwd_smem": (_I, [_I, _I]),
     "gt_grid_to_latent": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _P]),
     "gt_latent_to_grid": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

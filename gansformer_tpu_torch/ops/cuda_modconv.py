@@ -2,21 +2,26 @@
 (``csrc/modconv.cu``) and the two backward kernels
 (``csrc/modconv_bwd.cu``).
 
-Replaces ``gansformer_tpu/ops/pallas_modconv.py`` ``_fwd_call`` ->
-``pl.pallas_call`` (kernel body ``_fwd_body``), kinds ``same3`` (every
-synthesis 3x3 conv), ``same1`` (tRGB) and ``poly`` (every up-conv, weights
-from ``_poly_w4``, phases interleaved inside the kernel).
-
-Bound on the card: operations.  The 3x3 convs at 128-512 channels do
-hundreds of flops per byte moved, above Hopper's ~295 flops/byte ridge in
-bf16, so the least time is the multiply-adds over the tensor-core peak.
-The kernel is an implicit GEMM with 64x64 output tiles in shared memory:
-bf16 convs run on the tensor cores through WMMA, fp32 and the 3-channel
-tRGB on the fp32 FMA units.  Its loads are not pipelined (no cp.async,
-TMA or wgmma yet), so it sits well above the bound; its design (style
-folded into the activation load, demod into the epilogue, one weight
-tile for the whole batch) is what a wgmma version keeps, on the mainloop
-of ``csrc/hopper.cuh`` that the backward kernels use.
+``modconv_cuda`` replaces ``gansformer_tpu/ops/pallas_modconv.py``
+``_fwd_call`` -> ``pl.pallas_call`` (kernel body ``_fwd_body``), kinds
+``same3`` (every synthesis 3x3 conv), ``same1`` (tRGB) and ``poly``
+(every up-conv, weights from ``_poly_w4``, phases interleaved inside the
+kernel).  Bound on the card: operations for the 3x3 convs and up-convs
+(hundreds of flops per byte at 128-512 channels, above Hopper's ~295
+flops/byte ridge in bf16), the bytes of x for the 3-channel tRGB.  Each
+launch takes one of three paths (``fwd_path``).  bf16 3x3 and up-convs:
+wgmma with A from registers, fed by TMA through a ring of 7-9
+shared-memory slots (a producer thread fills it, two consumer
+warpgroups drain it, one wgmma group in flight); the style scales each
+pixel row's channels (its own sample's s, so a tile may span samples)
+and rounds to bf16 where ``_ref_core`` rounds, one weight tile serves
+the batch, d and the epilogue are applied in fp32; tiles of 128 pixels
+x 64 or 128 columns (``fwd_tile``), the contraction in stages of 64
+channels x one tap, chunk-major, split over blocks where the tiles alone
+would leave the card half idle (``fwd_split``: fp32 partials and a
+fixed-order reduce).  bf16 tRGB (CoK <= 4): a small-K kernel that reads
+x once, 16 bytes a thread.  fp32 (and any other shape): FMA kernels with
+64 x 64 tiles.
 
 ``modconv_dx_cuda`` replaces ``_bwd_call`` -> ``pl.pallas_call`` (body
 ``_bwd_body``): dx = s * u and ds = sum_hw x * u with u the transposed
@@ -91,6 +96,119 @@ PHASES = {"same3": 1, "same1": 1, "poly": 4}
 _ACT_CODES = {None: 0, "linear": 1, "lrelu": 2}
 
 
+# The forward's paths (csrc/modconv.cu), numbered as the backward's.
+PATH_FMA, PATH_WGMMA, PATH_SMALLK = 0, 1, 2
+# The forward kernels' tiles: 128 pixels of the flattened [N * H * W] on
+# the wgmma path (64 or 128 columns), in stages of 64 input channels x one
+# tap through a ring of 9 slots (7 for the 128-wide tile), which the
+# epilogue's fp32 tile reuses; 256 pixels a small-K block; 64 x 64 FMA
+# tiles.  A split keeps at least FWD_MIN_SPLIT_STAGES stages.  These and
+# fwd_tile_fits / fwd_path are the kernel's own plan (csrc/modconv.cu:
+# kFwdBM, kFwdBK, fwd_stages, kSmall*, tile_fits, path_fits) and change
+# with it: tests/test_torch_modconv_fwd_plan.py holds the constants to
+# the source, chip_smoke.py the built library's tile and shared memory.
+FWD_TILE = 128
+FWD_STAGE_K = 64
+FWD_STAGES = {64: 9, 128: 7}    # ring slots by tile width
+FWD_SMALL_TILE = 256
+FWD_SMALL_PER = 2         # 16-byte chunks of x per small-K thread, at most
+FWD_MIN_SPLIT_STAGES = 2
+FWD_TILE_PIXELS = {PATH_FMA: FMA_TILE, PATH_WGMMA: FWD_TILE,
+                   PATH_SMALLK: FWD_SMALL_TILE}
+
+
+def fwd_tile_fits(h: int, w: int) -> bool:
+    """True when 128 consecutive pixels of the flattened [N * H * W],
+    starting at a multiple of 128, are one TMA box: a run of one row (W a
+    multiple of 128), whole rows of one sample, or whole samples (W
+    dividing 128 and H * W a multiple or a divisor of 128)."""
+    if w <= 0 or h <= 0:
+        return False
+    if w >= FWD_TILE:
+        return w % FWD_TILE == 0
+    return FWD_TILE % w == 0 and (h * w % FWD_TILE == 0
+                                  or FWD_TILE % (h * w) == 0)
+
+
+def fwd_path(dtype: torch.dtype, h: int, w: int, ci: int, cok: int,
+             phases: int, taps) -> int:
+    """The path of a forward launch: wgmma for bf16 with ``ci`` a multiple
+    of 8, 16-byte output rows (``cok`` a multiple of 8 x ``phases``) and a
+    geometry whose 128-pixel tiles are TMA boxes (``fwd_tile_fits``); the
+    small-K kernel for bf16 with at most ``SMALL_K`` output columns, one
+    tap at offset 0 and ``ci`` read in whole 16-byte chunks by up to 32
+    threads a pixel; else the FMA kernel."""
+    if dtype == torch.bfloat16 and ci % 8 == 0:
+        if cok % (8 * phases) == 0 and fwd_tile_fits(h, w):
+            return PATH_WGMMA
+        chunks = ci // 8
+        if (phases == 1 and cok <= SMALL_K
+                and ci <= 8 * 32 * FWD_SMALL_PER
+                and (32 % chunks == 0 or chunks % 32 == 0)
+                and tuple(map(tuple, taps)) == ((0, 0),)):
+            return PATH_SMALLK
+    return PATH_FMA
+
+
+def fwd_tile(path: int, cok: int):
+    """(pixels, columns) of one forward output tile on ``path``."""
+    if path == PATH_WGMMA:
+        return FWD_TILE, 128 if cok >= 128 else 64
+    if path == PATH_SMALLK:
+        return FWD_SMALL_TILE, cok
+    return FMA_TILE, FMA_TILE
+
+
+def fwd_smem(path: int, cok: int) -> int:
+    """Dynamic shared memory of a forward launch: the ring's slots (the x
+    tile of 128 pixels x 64 channels and the columns / 64 weight blocks of
+    64 x 64, as 128-byte swizzled rows; the epilogue's fp32 tile of 128 x
+    (columns + 4) reuses them) and 1 KB of slack to align the ring.  0 off
+    the wgmma path, whose kernels' tiles are static."""
+    if path != PATH_WGMMA:
+        return 0
+    _, bn = fwd_tile(path, cok)
+    block = 64 * 128
+    return FWD_STAGES[bn] * (FWD_TILE * FWD_STAGE_K * 2
+                             + (bn // 64) * block) + 1024
+
+
+def fwd_split(n: int, h: int, w: int, ci: int, cok: int, ntaps: int,
+              sms: int, path: int = PATH_WGMMA) -> int:
+    """P, the blocks each wgmma tile's contraction is split over: 1 where
+    the tiles give at least half as many blocks as ``sms``; else enough
+    splits for a block per SM, each keeping ``FWD_MIN_SPLIT_STAGES``
+    stages of the taps x ceil(ci / 64) stages.  Split b takes stages
+    [b * T / P, (b + 1) * T / P)."""
+    if path != PATH_WGMMA:
+        return 1
+    bm, bn = fwd_tile(path, cok)
+    tiles = -(-(n * h * w) // bm) * -(-cok // bn)
+    stages = ntaps * -(-ci // FWD_STAGE_K)
+    if 2 * tiles >= sms:
+        return 1
+    return max(1, min(-(-sms // tiles), stages // FWD_MIN_SPLIT_STAGES))
+
+
+def fwd_split_stages(ci: int, ntaps: int, p: int, b: int):
+    """(tap, first channel) of each stage of split ``b`` of ``p``, in the
+    kernel's order."""
+    kchunks = -(-ci // FWD_STAGE_K)
+    stages = ntaps * kchunks
+    return [(j % ntaps, (j // ntaps) * FWD_STAGE_K)
+            for j in range(stages * b // p, stages * (b + 1) // p)]
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(dtype: torch.dtype, n: int, h: int, w: int, ci: int,
+              cok: int, phases: int, taps, sms: int):
+    """(path, P) of a forward launch, its shared memory checked (a launch
+    shape repeats every call: worked out once)."""
+    path = fwd_path(dtype, h, w, ci, cok, phases, taps)
+    _build.check_smem(fwd_smem(path, cok), "modconv forward")
+    return path, fwd_split(n, h, w, ci, cok, len(taps), sms, path)
+
+
 def modconv_cuda(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
                  post: torch.Tensor, bias: Optional[torch.Tensor],
                  kind: str, act: Optional[str], alpha: float,
@@ -104,7 +222,7 @@ def modconv_cuda(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
     if kind not in TAPS or act not in _ACT_CODES:
         raise ValueError(f"unsupported kind/epilogue {kind!r}/{act!r}")
     taps, phases = TAPS[kind], PHASES[kind]
-    x = x.contiguous()
+    x = _aligned(x.contiguous())
     n, h, w, ci = x.shape
     t, wci, cok = wstack.shape
     if t != len(taps) or wci != ci or cok % phases:
@@ -112,38 +230,39 @@ def modconv_cuda(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
                          f"on input {tuple(x.shape)}")
     co = cok // phases
     up = 2 if phases == 4 else 1
-    wstack = wstack.to(device=x.device, dtype=x.dtype).contiguous()
-    s = s.to(device=x.device, dtype=torch.float32).contiguous()
-    post = post.to(device=x.device, dtype=torch.float32).contiguous()
+    if wstack.dtype != x.dtype or wstack.device != x.device:
+        wstack = wstack.to(device=x.device, dtype=x.dtype)
+    wstack, s, post = _aligned(wstack.contiguous()), _f32(s, x), \
+        _f32(post, x)
     if s.shape != (n, ci) or post.shape != (n, cok):
         raise ValueError(f"s {tuple(s.shape)} / post {tuple(post.shape)} "
                          f"!= ({n}, {ci}) / ({n}, {cok})")
     b = None
     if act is not None:
         b = (torch.zeros(co, device=x.device, dtype=torch.float32)
-             if bias is None else
-             bias.to(device=x.device, dtype=torch.float32).contiguous())
+             if bias is None else _f32(bias, x))
         if b.shape != (co,):
             raise ValueError(f"bias {tuple(b.shape)} != ({co},)")
+    path, p = _fwd_plan(x.dtype, n, h, w, ci, cok, phases, taps,
+                        _sms(x.device.index))
     y = torch.empty((n, up * h, up * w, co), dtype=x.dtype, device=x.device)
-    oy = np.asarray([o[0] for o in taps], np.int32)
-    ox = np.asarray([o[1] for o in taps], np.int32)
-    lib = _build.load_library()
-    rc = lib.gt_modconv(
-        _build.dtype_code(x), x.data_ptr(), wstack.data_ptr(), s.data_ptr(),
-        post.data_ptr(), b.data_ptr() if b is not None else None,
-        y.data_ptr(), n, h, w, ci, cok, phases, len(taps), oy.ctypes.data,
-        ox.ctypes.data, _ACT_CODES[act], float(alpha), float(gain),
-        _build.stream_ptr(x))
+    part = (torch.empty((p, n * h * w, cok), dtype=torch.float32,
+                        device=x.device) if p > 1 else None)
+    oy, ox = _taps_arrays(taps)
+    rc = _build.load_library().gt_modconv(
+        path, _build.dtype_code(x), x.data_ptr(), wstack.data_ptr(),
+        s.data_ptr(), post.data_ptr(), b.data_ptr() if b is not None else None,
+        y.data_ptr(), part.data_ptr() if part is not None else None, n, h, w,
+        ci, cok, phases, len(taps), oy.ctypes.data, ox.ctypes.data, p,
+        _ACT_CODES[act], float(alpha), float(gain), _build.stream_ptr(x))
     _build.check(rc, f"modconv kernel ({kind})")
     launches += 1
     return y
 
 
-# The backward kernels' paths (csrc/modconv_bwd.cu): the FMA kernels
-# (fp32, or any shape), the wgmma kernels, and the small-K kernels of the
-# 3-channel tRGB.
-PATH_FMA, PATH_WGMMA, PATH_SMALLK = 0, 1, 2
+# The backward kernels' paths (csrc/modconv_bwd.cu) have the forward's
+# numbers: the FMA kernels (fp32, or any shape), the wgmma kernels, and
+# the small-K kernels of the 3-channel tRGB.
 TILE_PIXELS = {PATH_FMA: FMA_TILE, PATH_WGMMA: DX_TILE,
                PATH_SMALLK: SMALL_TILE}
 

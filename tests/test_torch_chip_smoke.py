@@ -21,6 +21,7 @@ from gansformer_tpu_torch.ops import modulated_conv as port_mc
 from gansformer_tpu_torch.ops.cuda_modconv import TAPS
 from gansformer_tpu_torch.ops.attention import attention_plain
 from gansformer_tpu_torch.ops.upfirdn2d import setup_filter, upfirdn2d_plain
+from tests.test_torch_grads import card_route  # noqa: F401  (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -350,3 +351,145 @@ def test_attention_backward_bound_counts_bytes_and_operations():
         "grid_to_latent_bwd": 7, "latent_to_grid_bwd": 5}
     for r in bounds.values():
         assert r["bytes_ms"] > r["ops_ms"]
+
+
+@pytest.mark.parametrize("kind", ["same3", "same1", "poly"])
+def test_forward_controls_exceed_the_tolerances(kind):
+    """The modconv forward's planted faults (the styles of samples 0 and 1
+    swapped, the middle tap dropped, and, where the launch splits its
+    contraction, one split's partial dropped) each lie outside the bf16
+    tolerance on the plain outputs; batch 1 has no pair of samples to
+    swap, and an unsplit launch no split to drop."""
+    co = 3 if kind == "same1" else 64
+    call = dict(kernel="modconv", label="t", kind=kind, B=4, H=4, Ci=64,
+                Co=co, act="linear" if kind == "same1" else None)
+    case = chip_smoke.build_case(
+        call, torch.bfloat16, torch.Generator().manual_seed(0), dev="cpu")
+    _, p = chip_smoke.fwd_plan(call, torch.bfloat16, dev="cpu")
+    descs = [c["desc"] for c in case["controls"]]
+    tap = 0 if kind == "same1" else len(TAPS[kind]) // 2
+    assert descs[:2] == ["styles of samples 0 and 1 swapped",
+                         f"tap {tap} dropped"]
+    assert (p > 1) == (kind != "same1")      # the tRGB's small-K path
+    assert len(descs) == (3 if p > 1 else 2)
+    if p > 1:
+        assert descs[2] == f"split {p // 2} of {p} dropped"
+    ref = case["plain"]().float()
+    tol = chip_smoke.KERNEL_TOL["bfloat16"] * float(ref.abs().max())
+    for ctl in case["controls"]:
+        err = float((ctl["fault"]().float() - ref).abs().max())
+        assert err > tol, (ctl["desc"], err, tol)
+    one = chip_smoke.build_case(dict(call, B=1), torch.bfloat16,
+                                torch.Generator().manual_seed(0), dev="cpu")
+    assert not any("swapped" in c["desc"] for c in one["controls"])
+    wide = chip_smoke.build_case(dict(call, B=8, H=64), torch.bfloat16,
+                                 torch.Generator().manual_seed(0), dev="cpu")
+    assert not any("split" in c["desc"] for c in wide["controls"])
+
+
+@pytest.mark.parametrize("name", chip_smoke.PRESET_PHASES)
+def test_launch_plan_of_each_preset_phase(name):
+    """The presets the smoke drives beside ffhq256-duplex: per synthesize
+    3 modconv launches a block but the first (2 + 1 at res 4), 2 upfirdn
+    launches a block above res 4, per attention resolution a centroid and
+    a main launch (duplex) or a main launch alone (simplex); a d_step and
+    a g_step as for ffhq256 (G's launches, D's 2 upfirdn launches a block
+    above res 4 per D forward, and the backward of what takes a
+    gradient).  cityscapes256-duplex's 32 components outnumber res 4's
+    16 pixels, so its main launch there is latent->grid with 32 keys (the
+    L <= 32 instantiations); clevr64-simplex never launches latent->grid;
+    ffhq1024-duplex adds 512^2 and 1024^2 launches at 32 and 16 channels."""
+    cfg = port_config.get_preset(name)
+    nb = len(cfg.block_resolutions)
+    attn = len(cfg.attn_resolutions())
+    duplex = cfg.attention == "duplex"
+    serve = chip_smoke.main_path_calls(cfg, 8)
+    count = {k: sum(c["kernel"] == k for c in serve)
+             for k in chip_smoke.SERVE_KERNELS}
+    assert count["modconv"] == 3 * nb - 1
+    assert count["upfirdn"] == 2 * (nb - 1)
+    assert count["grid_to_latent"] + count["latent_to_grid"] == \
+        attn * (1 + cfg.kmeans_iters * duplex)
+    calls = chip_smoke.train_path_calls(cfg, 8)
+    zero = dict.fromkeys(chip_smoke.REPLACES, 0)
+    d_plan = chip_smoke.plan_counts(calls, "d_step")
+    g_plan = chip_smoke.plan_counts(calls, "g_step")
+    d_up = 2 * (nb - 1)
+    assert d_plan == dict(zero, modconv=count["modconv"],
+                          upfirdn=count["upfirdn"] + 2 * d_up,
+                          upfirdn_adjoint=2 * d_up,
+                          grid_to_latent=count["grid_to_latent"],
+                          latent_to_grid=count["latent_to_grid"])
+    assert g_plan == dict(zero, modconv=count["modconv"],
+                          upfirdn=count["upfirdn"] + d_up,
+                          modconv_dx=count["modconv"],
+                          modconv_dw=count["modconv"],
+                          upfirdn_adjoint=count["upfirdn"] + d_up,
+                          grid_to_latent=count["grid_to_latent"],
+                          latent_to_grid=count["latent_to_grid"],
+                          grid_to_latent_bwd=count["grid_to_latent"],
+                          latent_to_grid_bwd=count["latent_to_grid"])
+    mains = [c for c in serve if c["label"].endswith(" main")]
+    if name == "cityscapes256-duplex":
+        assert (count["grid_to_latent"], count["latent_to_grid"]) == (6, 6)
+        first = mains[0]
+        assert (first["kernel"], first["Lq"], first["Lk"]) == \
+            ("latent_to_grid", 16, 32)
+    if name == "clevr64-simplex":
+        assert cfg.dtype == "float32" and count["latent_to_grid"] == 0
+        assert [c["label"] for c in serve if "centroid" in c["label"]] == []
+    if name == "ffhq1024-duplex":
+        conv = {(c["H"], c["Ci"]) for c in serve if c.get("kind") == "same3"}
+        assert {(512, 32), (1024, 16)} <= conv
+
+
+# Micro configurations with the preset phases' structural features: simplex
+# attention (clevr64-simplex), and more components than the 16 pixels of
+# res 4 (cityscapes256-duplex's 32), so the main launch there is
+# latent->grid.
+PHASE_VARIANTS = {
+    "simplex": dict(attention="simplex", components=3),
+    "components-over-res4": dict(attention="duplex", style_mode="attention",
+                                 components=20),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(PHASE_VARIANTS))
+def test_preset_phase_plans_match_the_cards_route(card_route, variant):
+    """With every launch stubbed on the card's route, one synthesize and
+    one d_step + g_step of a micro configuration with a preset phase's
+    structure launch what ``chip_smoke``'s plans say, the launches that
+    write lse included (the counters the smoke holds the card to)."""
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.data import SyntheticDataset
+    from gansformer_tpu_torch.serve import ServePrograms, init_generator
+    from gansformer_tpu_torch.train import create_train_state, d_step, \
+        g_step
+
+    model = port_config.ModelConfig(
+        resolution=16, latent_dim=16, w_dim=16, mapping_dim=16,
+        mapping_layers=2, fmap_base=64, fmap_max=32, mbstd_group_size=4,
+        **PHASE_VARIANTS[variant])
+    progs = ServePrograms(init_generator(model, seed=0, device="cpu"))
+    ops.reset_launch_counts()
+    progs.synthesize(progs.map_seeds([1, 2, 3, 4]), [0.7, 1.0, 0.7, 1.0])
+    serve = chip_smoke.main_path_calls(model, 4)
+    assert ops.launch_counts() == {
+        k: sum(c["kernel"] == k for c in serve) for k in chip_smoke.REPLACES}
+    main4 = [c["kernel"] for c in serve if c["label"] == "b4 main"]
+    assert main4 == ["grid_to_latent" if variant == "simplex"
+                     else "latent_to_grid"]
+    if variant == "simplex":
+        assert ops.launch_counts()["latent_to_grid"] == 0
+    st = create_train_state(model, port_config.TrainConfig(batch_size=4),
+                            seed=1, device="cpu")
+    chip_smoke.perturb(st.generator)
+    reals = torch.from_numpy(next(SyntheticDataset(16).batches(4)))
+    plan = chip_smoke.train_path_calls(model, 4)
+    for phase, step in (("d_step", lambda: d_step(st, reals, 0)),
+                        ("g_step", lambda: g_step(st, 0, 4))):
+        ops.reset_launch_counts()
+        step()
+        assert ops.launch_counts() == chip_smoke.plan_counts(plan, phase)
+        assert ops.lse_launch_counts() == chip_smoke.plan_lse_counts(plan,
+                                                                     phase)
