@@ -10,7 +10,9 @@ In order:
    ``NO_SPILL`` spills) and fails unless the SASS of the modconv wgmma
    kernels, forward and backward, holds HGMMA (``cuobjdump -sass``);
 3. serving.  First the library's tile and shared memory of each modconv
-   forward launch against the wrapper's.  For every kernel launch of the
+   forward launch against the wrapper's, and its route, tile and shared
+   memory of each upfirdn and grid->latent launch.  For every kernel
+   launch of the
    serve run below (one ``synthesize`` of ffhq256-duplex at each of batch
    1, 2, 4 and 8, bf16), and for the flagship shapes in fp32 too: runs
    the kernel and its plain PyTorch version on the same inputs on the
@@ -19,14 +21,21 @@ In order:
    yardstick), each the median of three runs, and computes the least
    time the card could take (the bound).  Planted faults the tolerance
    must reject: latent_to_grid with one chunk dropped where it splits n
-   into chunks; the modconv forward with the styles of samples 0 and 1
+   into chunks; grid_to_latent with the last latent dropped and with the
+   keys and values of samples 0 and 1 swapped; upfirdn with one tap
+   dropped and, on a ramp filter the kernel also runs, with the filter
+   not flipped; the modconv forward with the styles of samples 0 and 1
    swapped, with its middle tap dropped and, where the launch splits its
-   contraction, with one split's partial dropped;
+   contraction, with one split's partial dropped.  Then every blur launch
+   of the synthesize at batch 8 once more with the fused bias + lrelu
+   epilogue, and upfirdn's general route once at a 3x3 filter;
 4. serves ffhq256-duplex at full width from a random init (bf16):
    ``map_seeds`` + ``synthesize`` over buckets 1, 2, 4 and 8 with mixed
    psi, with the launch counters reset just before and read just after;
    checks the images are finite and the counters moved by exactly the
-   launches the path makes per synthesize; measures images/s;
+   launches the path makes per synthesize (and the upfirdn and
+   grid->latent launches by the routes the plan gives: tile or small
+   channel, tensor cores in bf16); measures images/s;
 5. compares the card's images (fp32 and bf16 kernels) with the plain path
    on the host CPU (fp32) at batch 2 and noise off: a wrapper never routes
    a CUDA tensor to its plain version, so the host run is the plain path;
@@ -344,6 +353,42 @@ def plan_lse_counts(calls, phase):
             for k in ATTENTION_KERNELS}
 
 
+def plan_path_counts(calls, dtype_name):
+    """Of the plan's upfirdn launches (forward and adjoint) and
+    grid->latent launches, how many each route takes in ``dtype_name``
+    (the keys of ``ops.path_launch_counts``)."""
+    import torch
+
+    from gansformer_tpu_torch.ops import cuda_attention, cuda_upfirdn
+
+    dtype = getattr(torch, dtype_name)
+    out = {f"upfirdn_{n}": 0 for n in cuda_upfirdn.PATH_NAMES.values()}
+    out.update({f"grid_to_latent_{n}": 0
+                for n in cuda_attention.G2L_NAMES.values()})
+    for c in calls:
+        if c["kernel"] in ("upfirdn", "upfirdn_adjoint"):
+            up, down = c["up"], c.get("down", 1)
+            if c["kernel"] == "upfirdn_adjoint":
+                up, down = down, up
+            path = cuda_upfirdn.ufd_path(dtype, c["C"], up, down, 4, 4)
+            out[f"upfirdn_{cuda_upfirdn.PATH_NAMES[path]}"] += 1
+        elif c["kernel"] == "grid_to_latent":
+            path = cuda_attention.g2l_path(dtype, c["Lk"], c["D"], c["Dv"])
+            out[f"grid_to_latent_{cuda_attention.G2L_NAMES[path]}"] += 1
+    return out
+
+
+def check_path_counts(got, calls, dtype_name, what):
+    """The routes the run's upfirdn and grid->latent launches took, held
+    to the plan's; no preset launch may take upfirdn's general route."""
+    want = plan_path_counts(calls, dtype_name)
+    if got != want:
+        fail(f"{what}: launches by route {got} != the plan's {want}")
+    if got["upfirdn_general"]:
+        fail(f"{what}: {got['upfirdn_general']} upfirdn launches took the "
+             f"general route")
+
+
 def library_modconv(xs, w, kind):
     """One library call computing the modulated conv on pre-modulated
     NHWC ``xs`` (the yardstick; the port never calls it).  Returns the
@@ -386,10 +431,12 @@ def library_conv_grad(x, w, du, kind, which):
         dc, xc, wt, None, stride, pad, dil, transposed, opad, 1, mask)
 
 
-def library_upfirdn(x, f, up, pads, down=1):
+def library_upfirdn(x, f, up, pads, down=1, bias=None, act=None,
+                    gain=1.0):
     """One library call computing upfirdn2d for the path's cases: a
     (decimating) blur on the pre-padded input (up = 1), and the zero-insert
-    upsample by 2 with pads (2, 1) (G's skip upsample, D's skip adjoint)."""
+    upsample by 2 with pads (2, 1) (G's skip upsample, D's skip adjoint);
+    with ``act`` the epilogue lrelu(y + bias) * gain follows in torch."""
     import torch
     import torch.nn.functional as F
 
@@ -401,11 +448,17 @@ def library_upfirdn(x, f, up, pads, down=1):
         xp = F.pad(xc, (px0, px1, py0, py1))
         kf = torch.flip(k, (0, 1))[None, None].expand(c, 1, *k.shape)
         kf = kf.contiguous()
-        return lambda: F.conv2d(xp, kf, stride=down, groups=c)
-    assert up == 2 and down == 1 and pads == (2, 1, 2, 1) \
-        and k.shape == (4, 4)
-    kt = k[None, None].expand(c, 1, 4, 4).contiguous()
-    return lambda: F.conv_transpose2d(xc, kt, stride=2, padding=1, groups=c)
+        conv = lambda: F.conv2d(xp, kf, stride=down, groups=c)  # noqa: E731
+    else:
+        assert up == 2 and down == 1 and pads == (2, 1, 2, 1) \
+            and k.shape == (4, 4)
+        kt = k[None, None].expand(c, 1, 4, 4).contiguous()
+        conv = lambda: F.conv_transpose2d(  # noqa: E731
+            xc, kt, stride=2, padding=1, groups=c)
+    if act is None:
+        return conv
+    b = bias.to(x.dtype)[None, :, None, None]
+    return lambda: F.leaky_relu(conv() + b, 0.2) * gain
 
 
 def library_attention(q, k, v):
@@ -469,6 +522,7 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
     attention backward's faults one of their ``chunk``-row chunks (the
     kernel's own chunk unless given).  The attention backward's case also
     names the SDPA backend of its library call (``library_backend``)."""
+    import numpy as np
     import torch
 
     from gansformer_tpu_torch.ops import cuda_modconv, cuda_upfirdn
@@ -563,18 +617,36 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
         b, h, c, up, pads = (call["B"], call["H"], call["C"], call["up"],
                              call["pads"])
         down = call.get("down", 1)
-        f = setup_filter((1, 3, 3, 1), gain=call.get("gain", 4.0))
+        f = setup_filter(call.get("taps", (1, 3, 3, 1)),
+                         gain=call.get("gain", 4.0))
+        fh, fw = f.shape
         if kname == "upfirdn":
             x = randn(b, h, h, c).to(dtype)
-            args = (x, f, up, down, pads, None, None, 0.2, 1.0)
-            oh = out_hw(h, h, 4, 4, up, down, pads)[0]
-            kern = lambda: cuda_upfirdn.upfirdn2d_cuda(*args)  # noqa: E731
-            plain = lambda: upfirdn2d_plain(*args)             # noqa: E731
-            lib = library_upfirdn(x, f, up, pads, down)
-            controls = []
+            act = call.get("act")
+            bias = randn(c) * 0.5 if act else None
+            gain = math.sqrt(2.0) if act else 1.0
+
+            def forward(filt):
+                args = (x, filt, up, down, pads, bias, act, 0.2, gain)
+                return (lambda: cuda_upfirdn.upfirdn2d_cuda(*args),
+                        lambda: upfirdn2d_plain(*args))
+
+            oh = out_hw(h, h, fh, fw, up, down, pads)[0]
+            kern, plain = forward(f)
+            lib = library_upfirdn(x, f, up, pads, down, bias, act, gain)
+            no_tap = f.copy()
+            no_tap[fh // 2 - 1, fw // 2 - 1] = 0.0
+            ramp = setup_filter(RAMP, gain=call.get("gain", 4.0))
+            rk, rp = forward(ramp)
+            controls = [
+                dict(desc=f"tap ({fh // 2 - 1}, {fw // 2 - 1}) dropped",
+                     out=0, fault=forward(no_tap)[1]),
+                dict(desc="ramp filter not flipped", out=0,
+                     fault=forward(np.ascontiguousarray(ramp[::-1, ::-1]))[1],
+                     kernel=rk, plain=rp)]
             in_elems, out_elems, eff_up = x.numel(), b * oh * oh * c, up
         else:
-            oh = out_hw(h, h, 4, 4, up, down, pads)[0]
+            oh = out_hw(h, h, fh, fw, up, down, pads)[0]
             ct = randn(b, oh, oh, c).to(dtype)
 
             def adjoint(filt, flip=True):
@@ -596,7 +668,8 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
                      fault=adjoint(ramp, flip=False)[1], kernel=rk,
                      plain=rp)]
             in_elems, out_elems, eff_up = ct.numel(), b * h * h * c, down
-        nbytes = (in_elems + out_elems) * it
+        nbytes = (in_elems + out_elems) * it + (4 * c if call.get("act")
+                                                else 0)
         ops = 2.0 * out_elems * f.size / (eff_up * eff_up)
         return dict(kernel=kern, plain=plain, library=lib, bytes=nbytes,
                     ops=ops, outputs=("out",), controls=controls)
@@ -674,7 +747,8 @@ def _attention_case(call, dtype, randn, dev, chunk):
     """``build_case`` for the four attention kernels.  Forward: o (and
     lse when the call writes it).  Backward: dq, dk, dv on the forward's
     lse (and, for latent_to_grid, delta = rowsum(do * o)) computed by the
-    plain version on the same inputs."""
+    plain version on the same inputs; on the card grid_to_latent's
+    backward kernel takes the lse its forward kernel wrote."""
     import torch
 
     from gansformer_tpu_torch.ops import _build, cuda_attention
@@ -703,6 +777,16 @@ def _attention_case(call, dtype, randn, dev, chunk):
               if kname == "grid_to_latent"
               else cuda_attention.latent_to_grid_cuda)
         lse = bool(call.get("lse"))
+        if kname == "grid_to_latent" and lk >= 2:
+            controls.append(dict(
+                desc="the last latent dropped", out=0,
+                fault=lambda: attention_plain(q, k[:, :-1], v[:, :-1])))
+        if kname == "grid_to_latent" and b >= 2:
+            swap = torch.arange(b, device=dev)
+            swap[[0, 1]] = swap[[1, 0]]
+            controls.append(dict(
+                desc="K/V of samples 0 and 1 swapped", out=0,
+                fault=lambda: attention_plain(q, k[swap], v[swap])))
         if kname == "latent_to_grid":
             keep = _without_middle_chunk(
                 lk, chunk or _build.load_library().gt_attn_chunk(), dev)
@@ -729,7 +813,13 @@ def _attention_case(call, dtype, randn, dev, chunk):
     library, backend = library_attention_bwd(q, k, v, do)
     if kname == "grid_to_latent_bwd":
         args = (q, k, v, lse, do)
-        kern = lambda: cuda_attention.grid_to_latent_bwd_cuda(*args)  # noqa
+        # on the card the kernel rebuilds P from the lse the forward kernel
+        # wrote, the plain version from its own
+        lse_k = (cuda_attention.grid_to_latent_cuda(q, k, v,
+                                                    with_stats=True)[1]
+                 if dev == "cuda" else lse)
+        kern = lambda: cuda_attention.grid_to_latent_bwd_cuda(  # noqa: E731
+            q, k, v, lse_k, do)
         keep = _without_middle_chunk(lq, chunk, dev)
         if keep is not None:
             def drop(i):
@@ -949,7 +1039,7 @@ def perturb(generator):
                 p.fill_(0.1)
 
 
-def serve_run(cfg, expected):
+def serve_run(cfg, expected, calls):
     import torch
 
     from gansformer_tpu_torch import ops
@@ -965,11 +1055,16 @@ def serve_run(cfg, expected):
     for bucket in BUCKETS:
         seeds = list(range(100 * bucket, 101 * bucket))
         before = ops.launch_counts()
+        paths_before = ops.path_launch_counts()
         ws = progs.map_seeds(seeds)
         img = progs.synthesize(ws, psis[bucket], seed=7, tags=seeds)
         torch.cuda.synchronize()
         after = ops.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
+        paths = {k: v - paths_before[k]
+                 for k, v in ops.path_launch_counts().items()}
+        check_path_counts(paths, calls[bucket], cfg.dtype,
+                          f"bucket {bucket}")
         if tuple(img.shape) != (bucket, cfg.resolution, cfg.resolution,
                                 cfg.img_channels):
             fail(f"bucket {bucket}: image shape {tuple(img.shape)}")
@@ -1010,8 +1105,9 @@ KERNEL_GROUPS = (("grid_to_latent bwd", "g2l_bwd"),
                  ("modconv dw", "dw_"), ("modconv", "modconv_"),
                  ("modconv", "fwd_wgmma"), ("modconv", "fwd_smallk"),
                  ("modconv", "fwd_reduce"),
-                 ("upfirdn", "upfirdn_kernel"),
+                 ("upfirdn", "upfirdn_kernel"), ("upfirdn", "ufd_"),
                  ("grid_to_latent", "g2l_kernel"),
+                 ("grid_to_latent", "g2l_mma"),
                  ("latent_to_grid", "l2g_"), ("matmul", "gemm"),
                  ("matmul", "cutlass"), ("cudnn conv", "conv"),
                  ("cudnn conv", "cudnn"), ("noise draw", "distribution"))
@@ -1120,11 +1216,12 @@ def train_state_on_card(model, train):
     return state
 
 
-def counted_steps(state, reals, calls):
+def counted_steps(state, reals, calls, dtype_name):
     """One d_step and one g_step with the counters reset just before and
-    read just after each, held to the plan (kernel launches and the
-    attention launches that wrote lse); returns the counts per phase and
-    the lse counts over both steps."""
+    read just after each, held to the plan (kernel launches, the
+    attention launches that wrote lse, and the routes of the upfirdn and
+    grid->latent launches in ``dtype_name``); returns the counts per
+    phase and the lse counts over both steps."""
     import torch
 
     from gansformer_tpu_torch import ops
@@ -1135,9 +1232,15 @@ def counted_steps(state, reals, calls):
     aux = d_step(state, reals, 0)
     torch.cuda.synchronize()
     after_d, lse_d = ops.launch_counts(), ops.lse_launch_counts()
+    paths_d = ops.path_launch_counts()
     aux.update(g_step(state, 0, TRAIN_BATCH))
     torch.cuda.synchronize()
     after_g, lse_g = ops.launch_counts(), ops.lse_launch_counts()
+    paths_g = {k: v - paths_d[k]
+               for k, v in ops.path_launch_counts().items()}
+    for phase, paths in (("d_step", paths_d), ("g_step", paths_g)):
+        check_path_counts(paths, [c for c in calls if c["phase"] == phase],
+                          dtype_name, phase)
     deltas = {"d_step": (after_d, lse_d),
               "g_step": ({k: after_g[k] - after_d[k] for k in after_g},
                          {k: lse_g[k] - lse_d[k] for k in lse_g})}
@@ -1192,7 +1295,8 @@ def train_run(model, train, calls):
     data = SyntheticDataset(model.resolution, model.img_channels).batches(
         TRAIN_BATCH, seed=0)
     batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
-    deltas, lse_counts, _ = counted_steps(state, batches[0], calls)
+    deltas, lse_counts, _ = counted_steps(state, batches[0], calls,
+                                          model.dtype)
     for name in TRAIN_KERNELS:
         if deltas["d_step"][name] + deltas["g_step"][name] == 0:
             fail(f"kernel {name} was not launched on the training path")
@@ -1245,7 +1349,7 @@ def d_attention_run(model, train, calls):
     reals = torch.from_numpy(next(SyntheticDataset(
         model.resolution, model.img_channels).batches(TRAIN_BATCH,
                                                       seed=1))).cuda()
-    _, _, losses = counted_steps(state, reals, calls)
+    _, _, losses = counted_steps(state, reals, calls, model.dtype)
     print(f"  losses {losses}", flush=True)
     check_grads(state)
 
@@ -1476,11 +1580,52 @@ def check_fwd_configs(calls):
                      f"tile) {got} != the wrapper's {want}")
 
 
+def check_attn_ufd_configs(calls):
+    """The built library's plan (route, tile, shared memory) of every
+    upfirdn launch (forward and adjoint) and every grid->latent launch of
+    ``calls`` agrees with the wrapper's, in both dtypes."""
+    import ctypes
+
+    import torch
+
+    from gansformer_tpu_torch.ops import _build, cuda_attention, cuda_upfirdn
+
+    lib = _build.load_library()
+    ca = cuda_attention
+    for c in calls:
+        for dtype in (torch.float32, torch.bfloat16):
+            code = _build.DTYPE_CODES[str(dtype)[6:]]
+            if c["kernel"] in ("upfirdn", "upfirdn_adjoint"):
+                up, down = c["up"], c.get("down", 1)
+                if c["kernel"] == "upfirdn_adjoint":
+                    up, down = down, up
+                got = (ctypes.c_int * 12)()
+                lib.gt_ufd_plan(code, c["C"], up, down, 4, 4, got)
+                want = tuple(cuda_upfirdn.ufd_plan(dtype, c["C"], up, down,
+                                                   4, 4))
+            elif c["kernel"] == "grid_to_latent":
+                b, n, l, d, dv = c["B"], c["Lq"], c["Lk"], c["D"], c["Dv"]
+                got = (ctypes.c_int * 5)()
+                lib.gt_g2l_plan(code, b, n, l, d, dv, got)
+                path = ca.g2l_path(dtype, l, d, dv)
+                mma = path == ca.G2L_MMA
+                want = (path, ca.g2l_lp(l) if mma else 0,
+                        ca.g2l_tiles_per_warp(b, n) if mma else 0,
+                        ca.g2l_rows_per_block(path, b, n),
+                        ca.g2l_smem(path, l, d, dv))
+            else:
+                continue
+            if tuple(got) != want:
+                fail(f"{c['label']} {c['kernel']} {dtype}: the library's "
+                     f"plan {tuple(got)} != the wrapper's {want}")
+
+
 # The kernels of this round's redesigns: ptxas must report no spill in
 # them, and those that run wgmma must show HGMMA in their SASS.
 NO_SPILL = ("fwd_wgmma_kernel", "fwd_reduce_kernel", "fwd_smallk_kernel",
             "dx_wgmma_kernel", "dw_wgmma_kernel", "dx_smallk_kernel",
-            "dw_smallk_kernel")
+            "dw_smallk_kernel", "g2l_mma_kernel", "ufd_tile_kernel",
+            "ufd_smallc_kernel")
 WGMMA_KERNELS = ("fwd_wgmma_kernel", "dx_wgmma_kernel", "dw_wgmma_kernel")
 # The presets beside ffhq256-duplex, each driven once at its new launch
 # shapes; bedroom256-duplex is ffhq256-duplex's ModelConfig field for
@@ -1524,6 +1669,8 @@ def synthesize_once(cfg, calls):
     img = progs.synthesize(ws, [0.7, 1.0] * (batch // 2), seed=7, tags=seeds)
     torch.cuda.synchronize()
     got = ops.launch_counts()
+    check_path_counts(ops.path_launch_counts(), calls, cfg.dtype,
+                      "synthesize")
     want = {k: sum(c["kernel"] == k for c in calls) for k in REPLACES}
     if tuple(img.shape) != (batch, cfg.resolution, cfg.resolution,
                             cfg.img_channels):
@@ -1535,6 +1682,36 @@ def synthesize_once(cfg, calls):
     print(f"  synthesize at batch {batch}: images {tuple(img.shape)} finite, "
           f"launches {got}", flush=True)
     del bundle, progs
+
+
+def check_general_route(peaks):
+    """upfirdn's general route, which no preset launch takes, held once at
+    a shape only it takes (a 3x3 filter), with its routes counted; and
+    grid->latent's tensor-core kernel once at a shape no preset makes (n
+    not a multiple of 16, L padded from 20 to 32)."""
+    from gansformer_tpu_torch import ops
+
+    call = dict(kernel="upfirdn", label="b64 3x3 filter (general route)",
+                B=8, H=64, C=64, up=1, pads=(1, 1, 1, 1), taps=(1, 2, 1),
+                gain=1.0)
+    import torch
+
+    print("upfirdn's general route, bf16:", flush=True)
+    case = build_case(call, torch.bfloat16,
+                      torch.Generator(device="cuda").manual_seed(0))
+    ops.reset_launch_counts()
+    case["kernel"]()
+    got = {k: v for k, v in ops.path_launch_counts().items()
+           if k.startswith("upfirdn")}
+    if got != dict(upfirdn_general=1, upfirdn_tile=0, upfirdn_smallc=0):
+        fail(f"the 3x3 filter took the routes {got}")
+    del case
+    check_kernels([call], "bfloat16", peaks)
+    tail = dict(kernel="grid_to_latent", label="n 200, L 20 (tails)", B=3,
+                Lq=200, Lk=20, D=64, Dv=128, lse=True)
+    print("grid->latent's tensor-core kernel at a row tail and a latent "
+          "count off its buckets, bf16:", flush=True)
+    check_kernels([tail], "bfloat16", peaks)
 
 
 def preset_phase(name, peaks, held):
@@ -1564,6 +1741,7 @@ def preset_phase(name, peaks, held):
           f"d_step + g_step plan {plan}", flush=True)
     check_fwd_configs(serve)
     check_bwd_configs(tcalls)
+    check_attn_ufd_configs(serve + tcalls)
     new, seen = [], set()
     for c in serve + checked_train_calls(tcalls):
         key = call_key(c, model.dtype)
@@ -1580,7 +1758,7 @@ def preset_phase(name, peaks, held):
     reals = torch.from_numpy(next(SyntheticDataset(
         model.resolution, model.img_channels).batches(TRAIN_BATCH,
                                                       seed=2))).cuda()
-    _, _, losses = counted_steps(state, reals, tcalls)
+    _, _, losses = counted_steps(state, reals, tcalls, model.dtype)
     print(f"  losses {losses}", flush=True)
     check_grads(state)
     del state, reals
@@ -1628,11 +1806,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s "
           f"(compiled: {_build.build_info['built']})", flush=True)
     log = _build.build_info.get("log", "")
-    for kname, regs, spill in ptxas_summary(log):
+    summary = ptxas_summary(log)
+    for kname, regs, spill in summary:
         print(f"  ptxas: {kname} {regs} registers, {spill} bytes spilled",
               flush=True)
         if spill and kname.startswith(NO_SPILL):
             fail(f"{kname} spills {spill} bytes")
+    unreported = [k for k in NO_SPILL
+                  if not any(n.startswith(k) for n, _, _ in summary)]
+    if unreported:
+        fail(f"the build's ptxas report has no entry for {unreported}")
     for line in log.splitlines():
         if "serialized" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
@@ -1655,6 +1838,7 @@ def main() -> int:
 
     for b in BUCKETS:
         check_fwd_configs(calls[b])
+        check_attn_ufd_configs(calls[b])
     flagship = [c for c in calls[8] if c["label"] in FLAGSHIP]
     print("kernels vs plain, fp32, flagship shapes at batch 8:", flush=True)
     check_kernels(flagship, "float32", peaks)
@@ -1673,10 +1857,16 @@ def main() -> int:
     run_sums = kernel_sums(rows, SERVE_KERNELS)
     print_sums(f"  sums over the serve run's {len(rows)} launches "
                f"(batches {'+'.join(map(str, BUCKETS))}):", run_sums)
+    blur = [dict(c, act="lrelu", label=c["label"] + " +bias lrelu")
+            for c in calls[8] if c["label"].endswith(" blur")]
+    print("upfirdn's fused epilogue (bias, lrelu, gain sqrt 2) at every "
+          "blur launch of one synthesize at batch 8, bf16:", flush=True)
+    check_kernels(blur, "bfloat16", peaks)
+    check_general_route(peaks)
 
     print("serve ffhq256-duplex (bf16, random init, buckets "
           f"{'/'.join(map(str, BUCKETS))}):", flush=True)
-    bundle, counts, synth_s = serve_run(cfg, expected)
+    bundle, counts, synth_s = serve_run(cfg, expected, calls)
     print(f"  launches over {len(BUCKETS)} synthesize calls: {counts}")
     for kname, s in run_sums.items():
         if counts[kname] != s["launches"]:
@@ -1706,6 +1896,7 @@ def main() -> int:
               f"{row['bound_ms']:.4f} ms (bytes {row['bytes_ms']:.4f}, "
               f"operations {row['ops_ms']:.4f})", flush=True)
     check_bwd_configs(tcalls)
+    check_attn_ufd_configs(tcalls)
     checked = checked_train_calls(tcalls)
     print("train kernels vs plain, fp32, flagship shapes at batch "
           f"{TRAIN_BATCH}:", flush=True)
@@ -1754,6 +1945,7 @@ def main() -> int:
     dplan = {p: plan_counts(dcalls, p) for p in ("d_step", "g_step")}
     print(f"ffhq256-duplex with d_attention, batch {TRAIN_BATCH}, bf16; "
           f"launch plan: {dplan}", flush=True)
+    check_attn_ufd_configs(dcalls)
 
     new, seen = [], set()
     for c in dcalls:

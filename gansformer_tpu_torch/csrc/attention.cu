@@ -4,12 +4,30 @@
 // grid_to_latent  (replaces gansformer_tpu/ops/pallas_attention.py
 //   _grid_to_latent_kernel via _grid_to_latent_fwd): q [B, n, D] grid rows,
 //   k/v [B, L, D|Dv] with L <= 64 latents.  The softmax axis is the tiny L,
-//   so every grid row is independent: one block stages K and V of one batch
-//   entry in shared memory (fp32, opted in above 48 KB) and each warp walks
-//   query rows, keeping its logits in registers (one per lane) and its
-//   probabilities in a per-warp smem row.  Probabilities are rounded to the
-//   value dtype before the mix, as the reference casts them.
-//   Bound: bytes (q read once, out written once; ~2*L*(D+Dv) flops a row).
+//   so every grid row is independent.  Bound on this card: bytes (q read
+//   once, out written once; 2 L (D + Dv) operations a row, 16-64 per byte
+//   against Hopper's ~295).  Two routes (g2l_path):
+//   * g2l_mma_kernel<LP> (bf16, D and Dv multiples of 64): tensor-core
+//     rows.  A block of 4 warps keeps K [L, D] and V [L, Dv] of its batch
+//     entry in shared memory as bf16 (16-byte cp.async, the 16-byte
+//     chunks of a row XOR-swizzled by the row so ldmatrix reads no bank
+//     twice; rows L..LP-1 zero).  Each warp owns 16 query rows at a time
+//     and streams them in 64-column chunks through its own 3-slot cp.async
+//     ring (swizzled the same way), so the next rows' q is in flight while
+//     the current ones multiply.  S = q K^T is mma.sync m16n8k16 (bf16 in,
+//     fp32 out) with the 16 x LP logits in registers; the softmax is fp32
+//     in registers (row max and sum by quad shuffles; padded keys -inf);
+//     P = e / den rounded to bf16 is exactly the reference's (e /
+//     den).astype(v.dtype) (_grid_to_latent_kernel) and, being the m16n8
+//     accumulator layout, already the A fragment of O = P V, so it never
+//     touches shared memory; V is the B operand through ldmatrix.trans.
+//     Each 64-column chunk of O is rounded once, staged in shared memory
+//     and written 16 bytes a thread.  LP, L padded to 16, 32 or 64, is a
+//     compile-time bucket.
+//   * g2l_kernel<T> (fp32, other shapes): K and V staged in shared memory
+//     as fp32, each warp walks query rows, keeping its logits in registers
+//     (one per lane) and its probabilities in a per-warp smem row,
+//     rounded to the value dtype before the mix.
 //
 // latent_to_grid  (replaces _latent_to_grid_kernel via _latent_to_grid_fwd):
 //   q [B, L, D] latents, k/v [B, n, D|Dv], softmax over the long n axis.  The
@@ -20,13 +38,14 @@
 //   once).
 //
 // Both forwards take an optional fp32 ``lse`` [B, Lq] output, the row
-// statistic max + log(denominator) that the backward kernels
-// (attention_bwd.cu) rebuild P from.  With a null pointer nothing is
-// written: the serving path passes null, as the TPU's no-grad path declares
-// no lse output.
+// statistic max + log(denominator), in natural-log units, that the
+// backward kernels (attention_bwd.cu) rebuild P from.  With a null pointer
+// nothing is written: the serving path passes null, as the TPU's no-grad
+// path declares no lse output.
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -34,6 +53,16 @@ constexpr int kMaxL = 64;       // latents a grid row attends to
 constexpr int kWarps = 8;       // warps per block
 constexpr int kG2LRows = 128;   // grid rows per grid_to_latent block
 constexpr int kChunk = 256;     // key rows per latent_to_grid block
+
+// grid_to_latent routes, and the tensor-core route's shape: 4 warps of 16
+// query rows, each streaming q in 64-column chunks through 3 ring slots of
+// 16 x 64 bf16 (2 KB) plus one 2 KB slot to stage its output.
+enum { kG2LSimt = 0, kG2LMma = 1 };
+constexpr int kMmaWarps = 4;
+constexpr int kQStages = 3;
+constexpr int kQChunk = 64;
+constexpr int kSlot = 16 * kQChunk * 2;
+constexpr int kSms = 132;
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -88,6 +117,200 @@ __global__ void __launch_bounds__(256)
       orow[dv] = from_f<T>(acc);
     }
     __syncwarp();
+  }
+}
+
+// Byte offset of 16-byte chunk `c` of row `r` in a shared-memory operand
+// whose rows are `row_bytes` long (a multiple of 128): the chunk index is
+// XOR-ed with r % 8, so the 8 rows of an ldmatrix 8 x 8 matrix, and the 8
+// chunks of one row, fall in distinct banks.
+__device__ __forceinline__ int swz(int r, int c, int row_bytes) {
+  return r * row_bytes + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int LP>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+    g2l_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int n, int L, int D, int Dv, float scale, int tpw) {
+  constexpr int NT = LP / 8;          // n-tiles of the logits
+  extern __shared__ __align__(128) unsigned char g2l_smem_raw[];
+  unsigned char* Ks = g2l_smem_raw;                 // [LP, D] swizzled
+  unsigned char* Vs = Ks + LP * D * 2;              // [LP, Dv] swizzled
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* ring = Vs + LP * Dv * 2 + warp * (kQStages + 1) * kSlot;
+  unsigned char* stage = ring + kQStages * kSlot;   // [16, 64] swizzled
+  const int b = blockIdx.y;
+
+  {
+    const int kc = D / 8, vc = Dv / 8;
+    const __nv_bfloat16* kb = k + (size_t)b * L * D;
+    const __nv_bfloat16* vb = v + (size_t)b * L * Dv;
+    for (int i = threadIdx.x; i < L * kc; i += blockDim.x)
+      cp_async16(Ks + swz(i / kc, i % kc, D * 2), kb + (size_t)i * 8, 16);
+    for (int i = threadIdx.x; i < L * vc; i += blockDim.x)
+      cp_async16(Vs + swz(i / vc, i % vc, Dv * 2), vb + (size_t)i * 8, 16);
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < (LP - L) * kc; i += blockDim.x)
+      reinterpret_cast<uint4*>(Ks + L * D * 2)[i] = zero;
+    for (int i = threadIdx.x; i < (LP - L) * vc; i += blockDim.x)
+      reinterpret_cast<uint4*>(Vs + L * Dv * 2)[i] = zero;
+  }
+  cp_async_commit();
+
+  // this warp's 16-row tiles: t = 0 .. tpw - 1 at rows r_blk + (t * 4 +
+  // warp) * 16; those inside n are a prefix.  Stage j of the ring is
+  // chunk j % nch of tile j / nch.
+  const int nch = D / kQChunk;
+  const int r_blk = blockIdx.x * 16 * kMmaWarps * tpw;
+  int ntiles = 0;
+  while (ntiles < tpw && r_blk + (ntiles * kMmaWarps + warp) * 16 < n)
+    ++ntiles;
+  const int J = ntiles * nch;
+  auto tile_row = [&](int t) { return r_blk + (t * kMmaWarps + warp) * 16; };
+  auto prefetch = [&](int j) {
+    if (j < J) {
+      const int rbase = tile_row(j / nch), c = j % nch;
+      unsigned char* slot = ring + (j % kQStages) * kSlot;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int idx = i * 32 + lane, rr = idx >> 3, ch = idx & 7;
+        const bool in = rbase + rr < n;
+        const __nv_bfloat16* src =
+            q + ((size_t)b * n + (in ? rbase + rr : rbase)) * D +
+            c * kQChunk + ch * 8;
+        cp_async16(slot + swz(rr, ch, kQChunk * 2), src, in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kQStages - 1; ++j) prefetch(j);
+  cp_async_wait<kQStages - 1>();       // K and V have landed
+  __syncthreads();
+
+  const int g = lane >> 2, tq = lane & 3;
+  float s[NT][4];
+  for (int j = 0; j < J; ++j) {
+    prefetch(j + kQStages - 1);
+    cp_async_wait<kQStages - 1>();     // stage j has landed
+    __syncwarp();
+    const int c = j % nch;
+    if (c == 0) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+    }
+    const unsigned char* slot = ring + (j % kQStages) * kSlot;
+#pragma unroll
+    for (int ks = 0; ks < kQChunk / 16; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, smem_u32(slot + swz(lane & 15, ks * 2 + (lane >> 4),
+                                         kQChunk * 2)));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4];
+        const int kr = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int kc = c * 8 + ks * 2 + ((lane >> 3) & 1);
+        ldmatrix_x4(bk, smem_u32(Ks + swz(kr, kc, D * 2)));
+        mma_m16n8k16(s[2 * np], a, bk[0], bk[1]);
+        mma_m16n8k16(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+    __syncwarp();                      // the slot may be refilled
+    if (c != nch - 1) continue;
+
+    // softmax of rows g and g + 8 over the logits this quad holds
+    const int rbase = tile_row(j / nch);
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool key = t * 8 + tq * 2 + e < L;
+        s[t][e] = key ? s[t][e] * scale : -INFINITY;
+        s[t][2 + e] = key ? s[t][2 + e] * scale : -INFINITY;
+        m0 = fmaxf(m0, s[t][e]);
+        m1 = fmaxf(m1, s[t][2 + e]);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[t][e] = expf(s[t][e] - m0);
+        s[t][2 + e] = expf(s[t][2 + e] - m1);
+        d0 += s[t][e];
+        d1 += s[t][2 + e];
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+    }
+    if (lse != nullptr && tq == 0) {
+      if (rbase + g < n) lse[(size_t)b * n + rbase + g] = m0 + logf(d0);
+      if (rbase + g + 8 < n)
+        lse[(size_t)b * n + rbase + g + 8] = m1 + logf(d1);
+    }
+    const float i0 = 1.f / d0, i1 = 1.f / d1;
+    // P in bf16: the A fragments of O = P V, 16 keys each
+    uint32_t pa[LP / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < LP / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0] * i0, s[2 * kk][1] * i0);
+      pa[kk][1] = pack_bf16(s[2 * kk][2] * i1, s[2 * kk][3] * i1);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0] * i0, s[2 * kk + 1][1] * i0);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2] * i1, s[2 * kk + 1][3] * i1);
+    }
+    for (int dc = 0; dc < Dv / kQChunk; ++dc) {
+      float acc[8][4];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < LP / 16; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bv[4];
+          const int vr = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+          const int vc = dc * 8 + np * 2 + (lane >> 4);
+          ldmatrix_x4_trans(bv, smem_u32(Vs + swz(vr, vc, Dv * 2)));
+          mma_m16n8k16(acc[2 * np], pa[kk], bv[0], bv[1]);
+          mma_m16n8k16(acc[2 * np + 1], pa[kk], bv[2], bv[3]);
+        }
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        *reinterpret_cast<uint32_t*>(stage + swz(g, t, 128) + tq * 4) =
+            pack_bf16(acc[t][0], acc[t][1]);
+        *reinterpret_cast<uint32_t*>(stage + swz(g + 8, t, 128) + tq * 4) =
+            pack_bf16(acc[t][2], acc[t][3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int idx = i * 32 + lane, rr = idx >> 3, ch = idx & 7;
+        if (rbase + rr < n)
+          *reinterpret_cast<uint4*>(o + ((size_t)b * n + rbase + rr) * Dv +
+                                    dc * kQChunk + ch * 8) =
+              *reinterpret_cast<const uint4*>(stage + swz(rr, ch, 128));
+      }
+      __syncwarp();
+    }
   }
 }
 
@@ -193,9 +416,43 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-size_t g2l_smem(int L, int D, int Dv) {
+size_t g2l_simt_smem(int L, int D, int Dv) {
   return sizeof(float) *
          ((size_t)L * D + (size_t)L * Dv + kWarps * D + kWarps * kMaxL);
+}
+
+int g2l_lp(int L) { return L <= 16 ? 16 : (L <= 32 ? 32 : 64); }
+
+size_t g2l_mma_smem(int L, int D, int Dv) {
+  return (size_t)g2l_lp(L) * (D + Dv) * 2 +
+         (size_t)kMmaWarps * (kQStages + 1) * kSlot;
+}
+
+int g2l_path(int dtype, int L, int D, int Dv) {
+  if (dtype == GT_DTYPE_BF16 && L >= 1 && L <= kMaxL && D > 0 && Dv > 0 &&
+      D % kQChunk == 0 && Dv % kQChunk == 0 &&
+      g2l_mma_smem(L, D, Dv) <= (size_t)kMaxSmem)
+    return kG2LMma;
+  return kG2LSimt;
+}
+
+size_t g2l_smem(int path, int L, int D, int Dv) {
+  return path == kG2LMma ? g2l_mma_smem(L, D, Dv) : g2l_simt_smem(L, D, Dv);
+}
+
+// 16-row tiles a warp takes in turn: 1 while one tile a warp gives fewer
+// than two blocks an SM, up to 4 on the large grids, so K and V are staged
+// once for up to 256 rows.
+int g2l_tiles_per_warp(int B, int n) {
+  const long long blocks = (long long)B * ((n + 16 * kMmaWarps - 1) /
+                                           (16 * kMmaWarps));
+  const long long t = blocks / (2 * kSms);
+  return t < 1 ? 1 : (t > 4 ? 4 : (int)t);
+}
+
+int g2l_rows_per_block(int path, int B, int n) {
+  return path == kG2LMma ? 16 * kMmaWarps * g2l_tiles_per_warp(B, n)
+                         : kG2LRows;
 }
 
 size_t l2g_smem(int L, int D) {
@@ -206,13 +463,29 @@ template <typename T>
 int g2l_launch(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int n, int L, int D, int Dv, float scale,
                cudaStream_t st) {
-  const size_t smem = g2l_smem(L, D, Dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      g2l_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const size_t smem = g2l_simt_smem(L, D, Dv);
+  const int err = set_smem(g2l_kernel<T>, (int)smem);
+  if (err != 0) return err;
   dim3 grid((n + kG2LRows - 1) / kG2LRows, B);
   g2l_kernel<T><<<grid, 32 * kWarps, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, n, L, D, Dv, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int LP>
+int g2l_mma_launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int n, int L, int D, int Dv,
+                   float scale, cudaStream_t st) {
+  const int smem = (int)g2l_mma_smem(L, D, Dv);
+  const int err = set_smem(g2l_mma_kernel<LP>, smem);
+  if (err != 0) return err;
+  const int tpw = g2l_tiles_per_warp(B, n);
+  const int rows = g2l_rows_per_block(kG2LMma, B, n);
+  g2l_mma_kernel<LP><<<dim3((n + rows - 1) / rows, B), kMmaWarps * 32, smem,
+                       st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, n, L, D, Dv, scale,
+      tpw);
   return (int)cudaGetLastError();
 }
 
@@ -259,20 +532,38 @@ int l2g_dispatch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" int gt_attn_chunk() { return kChunk; }
 
-extern "C" long long gt_g2l_smem(int L, int D, int Dv) {
-  return (long long)g2l_smem(L, D, Dv);
+// The plan of a grid_to_latent launch, for the wrapper's check: {path,
+// LP (0 off the tensor-core route), 16-row tiles a warp, rows a block,
+// dynamic shared memory}.
+extern "C" void gt_g2l_plan(int dtype, int B, int n, int L, int D, int Dv,
+                            int* out) {
+  const int path = g2l_path(dtype, L, D, Dv);
+  out[0] = path;
+  out[1] = path == kG2LMma ? g2l_lp(L) : 0;
+  out[2] = path == kG2LMma ? g2l_tiles_per_warp(B, n) : 0;
+  out[3] = g2l_rows_per_block(path, B, n);
+  out[4] = (int)g2l_smem(path, L, D, Dv);
 }
 
 extern "C" long long gt_l2g_smem(int L, int D) {
   return (long long)l2g_smem(L, D);
 }
 
-extern "C" int gt_grid_to_latent(int dtype, const void* q, const void* k,
-                                 const void* v, void* o, float* lse, int B,
-                                 int n, int L, int D, int Dv, float scale,
-                                 void* stream) {
-  if (L < 1 || L > kMaxL) return (int)cudaErrorInvalidValue;
+// `path` must be the route g2l_path gives (the wrapper's g2l_path).
+extern "C" int gt_grid_to_latent(int path, int dtype, const void* q,
+                                 const void* k, const void* v, void* o,
+                                 float* lse, int B, int n, int L, int D,
+                                 int Dv, float scale, void* stream) {
+  if (L < 1 || L > kMaxL || path != g2l_path(dtype, L, D, Dv))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (path == kG2LMma) {
+    if (L <= 16)
+      return g2l_mma_launch<16>(q, k, v, o, lse, B, n, L, D, Dv, scale, st);
+    if (L <= 32)
+      return g2l_mma_launch<32>(q, k, v, o, lse, B, n, L, D, Dv, scale, st);
+    return g2l_mma_launch<64>(q, k, v, o, lse, B, n, L, D, Dv, scale, st);
+  }
   if (dtype == GT_DTYPE_F32)
     return g2l_launch<float>(q, k, v, o, lse, B, n, L, D, Dv, scale, st);
   if (dtype == GT_DTYPE_BF16)

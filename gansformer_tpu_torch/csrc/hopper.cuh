@@ -7,7 +7,9 @@
 // ldmatrix; fp32 accumulators in registers).  On the host side, the
 // tensor maps (cuTensorMapEncodeTiled, cached per thread) and the opt-in
 // to more than 48 KB of dynamic shared memory, shared by csrc/modconv.cu
-// and csrc/modconv_bwd.cu.
+// and csrc/modconv_bwd.cu.  Also the warp-level pieces of the kernels
+// that need no warpgroup: cp.async with zero fill (csrc/upfirdn.cu,
+// csrc/attention.cu) and mma.sync with ldmatrix (csrc/attention.cu).
 //
 // Operand layout: the 128-byte swizzle that TMA writes and wgmma reads.
 // A tile is stored as rows of 128 bytes (64 bf16 along the row's
@@ -338,6 +340,56 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(saddr));
+}
+
+// The same four matrices transposed on the way (ldmatrix .trans): lane l
+// gives the address of a row of a k-major [k][n] operand, and each thread
+// receives the B fragment of mma_m16n8k16 (k pairs of one column n).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t saddr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr));
+}
+
+// D[16 x 8] += A[16 x 16] * B[16 x 8] on the tensor cores of one warp
+// (mma.sync, bf16 operands, fp32 accumulators).  Fragments, with g = lane
+// / 4 and t = lane % 4: a = {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..)} as bf16 pairs, b = {(k 2t.., n g), (k 2t + 8.., n
+// g)}, d = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from global into shared memory without passing registers
+// (cp.async, cached in L2 only); with `bytes` 0 nothing is read and the
+// 16 bytes are zero-filled, so a load past an edge or a pad costs no
+// branch.  A thread's copies complete in commit groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- host side: tensor maps and shared-memory opt-in ----------------------

@@ -41,6 +41,17 @@ def lse_launch_counts() -> Dict[str, int]:
             "latent_to_grid": cuda_attention.launches_l2g_lse}
 
 
+def path_launch_counts() -> Dict[str, int]:
+    """Launches since the last reset of the routes of the kernels that
+    have several: upfirdn (forward and adjoint) by route, grid->latent
+    by route."""
+    out = {f"upfirdn_{name}": cuda_upfirdn.path_launches[p]
+           for p, name in cuda_upfirdn.PATH_NAMES.items()}
+    out.update({f"grid_to_latent_{name}": cuda_attention.g2l_path_launches[p]
+                for p, name in cuda_attention.G2L_NAMES.items()})
+    return out
+
+
 def reset_launch_counts() -> None:
     cuda_modconv.launches = 0
     cuda_modconv.launches_dx = 0
@@ -53,11 +64,16 @@ def reset_launch_counts() -> None:
     cuda_attention.launches_l2g_bwd = 0
     cuda_attention.launches_g2l_lse = 0
     cuda_attention.launches_l2g_lse = 0
+    for counts in (cuda_upfirdn.path_launches,
+                   cuda_attention.g2l_path_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 __all__ = ["ACTIVATIONS", "attention_plain", "conv2d", "downsample_2d",
            "filter_2d", "fused_bias_act", "fused_multihead_attention",
            "launch_counts", "lse_launch_counts", "modconv_plain",
-           "modulated_conv2d", "multihead_attention", "poly_w4",
+           "modulated_conv2d", "multihead_attention", "path_launch_counts",
+           "poly_w4",
            "reset_launch_counts", "setup_filter", "sinusoidal_grid_encoding",
            "upfirdn2d", "upfirdn2d_plain", "upsample_2d"]

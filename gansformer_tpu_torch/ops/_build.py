@@ -27,9 +27,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 LIB_NAME = "libgansformer_kernels.so"
+LOG_NAME = "build.log"       # nvcc's output, ptxas report included
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v: ptxas reports each kernel's registers, spills and shared
-# memory; the log is kept in ``build_info["log"]``.
+# memory; the log is kept in ``build_info["log"]`` and beside the
+# library, so a later process that loads the built library reads it too.
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 
@@ -42,14 +44,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "gt_upfirdn": (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _P, _I, _F, _F, _P]),
+    "gt_upfirdn": (_I, [_I, _I, _P, _P, _P] + [_I] * 12
+                   + [_P, _I, _I, _F, _F, _P]),
+    "gt_ufd_plan": (None, [_I] * 6 + [_P]),
     "gt_modconv": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _P, _P, _I, _I, _F, _F, _P]),
     "gt_modconv_fwd_tile": (_I, [_I]),
     "gt_modconv_fwd_smem": (_I, [_I, _I]),
-    "gt_grid_to_latent": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _F, _P]),
+    "gt_grid_to_latent": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _F, _P]),
+    "gt_g2l_plan": (None, [_I] * 6 + [_P]),
     "gt_latent_to_grid": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _P]),
     "gt_grid_to_latent_bwd": (_I, [_I] + [_P] * 10 + [_I] * 5 + [_F, _P]),
@@ -61,7 +65,6 @@ _SIGNATURES = {
     "gt_modconv_dw": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _P, _P, _I, _I, _I, _P]),
     "gt_attn_chunk": (_I, []),
-    "gt_g2l_smem": (ctypes.c_longlong, [_I, _I, _I]),
     "gt_l2g_smem": (ctypes.c_longlong, [_I, _I]),
     "gt_attn_bwd_rows": (_I, []),
     "gt_g2l_bwd_smem": (ctypes.c_longlong, [_I, _I, _I]),
@@ -104,8 +107,12 @@ def build() -> str:
     """Compile (if needed) and return the path of the shared library."""
     out_dir = os.path.join(BUILD_ROOT, _digest())
     lib_path = os.path.join(out_dir, LIB_NAME)
+    log_path = os.path.join(out_dir, LOG_NAME)
     if os.path.exists(lib_path):
         build_info.update(path=lib_path, built=False, seconds=0.0)
+        if os.path.exists(log_path):          # the build's ptxas report
+            with open(log_path) as f:
+                build_info["log"] = f.read()
         return lib_path
     os.makedirs(BUILD_ROOT, exist_ok=True)
     nvcc = nvcc_path()
@@ -137,6 +144,9 @@ def build() -> str:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(tmp, LOG_NAME), "w") as f:
+            f.write("\n".join(logs))
+        os.replace(os.path.join(tmp, LOG_NAME), log_path)
         os.replace(tmp_lib, lib_path)
         build_info.update(path=lib_path, built=True,
                           seconds=time.perf_counter() - t0,

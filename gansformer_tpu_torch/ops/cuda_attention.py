@@ -6,7 +6,10 @@ Replaces ``gansformer_tpu/ops/pallas_attention.py``:
 
 * ``grid_to_latent`` <- ``_grid_to_latent_fwd`` -> ``pl.pallas_call``
   (body ``_grid_to_latent_kernel``): grid rows attend to the k <= 64
-  latents; softmax over the tiny axis, every row independent.
+  latents; softmax over the tiny axis, every row independent.  In bf16
+  with D and Dv multiples of 64 (every preset launch) a tensor-core
+  kernel (``g2l_path``: K and V resident in shared memory, 16 query rows
+  a warp, mma.sync); else the CUDA-core kernel.
 * ``latent_to_grid`` <- ``_latent_to_grid_fwd`` -> ``pl.pallas_call``
   (bodies ``_latent_to_grid_kernel``/``_nostats``): latents attend over the
   n grid positions; the TPU's sequential online-softmax carry becomes a
@@ -34,6 +37,7 @@ duplex phases do, forward and backward.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -56,6 +60,76 @@ launches_g2l_lse = 0
 launches_l2g_lse = 0
 
 MAX_LATENTS = 64
+
+# grid_to_latent's routes (csrc/attention.cu g2l_path), and launches by
+# route since the last reset.  The tensor-core route's shape: 4 warps of
+# 16 query rows, q streamed in 64-column chunks through 3 ring slots of
+# 2 KB a warp plus a 2 KB output slot, the latents padded to 16, 32 or
+# 64.  These mirror the kernel's constants (kMmaWarps, kQStages, kQChunk,
+# kSms); tests/test_torch_g2l_plan.py holds them to the source, and
+# chip_smoke.py the built library's plan to this one.
+G2L_SIMT, G2L_MMA = 0, 1
+G2L_NAMES = {G2L_SIMT: "simt", G2L_MMA: "mma"}
+g2l_path_launches = dict.fromkeys(G2L_NAMES, 0)
+G2L_WARPS = 4
+G2L_STAGES = 3
+G2L_CHUNK = 64
+G2L_SLOT = 16 * G2L_CHUNK * 2
+G2L_SIMT_ROWS = 128
+G2L_SIMT_WARPS = 8
+SMS = 132
+
+
+def g2l_lp(l: int) -> int:
+    """The latents padded to the tensor-core route's bucket."""
+    return 16 if l <= 16 else (32 if l <= 32 else 64)
+
+
+def _g2l_mma_smem(l: int, d: int, dv: int) -> int:
+    return g2l_lp(l) * (d + dv) * 2 + G2L_WARPS * (G2L_STAGES + 1) * G2L_SLOT
+
+
+def g2l_path(dtype: torch.dtype, l: int, d: int, dv: int) -> int:
+    """The tensor-core route for bf16 with D and Dv multiples of 64 whose
+    K, V and ring fit in shared memory; else the CUDA-core route."""
+    if (dtype == torch.bfloat16 and 1 <= l <= MAX_LATENTS and d > 0
+            and dv > 0 and d % G2L_CHUNK == 0 and dv % G2L_CHUNK == 0
+            and _g2l_mma_smem(l, d, dv) <= _build.SMEM_LIMIT):
+        return G2L_MMA
+    return G2L_SIMT
+
+
+def g2l_smem(path: int, l: int, d: int, dv: int) -> int:
+    """Dynamic shared memory of a launch: K and V in bf16 padded to the
+    bucket, and the warps' ring and output slots (tensor cores); K, V, a
+    q row a warp and a probability row a warp in fp32 (CUDA cores)."""
+    if path == G2L_MMA:
+        return _g2l_mma_smem(l, d, dv)
+    return 4 * (l * d + l * dv + G2L_SIMT_WARPS * d
+                + G2L_SIMT_WARPS * MAX_LATENTS)
+
+
+def g2l_tiles_per_warp(b: int, n: int) -> int:
+    """16-row tiles each warp of a tensor-core block takes in turn: 1
+    while the grid has fewer than two blocks an SM, up to 4."""
+    blocks = b * -(-n // (16 * G2L_WARPS))
+    return max(1, min(4, blocks // (2 * SMS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _g2l_route(dtype: torch.dtype, l: int, d: int, dv: int) -> int:
+    """The route of a launch, its shared memory checked (a launch shape
+    repeats every call: worked out once)."""
+    path = g2l_path(dtype, l, d, dv)
+    _build.check_smem(g2l_smem(path, l, d, dv),
+                      f"grid_to_latent K/V of {l}x({d}+{dv})")
+    return path
+
+
+def g2l_rows_per_block(path: int, b: int, n: int) -> int:
+    if path == G2L_MMA:
+        return 16 * G2L_WARPS * g2l_tiles_per_warp(b, n)
+    return G2L_SIMT_ROWS
 
 
 def _check(q, k, v):
@@ -95,17 +169,21 @@ def grid_to_latent_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, n, d = q.shape
     l, dv = v.shape[1], v.shape[2]
     _check_latents(l, "grid_to_latent")
+    path = _g2l_route(q.dtype, l, d, dv)
+    if path == G2L_MMA and any(t.data_ptr() % 16 for t in (q, k, v)):
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     lib = _build.load_library()
-    _build.check_smem(lib.gt_g2l_smem(l, d, dv),
-                      f"grid_to_latent K/V of {l}x({d}+{dv})")
     o = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
     lse = _stats(q, n, with_stats)
     rc = lib.gt_grid_to_latent(
-        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), _ptr(lse), b, n, l, d, dv, 1.0 / math.sqrt(d),
-        _build.stream_ptr(q))
-    _build.check(rc, "grid_to_latent kernel")
+        path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), _ptr(lse), b, n, l, d, dv,
+        1.0 / math.sqrt(d), _build.stream_ptr(q))
+    if rc:
+        _build.check(rc, f"grid_to_latent kernel ({G2L_NAMES[path]})")
     launches_g2l += 1
+    g2l_path_launches[path] += 1
     if with_stats:
         launches_g2l_lse += 1
         return o, lse

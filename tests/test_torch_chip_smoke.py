@@ -78,7 +78,8 @@ def test_bound_counts_bytes_and_operations(rng):
         call, torch.float32, torch.Generator().manual_seed(0), dev="cpu")
     assert case["bytes"] == 4 * (2 * 16 * 8 + 2 * 4 * 8 * 2 + 2 * 16 * 8)
     assert math.isclose(case["ops"], 2.0 * 2 * 16 * 4 * 16)
-    assert case["controls"] == []
+    assert [c["desc"] for c in case["controls"]] == [
+        "the last latent dropped", "K/V of samples 0 and 1 swapped"]
 
 
 def test_bound_counts_nine_taps_for_the_up_conv():
@@ -229,6 +230,73 @@ def test_backward_controls_exceed_the_tolerances(kname):
         assert math.isclose(case["ops"], 2.0 * 4 * 16 * 16 * 9 * 8 * 8)
 
 
+# The forward upfirdn launches of the path, by label: G's blur (with and
+# without the fused bias + lrelu epilogue), G's 3-channel skip upsample,
+# D's blur-pool and decimated skip.
+UPFIRDN_FORWARDS = {
+    "blur": dict(H=16, C=8, up=1, pads=(2, 1, 2, 1)),
+    "blur +bias lrelu": dict(H=16, C=8, up=1, pads=(2, 1, 2, 1),
+                             act="lrelu"),
+    "skip up": dict(H=8, C=3, up=2, pads=(2, 1, 2, 1)),
+    "blur-pool": dict(H=16, C=8, up=1, down=1, pads=(2, 2, 2, 2), gain=1.0),
+    "skip down": dict(H=16, C=8, up=1, down=2, pads=(1, 1, 1, 1), gain=1.0),
+}
+
+
+@pytest.mark.parametrize("label", sorted(UPFIRDN_FORWARDS))
+def test_forward_upfirdn_controls_exceed_the_tolerances(label):
+    """The upfirdn forward's planted faults (one tap dropped; the ramp
+    filter not flipped, on the ramp case the kernel also runs) lie
+    outside the bf16 tolerance on the plain outputs of every path
+    geometry, the fused epilogue's too; the epilogue case's plain version
+    applies lrelu(y + bias) * sqrt(2), and its library yardstick computes
+    the same."""
+    call = dict(kernel="upfirdn", label=label, B=4,
+                **UPFIRDN_FORWARDS[label])
+    case = chip_smoke.build_case(
+        call, torch.float32, torch.Generator().manual_seed(0), dev="cpu")
+    assert [c["desc"] for c in case["controls"]] == [
+        "tap (1, 1) dropped", "ramp filter not flipped"]
+    ref = case["plain"]()
+    for ctl in case["controls"]:
+        base = ctl["plain"]() if "plain" in ctl else ref
+        tol = chip_smoke.KERNEL_TOL["bfloat16"] * float(base.abs().max())
+        err = float((ctl["fault"]() - base).abs().max())
+        assert err > tol, (ctl["desc"], err, tol)
+    lib = case["library"]().permute(0, 2, 3, 1)
+    np.testing.assert_allclose(lib.numpy(), ref.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    if "act" in call:
+        assert float(ref.min()) < 0 < float(ref.max())
+        bare = chip_smoke.build_case(
+            dict(call, act=None), torch.float32,
+            torch.Generator().manual_seed(0), dev="cpu")
+        assert case["bytes"] == bare["bytes"] + 4 * call["C"]
+
+
+@pytest.mark.parametrize("lk", [16, 32])
+def test_grid_to_latent_forward_controls_exceed_the_bf16_tolerance(lk):
+    """The grid->latent forward's planted faults (the last latent dropped;
+    the keys and values of samples 0 and 1 swapped, a fault batch 1
+    cannot show) lie outside the bf16 tolerance at the path's latent
+    counts; batch 1 carries no swap control."""
+    call = dict(kernel="grid_to_latent", label="t", B=8, Lq=256, Lk=lk,
+                D=64, Dv=64, lse=True)
+    case = chip_smoke.build_case(
+        call, torch.float32, torch.Generator().manual_seed(0), dev="cpu")
+    ref = case["plain"]()[0]
+    tol = chip_smoke.KERNEL_TOL["bfloat16"] * float(ref.abs().max())
+    descs = [c["desc"] for c in case["controls"]]
+    assert descs[:2] == ["the last latent dropped",
+                         "K/V of samples 0 and 1 swapped"]
+    for ctl in case["controls"][:2]:
+        err = float((ctl["fault"]() - ref).abs().max())
+        assert err > tol, (ctl["desc"], err, tol)
+    one = chip_smoke.build_case(dict(call, B=1), torch.float32,
+                                torch.Generator().manual_seed(0), dev="cpu")
+    assert not any("swapped" in c["desc"] for c in one["controls"])
+
+
 def test_ptxas_summary_reads_registers_and_spills():
     """The smoke reports each kernel's registers and spills from the
     build's ``-Xptxas -v`` log, by demangled name."""
@@ -273,7 +341,9 @@ def test_demangled_name_keeps_integer_template_arguments():
 # kernel, call shape, the controls each case must carry
 ATTENTION_CONTROLS = {
     "grid_to_latent": (dict(B=2, Lq=64, Lk=4, D=16, Dv=8),
-                       ["lse = max without log(den)"]),
+                       ["the last latent dropped",
+                        "K/V of samples 0 and 1 swapped",
+                        "lse = max without log(den)"]),
     "latent_to_grid": (dict(B=2, Lq=4, Lk=64, D=16, Dv=8),
                        ["drop-one-chunk", "lse = max without log(den)"]),
     "grid_to_latent_bwd": (dict(B=2, Lq=64, Lk=4, D=16, Dv=8),
