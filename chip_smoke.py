@@ -8,10 +8,13 @@ In order:
 2. builds the kernels from ``gansformer_tpu_torch/csrc``, prints each
    kernel's registers and spills (ptxas; it fails where a kernel of
    ``NO_SPILL`` spills) and fails unless the SASS of the modconv wgmma
-   kernels, forward and backward, holds HGMMA (``cuobjdump -sass``);
+   kernels, forward and backward, holds HGMMA and that of the attention
+   tensor-core kernels (grid->latent, latent->grid forward and backward)
+   HMMA (``cuobjdump -sass``);
 3. serving.  First the library's tile and shared memory of each modconv
    forward launch against the wrapper's, and its route, tile and shared
-   memory of each upfirdn and grid->latent launch.  For every kernel
+   memory of each upfirdn and grid->latent launch, and its route, tile,
+   spans and ring of each latent->grid launch.  For every kernel
    launch of the
    serve run below (one ``synthesize`` of ffhq256-duplex at each of batch
    1, 2, 4 and 8, bf16), and for the flagship shapes in fp32 too: runs
@@ -20,22 +23,27 @@ In order:
    plain version and one library call computing the same function (the
    yardstick), each the median of three runs, and computes the least
    time the card could take (the bound).  Planted faults the tolerance
-   must reject: latent_to_grid with one chunk dropped where it splits n
-   into chunks; grid_to_latent with the last latent dropped and with the
+   must reject: latent_to_grid with one span of keys dropped where the
+   tensor-core launch splits n into spans and one tile where n spans
+   several (one 256-key chunk on the fp32 route); grid_to_latent with the
+   last latent dropped and with the
    keys and values of samples 0 and 1 swapped; upfirdn with one tap
    dropped and, on a ramp filter the kernel also runs, with the filter
    not flipped; the modconv forward with the styles of samples 0 and 1
    swapped, with its middle tap dropped and, where the launch splits its
    contraction, with one split's partial dropped.  Then every blur launch
    of the synthesize at batch 8 once more with the fused bias + lrelu
-   epilogue, and upfirdn's general route once at a 3x3 filter;
+   epilogue, upfirdn's general route once at a 3x3 filter, and the
+   attention tensor-core kernels once each at a ragged shape no preset
+   makes (grid->latent at n 200, L 20; latent->grid forward with lse and
+   backward at n 1000, L 20, three spans, a ragged last tile);
 4. serves ffhq256-duplex at full width from a random init (bf16):
    ``map_seeds`` + ``synthesize`` over buckets 1, 2, 4 and 8 with mixed
    psi, with the launch counters reset just before and read just after;
    checks the images are finite and the counters moved by exactly the
-   launches the path makes per synthesize (and the upfirdn and
-   grid->latent launches by the routes the plan gives: tile or small
-   channel, tensor cores in bf16); measures images/s;
+   launches the path makes per synthesize (and the upfirdn,
+   grid->latent and latent->grid launches by the routes the plan gives:
+   tile or small channel, tensor cores in bf16); measures images/s;
 5. compares the card's images (fp32 and bf16 kernels) with the plain path
    on the host CPU (fp32) at batch 2 and noise off: a wrapper never routes
    a CUDA tensor to its plain version, so the host run is the plain path;
@@ -58,8 +66,10 @@ In order:
    the adjoint with its filter not flipped (at the path's symmetric
    filter that changes nothing, so each adjoint geometry also runs with
    an asymmetric filter), the attention backward with one chunk's
-   partial dropped (dk/dv of grid->latent, dq of latent->grid) and with
-   its row correction delta left out, and lse without log(den);
+   partial dropped (dk/dv of grid->latent; dq of latent->grid: one
+   span's partial and one tile on the tensor cores, one 64-key chunk in
+   fp32) and with its row correction delta left out, and lse without
+   log(den);
 7. drives ``d_step`` + ``g_step`` with the counters reset just before and
    read just after each, and checks them (and the launches that wrote
    lse) against the launch plan; then 3 more alternating iterations:
@@ -354,9 +364,10 @@ def plan_lse_counts(calls, phase):
 
 
 def plan_path_counts(calls, dtype_name):
-    """Of the plan's upfirdn launches (forward and adjoint) and
-    grid->latent launches, how many each route takes in ``dtype_name``
-    (the keys of ``ops.path_launch_counts``)."""
+    """Of the plan's upfirdn launches (forward and adjoint),
+    grid->latent launches and latent->grid launches (forward and
+    backward), how many each route takes in ``dtype_name`` (the keys of
+    ``ops.path_launch_counts``)."""
     import torch
 
     from gansformer_tpu_torch.ops import cuda_attention, cuda_upfirdn
@@ -365,7 +376,14 @@ def plan_path_counts(calls, dtype_name):
     out = {f"upfirdn_{n}": 0 for n in cuda_upfirdn.PATH_NAMES.values()}
     out.update({f"grid_to_latent_{n}": 0
                 for n in cuda_attention.G2L_NAMES.values()})
+    for kname in ("latent_to_grid", "latent_to_grid_bwd"):
+        out.update({f"{kname}_{n}": 0
+                    for n in cuda_attention.L2G_NAMES.values()})
     for c in calls:
+        if c["kernel"] in ("latent_to_grid", "latent_to_grid_bwd"):
+            path = l2g_call_plan(c, dtype)[0]
+            out[f"{c['kernel']}_{cuda_attention.L2G_NAMES[path]}"] += 1
+            continue
         if c["kernel"] in ("upfirdn", "upfirdn_adjoint"):
             up, down = c["up"], c.get("down", 1)
             if c["kernel"] == "upfirdn_adjoint":
@@ -376,6 +394,16 @@ def plan_path_counts(calls, dtype_name):
             path = cuda_attention.g2l_path(dtype, c["Lk"], c["D"], c["Dv"])
             out[f"grid_to_latent_{cuda_attention.G2L_NAMES[path]}"] += 1
     return out
+
+
+def l2g_call_plan(call, dtype):
+    """The wrapper's plan (``cuda_attention.l2g_plan``) of a latent->grid
+    launch, forward or backward."""
+    from gansformer_tpu_torch.ops import cuda_attention
+
+    return cuda_attention.l2g_plan(dtype, call["B"], call["Lk"], call["Lq"],
+                                   call["D"], call["Dv"],
+                                   bwd=call["kernel"] == "latent_to_grid_bwd")
 
 
 def check_path_counts(got, calls, dtype_name, what):
@@ -518,8 +546,10 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
     dict with ``desc``, the output index ``out`` it perturbs and ``fault``
     (what a broken kernel would give), and optionally its own ``kernel``
     and ``plain`` (a control on other inputs of the same launch).
-    latent_to_grid's fault drops one of its ``chunk``-key chunks, and the
-    attention backward's faults one of their ``chunk``-row chunks (the
+    latent_to_grid's faults, forward and backward, drop keys at each level
+    of the route's reduction (``l2g_key_drops``: a span and a tile on the
+    tensor cores, a ``chunk``-key chunk on the CUDA cores), and
+    grid_to_latent's backward faults one of its ``chunk``-row chunks (the
     kernel's own chunk unless given).  The attention backward's case also
     names the SDPA backend of its library call (``library_backend``)."""
     import numpy as np
@@ -740,7 +770,41 @@ def _without_middle_chunk(n: int, chunk: int, dev):
         return None
     c0 = (-(-n // chunk) // 2) * chunk
     return torch.cat([torch.arange(0, c0, device=dev),
-                      torch.arange(c0 + chunk, n, device=dev)])
+                      torch.arange(min(n, c0 + chunk), n, device=dev)])
+
+
+def l2g_key_drops(call, dtype, dev, chunk=None):
+    """(desc, kept key indices) of the planted faults of a latent->grid
+    launch, forward or backward, at each level of its reduction over the
+    keys.  Tensor-core route (the wrapper's plan): the middle span
+    dropped where the launch splits n into spans, and the middle tile
+    where n spans more than one tile.  CUDA-core route: the middle
+    ``chunk``-key chunk (the library's own chunk unless given) where n
+    spans more than one."""
+    from gansformer_tpu_torch.ops import _build, cuda_attention
+
+    bwd = call["kernel"] == "latent_to_grid_bwd"
+    n = call["Lk"]
+    path, _, kt, tps, spans, _, _ = l2g_call_plan(call, dtype)
+    if path == cuda_attention.L2G_SIMT:
+        if not chunk:
+            lib = _build.load_library()
+            chunk = lib.gt_attn_bwd_rows() if bwd else lib.gt_attn_chunk()
+        keep = _without_middle_chunk(n, chunk, dev)
+        desc = ("dq without one key chunk's partial" if bwd
+                else "drop-one-chunk")
+        return [] if keep is None else [(desc, keep)]
+    drops = []
+    if spans > 1:
+        span = tps * kt
+        keep = _without_middle_chunk(n, span, dev)
+        drops.append((f"dq without one span's partial ({span} keys)" if bwd
+                       else f"one span of {span} keys dropped", keep))
+    keep = _without_middle_chunk(n, kt, dev)
+    if keep is not None:
+        drops.append((f"dq without one {kt}-key tile" if bwd
+                      else f"one {kt}-key tile dropped", keep))
+    return drops
 
 
 def _attention_case(call, dtype, randn, dev, chunk):
@@ -788,12 +852,11 @@ def _attention_case(call, dtype, randn, dev, chunk):
                 desc="K/V of samples 0 and 1 swapped", out=0,
                 fault=lambda: attention_plain(q, k[swap], v[swap])))
         if kname == "latent_to_grid":
-            keep = _without_middle_chunk(
-                lk, chunk or _build.load_library().gt_attn_chunk(), dev)
-            if keep is not None:
-                controls.append(dict(
-                    desc="drop-one-chunk", out=0,
-                    fault=lambda: attention_plain(q, k[:, keep], v[:, keep])))
+            controls += [dict(desc=desc, out=0,
+                              fault=lambda keep=keep: attention_plain(
+                                  q, k[:, keep], v[:, keep]))
+                         for desc, keep in l2g_key_drops(call, dtype, dev,
+                                                         chunk)]
         if lse:
             def max_alone():
                 s = torch.einsum("bnd,bld->bnl", q.float(), k.float())
@@ -809,9 +872,9 @@ def _attention_case(call, dtype, randn, dev, chunk):
             outputs=("out", "stat") if lse else ("out",), controls=controls)
     do = randn(b, lq, dv).to(dtype)
     o, lse = attention_fwd_stats_plain(q, k, v)
-    chunk = chunk or _build.load_library().gt_attn_bwd_rows()
     library, backend = library_attention_bwd(q, k, v, do)
     if kname == "grid_to_latent_bwd":
+        chunk = chunk or _build.load_library().gt_attn_bwd_rows()
         args = (q, k, v, lse, do)
         # on the card the kernel rebuilds P from the lse the forward kernel
         # wrote, the plain version from its own
@@ -839,12 +902,11 @@ def _attention_case(call, dtype, randn, dev, chunk):
         delta = attention_delta(o, do)
         args = (q, k, v, lse, do, delta)
         kern = lambda: cuda_attention.latent_to_grid_bwd_cuda(*args)  # noqa
-        keep = _without_middle_chunk(lk, chunk, dev)
-        if keep is not None:
-            controls.append(dict(
-                desc="dq without one key chunk's partial", out=0,
-                fault=lambda: attention_bwd_plain(
-                    q, k[:, keep], v[:, keep], lse, do, delta)[0]))
+        controls += [dict(desc=desc, out=0,
+                          fault=lambda keep=keep: attention_bwd_plain(
+                              q, k[:, keep], v[:, keep], lse, do, delta)[0])
+                     for desc, keep in l2g_key_drops(call, dtype, dev,
+                                                     chunk)]
         zero = torch.zeros_like(delta)
         controls += [dict(desc=f"{name} with delta = 0", out=i,
                           fault=lambda i=i: attention_bwd_plain(
@@ -1501,9 +1563,10 @@ def ptxas_summary(log: str):
     return out
 
 
-def sass_hgmma(lib_path: str):
-    """{kernel: HGMMA instructions} of each kernel in the built library's
-    SASS (``cuobjdump -sass``): the proof that a kernel issues wgmma."""
+def sass_counts(lib_path: str, opcode: str):
+    """{kernel: instructions of ``opcode``} of each kernel in the built
+    library's SASS (``cuobjdump -sass``): HGMMA is the proof that a kernel
+    issues wgmma, HMMA that it issues mma.sync."""
     import re
 
     from gansformer_tpu_torch.ops import _build
@@ -1519,7 +1582,7 @@ def sass_hgmma(lib_path: str):
         if m:
             name = _demangled_name(m.group(1))
             counts.setdefault(name, 0)
-        elif name and "HGMMA" in line:
+        elif name and re.search(rf"\b{opcode}\.", line):
             counts[name] += 1
     return counts
 
@@ -1581,8 +1644,10 @@ def check_fwd_configs(calls):
 
 
 def check_attn_ufd_configs(calls):
-    """The built library's plan (route, tile, shared memory) of every
-    upfirdn launch (forward and adjoint) and every grid->latent launch of
+    """The built library's plan (route, tile, shared memory; for
+    latent->grid also the tiles a span, the spans and the ring's stages)
+    of every upfirdn launch (forward and adjoint), every grid->latent
+    launch and every latent->grid launch (forward and backward) of
     ``calls`` agrees with the wrapper's, in both dtypes."""
     import ctypes
 
@@ -1613,6 +1678,12 @@ def check_attn_ufd_configs(calls):
                         ca.g2l_tiles_per_warp(b, n) if mma else 0,
                         ca.g2l_rows_per_block(path, b, n),
                         ca.g2l_smem(path, l, d, dv))
+            elif c["kernel"] in ("latent_to_grid", "latent_to_grid_bwd"):
+                got = (ctypes.c_int * 7)()
+                fn = (lib.gt_l2g_plan if c["kernel"] == "latent_to_grid"
+                      else lib.gt_l2g_bwd_plan)
+                fn(code, c["B"], c["Lk"], c["Lq"], c["D"], c["Dv"], got)
+                want = l2g_call_plan(c, dtype)
             else:
                 continue
             if tuple(got) != want:
@@ -1621,12 +1692,14 @@ def check_attn_ufd_configs(calls):
 
 
 # The kernels of this round's redesigns: ptxas must report no spill in
-# them, and those that run wgmma must show HGMMA in their SASS.
+# them, those that run wgmma must show HGMMA in their SASS, and those
+# that run mma.sync HMMA.
 NO_SPILL = ("fwd_wgmma_kernel", "fwd_reduce_kernel", "fwd_smallk_kernel",
             "dx_wgmma_kernel", "dw_wgmma_kernel", "dx_smallk_kernel",
             "dw_smallk_kernel", "g2l_mma_kernel", "ufd_tile_kernel",
-            "ufd_smallc_kernel")
+            "ufd_smallc_kernel", "l2g_mma_kernel", "l2g_bwd_mma_kernel")
 WGMMA_KERNELS = ("fwd_wgmma_kernel", "dx_wgmma_kernel", "dw_wgmma_kernel")
+MMA_KERNELS = ("g2l_mma_kernel", "l2g_mma_kernel", "l2g_bwd_mma_kernel")
 # The presets beside ffhq256-duplex, each driven once at its new launch
 # shapes; bedroom256-duplex is ffhq256-duplex's ModelConfig field for
 # field.
@@ -1687,8 +1760,10 @@ def synthesize_once(cfg, calls):
 def check_general_route(peaks):
     """upfirdn's general route, which no preset launch takes, held once at
     a shape only it takes (a 3x3 filter), with its routes counted; and
-    grid->latent's tensor-core kernel once at a shape no preset makes (n
-    not a multiple of 16, L padded from 20 to 32)."""
+    the attention tensor-core kernels once each at a shape no preset
+    makes: grid->latent at n not a multiple of 16, L padded from 20 to
+    32; latent->grid, forward and backward, at n 1000 (a ragged last
+    tile, three spans at batch 3) with L padded from 20 to 32."""
     from gansformer_tpu_torch import ops
 
     call = dict(kernel="upfirdn", label="b64 3x3 filter (general route)",
@@ -1712,6 +1787,21 @@ def check_general_route(peaks):
     print("grid->latent's tensor-core kernel at a row tail and a latent "
           "count off its buckets, bf16:", flush=True)
     check_kernels([tail], "bfloat16", peaks)
+    l2g = dict(kernel="latent_to_grid", label="n 1000, L 20 (tails)", B=3,
+               Lq=20, Lk=1000, D=128, Dv=256, lse=True)
+    l2g_bwd = dict(l2g, kernel="latent_to_grid_bwd", lse=False)
+    print("latent->grid's tensor-core kernels, forward and backward, at a "
+          "ragged last tile, several spans and a latent count off its buckets "
+          f"(plans {l2g_call_plan(l2g, torch.bfloat16)}, "
+          f"{l2g_call_plan(l2g_bwd, torch.bfloat16)}), bf16:", flush=True)
+    check_attn_ufd_configs([l2g, l2g_bwd])
+    ops.reset_launch_counts()
+    check_kernels([l2g, l2g_bwd], "bfloat16", peaks)
+    got = {k: v for k, v in ops.path_launch_counts().items()
+           if k.startswith("latent_to_grid")}
+    if got["latent_to_grid_simt"] or got["latent_to_grid_bwd_simt"] or \
+            not (got["latent_to_grid_mma"] and got["latent_to_grid_bwd_mma"]):
+        fail(f"the ragged latent->grid launches took the routes {got}")
 
 
 def preset_phase(name, peaks, held):
@@ -1819,12 +1909,13 @@ def main() -> int:
     for line in log.splitlines():
         if "serialized" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
-    hgmma = sass_hgmma(_build.build_info["path"])
-    for kname in WGMMA_KERNELS:
-        found = {k: v for k, v in hgmma.items() if k.startswith(kname)}
-        if not found or not all(found.values()):
-            fail(f"{kname}: no HGMMA in the SASS ({found})")
-        print(f"  sass: HGMMA instructions {found}", flush=True)
+    for opcode, knames in (("HGMMA", WGMMA_KERNELS), ("HMMA", MMA_KERNELS)):
+        counts = sass_counts(_build.build_info["path"], opcode)
+        for kname in knames:
+            found = {k: v for k, v in counts.items() if k.startswith(kname)}
+            if not found or not all(found.values()):
+                fail(f"{kname}: no {opcode} in the SASS ({found})")
+            print(f"  sass: {opcode} instructions {found}", flush=True)
 
     # ---- serving ----------------------------------------------------------
     cfg = get_preset("ffhq256-duplex")

@@ -29,13 +29,35 @@
 //     (one per lane) and its probabilities in a per-warp smem row,
 //     rounded to the value dtype before the mix.
 //
-// latent_to_grid  (replaces _latent_to_grid_kernel via _latent_to_grid_fwd):
-//   q [B, L, D] latents, k/v [B, n, D|Dv], softmax over the long n axis.  The
+// latent_to_grid  (replaces gansformer_tpu/ops/pallas_attention.py
+//   _latent_to_grid_kernel via _latent_to_grid_fwd -> pl.pallas_call):
+//   q [B, L, D] latents, k/v [B, n, D|Dv], softmax over the long n axis.
+//   Bound on this card: bytes.  k and v are read once, 2 (D + Dv) bytes a
+//   key, against 2 L (D + Dv) operations a key: 16 a byte at L = 16,
+//   against Hopper's ~295, so the least time is the bytes over 3.35 TB/s
+//   (0.05 ms for the 168 MB of ffhq256's b128 launch at batch 8).  The
 //   TPU carries the online-softmax state (m, s, acc) across a sequential
-//   grid; Hopper blocks run in no order, so n is split into chunks: each
-//   block writes a partial (m, s, acc[L, Dv]) in fp32 for its chunk, and a
-//   second small kernel combines the partials.  Bound: bytes (k and v read
-//   once).
+//   grid; Hopper blocks run in no order, so n is split into spans, each
+//   block carrying (m, s, acc) over its span's tiles and writing them in
+//   fp32 for a combine kernel's fixed-order sum (deterministic), or, with
+//   one span (the small grids), o and lse itself.  Two routes (l2g_path):
+//   * l2g_mma_kernel<LP> (bf16, L <= 32, D and Dv multiples of 64 up to
+//     512: every preset launch): K and V tiles stream through a cp.async
+//     ring (key_tiling in hopper.cuh picks the keys a tile by D + Dv: 32,
+//     or 16 at L = 32 with D = 512); logits and the mix on mma.sync
+//     m16n8k16.  mma.sync and not wgmma: at 16 operations a byte the
+//     tensor cores are not the limit (mma.sync runs an order of magnitude
+//     above what the bytes allow), and a 16-latent M dimension is what
+//     mma.sync's 16-row tiles fit.  The TPU keeps p in fp32 in p @ v; the
+//     tensor cores round their operands to bf16, so P enters as hi + lo
+//     bf16 terms (split_bf16): two products, P carried to ~2^-17, where
+//     one rounding would move o by ~1e-4 of its max, a rounding point the
+//     TPU kernel lacks (tests/test_torch_l2g_plan.py holds an emulation of
+//     this decomposition to the Pallas kernel within 1e-5 of max |o|, and
+//     shows the one-rounding variant outside that).
+//   * l2g_partial_kernel + l2g_combine_kernel (fp32, other shapes): each
+//     256-key chunk writes (m, s, acc[L, Dv]) in fp32 on the CUDA cores,
+//     the combine sums the chunks.
 //
 // Both forwards take an optional fp32 ``lse`` [B, Lq] output, the row
 // statistic max + log(denominator), in natural-log units, that the
@@ -63,6 +85,10 @@ constexpr int kQStages = 3;
 constexpr int kQChunk = 64;
 constexpr int kSlot = 16 * kQChunk * 2;
 constexpr int kSms = 132;
+
+// latent_to_grid routes: the tensor-core kernel (l2g_mma_kernel, bf16 at
+// the shapes of key_shape_ok) and the CUDA-core kernels.
+enum { kL2GSimt = 0, kL2GMma = 1 };
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -118,19 +144,6 @@ __global__ void __launch_bounds__(256)
     }
     __syncwarp();
   }
-}
-
-// Byte offset of 16-byte chunk `c` of row `r` in a shared-memory operand
-// whose rows are `row_bytes` long (a multiple of 128): the chunk index is
-// XOR-ed with r % 8, so the 8 rows of an ldmatrix 8 x 8 matrix, and the 8
-// chunks of one row, fall in distinct banks.
-__device__ __forceinline__ int swz(int r, int c, int row_bytes) {
-  return r * row_bytes + ((c ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <int LP>
@@ -416,6 +429,241 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// latent_to_grid on the tensor cores (bf16; key_shape_ok).  One block of
+// kKeyWarps warps per (span of tiles, batch entry); Q [LP, D] resident
+// (swizzled, rows past L zero), each tile's K [kt, D] and V [kt, Dv] rows
+// landed whole in one slot of a `stages`-slot cp.async ring (16-byte
+// copies, zero-filled past n, swizzled).  Per tile, three phases between
+// barriers:
+//   1. logits: S^T[keys, latents] = K Q^T on mma.sync m16n8k16 (K the A
+//      operand, Q the B operand; bf16 in, fp32 out), one 16-key x
+//      16-latent block a warp, scaled and written to Ss [LP, kt] (keys
+//      past n at -inf);
+//   2. the online softmax of each latent over the tile, kept per block in
+//      fp32: 256 / LP threads a latent row, tile max and sum by shuffles,
+//      m and s in registers, corr = exp(m_prev - m_new); P = exp(s - m_new)
+//      written as hi + lo bf16 [LP, kt + pad] (split_bf16), so P V in the
+//      tensor cores carries P to fp32's precision as the TPU's fp32 p @ v
+//      does (one bf16 rounding of P would be a rounding point the TPU
+//      kernel lacks);
+//   3. the mix: warp w owns Dv columns [64 w, 64 w + 64): acc[LP, 64] fp32
+//      in registers, rescaled by corr, += P_hi V + P_lo V (P through
+//      ldmatrix, V through ldmatrix.trans).
+// With one span the block writes o = acc / s (bf16, 16 bytes a thread
+// through a staging tile) and lse = m + log(s); else (m, s, acc) of its
+// span in fp32 for l2g_combine_kernel's fixed-order sum over spans.
+template <int LP>
+__global__ void __launch_bounds__(kKeyWarps * 32, 1)
+    l2g_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   float* __restrict__ m_part, float* __restrict__ s_part,
+                   float* __restrict__ acc_part, int n, int L, int D,
+                   int Dv, float scale, int kt, int stages, int tps) {
+  constexpr int MT = LP / 16;                 // 16-latent row tiles
+  constexpr int TPR = kKeyWarps * 32 / LP;    // softmax threads a latent
+  extern __shared__ __align__(128) unsigned char l2g_smem_raw[];
+  const int kv_bytes = kt * (D + Dv) * 2;
+  const int pstride = kt + kKeyPad;
+  unsigned char* ring = l2g_smem_raw;
+  unsigned char* Qs = ring + stages * kv_bytes;            // [LP, D]
+  float* Ss = reinterpret_cast<float*>(Qs + LP * D * 2);   // [LP, kt]
+  __nv_bfloat16* Phi = reinterpret_cast<__nv_bfloat16*>(Ss + LP * kt);
+  __nv_bfloat16* Plo = Phi + LP * pstride;                  // [LP, pstride]
+  float* corr_s = reinterpret_cast<float*>(Plo + LP * pstride);
+  float* fin_m = corr_s + LP;
+  float* fin_s = fin_m + LP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int sp = blockIdx.x, spans = gridDim.x, b = blockIdx.y;
+  const int tile0 = sp * tps;
+  const int ntiles = min(tps, (n + kt - 1) / kt - tile0);
+  load_latent_rows(Qs, q + (size_t)b * L * D, L, LP, D);
+  auto prefetch = [&](int j) {
+    if (j < ntiles) {
+      unsigned char* slot = ring + (j % stages) * kv_bytes;
+      load_key_tile(slot, slot + kt * D * 2, k, v, b, n, (tile0 + j) * kt,
+                    kt, D, Dv);
+    }
+    cp_async_commit();
+  };
+  for (int j = 0; j < stages - 1; ++j) prefetch(j);   // Q rides with tile 0
+
+  const int row = tid / TPR, sub = tid % TPR;   // this thread's softmax row
+  const bool mixer = warp * 64 < Dv;            // owns 64 columns of O
+  const int kgs = kt / 16;
+  float m_run = -INFINITY, s_run = 0.f;
+  float acc[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait_ring(stages);        // tile j has landed ...
+    __syncthreads();                   // ... for all, and slot j - 1 is free
+    prefetch(j + stages - 1);
+    const unsigned char* slot = ring + (j % stages) * kv_bytes;
+    const unsigned char* vslot = slot + kt * D * 2;
+    const int key0 = (tile0 + j) * kt;
+
+    // 1. logits of 16 keys x 16 latents a warp
+    for (int item = warp; item < kgs * MT; item += kKeyWarps) {
+      const int kg = item % kgs, lg = item / kgs;
+      // even and odd 16-deep steps in separate accumulators: four
+      // independent mma chains a warp
+      float s[2][2][4] = {};
+      for (int k2 = 0; k2 < D / 16; k2 += 2)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ks = k2 + h;
+        uint32_t a[4], bq[4];
+        ldmatrix_x4(a, smem_u32(slot + swz(kg * 16 + (lane & 15),
+                                           ks * 2 + (lane >> 4), D * 2)));
+        ldmatrix_x4(bq, smem_u32(Qs + swz(lg * 16 + (lane & 7) +
+                                              ((lane >> 4) << 3),
+                                          ks * 2 + ((lane >> 3) & 1),
+                                          D * 2)));
+        mma_m16n8k16(s[h][0], a, bq[0], bq[1]);
+        mma_m16n8k16(s[h][1], a, bq[2], bq[3]);
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kg * 16 + g + ((e >> 1) << 3);
+          const int lat = lg * 16 + t * 8 + 2 * tq + (e & 1);
+          Ss[lat * kt + key] = key0 + key < n
+                                   ? (s[0][t][e] + s[1][t][e]) * scale
+                                   : -INFINITY;
+        }
+    }
+    __syncthreads();
+
+    // 2. the online softmax over this tile, latent row `row`
+    {
+      const float* sr = Ss + row * kt;
+      float tmax = -INFINITY;
+      for (int i = sub; i < kt; i += TPR) tmax = fmaxf(tmax, sr[i]);
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_new = fmaxf(m_run, tmax);
+      const float corr = expf(m_run - m_new);
+      float tsum = 0.f;
+      for (int i = sub; i < kt; i += TPR) {
+        const float p = expf(sr[i] - m_new);
+        tsum += p;
+        split_bf16(p, Phi + row * pstride + i, Plo + row * pstride + i);
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
+      s_run = s_run * corr + tsum;
+      m_run = m_new;
+      if (sub == 0) corr_s[row] = corr;
+    }
+    __syncthreads();
+
+    // 3. O[:, 64 warp ..] = O * corr + P_hi V + P_lo V
+    if (mixer) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float c0 = corr_s[mt * 16 + g], c1 = corr_s[mt * 16 + g + 8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          acc[mt][t][0] *= c0;
+          acc[mt][t][1] *= c0;
+          acc[mt][t][2] *= c1;
+          acc[mt][t][3] *= c1;
+        }
+      }
+      for (int ks = 0; ks < kgs; ++ks) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int off = (mt * 16 + (lane & 15)) * pstride + ks * 16 +
+                          (lane >> 4) * 8;
+          ldmatrix_x4(ah[mt], smem_u32(Phi + off));
+          ldmatrix_x4(al[mt], smem_u32(Plo + off));
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bv[4];
+          const int vr = ks * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+          const int vcol = warp * 8 + np * 2 + (lane >> 4);
+          ldmatrix_x4_trans(bv, smem_u32(vslot + swz(vr, vcol, Dv * 2)));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_m16n8k16(acc[mt][2 * np], ah[mt], bv[0], bv[1]);
+            mma_m16n8k16(acc[mt][2 * np + 1], ah[mt], bv[2], bv[3]);
+            mma_m16n8k16(acc[mt][2 * np], al[mt], bv[0], bv[1]);
+            mma_m16n8k16(acc[mt][2 * np + 1], al[mt], bv[2], bv[3]);
+          }
+        }
+      }
+    }
+  }
+
+  cp_async_wait<0>();
+  if (sub == 0) {
+    fin_m[row] = m_run;
+    fin_s[row] = s_run;
+  }
+  __syncthreads();                     // the ring is free for staging
+  if (spans == 1) {
+    if (mixer) {
+      unsigned char* stage = ring + warp * LP * 128;      // [LP, 64] bf16
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r0 = mt * 16 + g;
+        const float s0 = fin_s[r0], s1 = fin_s[r0 + 8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          *reinterpret_cast<uint32_t*>(stage + swz(r0, t, 128) + tq * 4) =
+              pack_bf16(acc[mt][t][0] / s0, acc[mt][t][1] / s0);
+          *reinterpret_cast<uint32_t*>(stage + swz(r0 + 8, t, 128) +
+                                       tq * 4) =
+              pack_bf16(acc[mt][t][2] / s1, acc[mt][t][3] / s1);
+        }
+      }
+      __syncwarp();
+      for (int i = lane; i < LP * 8; i += 32) {
+        const int rr = i >> 3, ch = i & 7;
+        if (rr < L)
+          *reinterpret_cast<uint4*>(o + ((size_t)b * L + rr) * Dv +
+                                    warp * 64 + ch * 8) =
+              *reinterpret_cast<const uint4*>(stage + swz(rr, ch, 128));
+      }
+    }
+    if (lse != nullptr && tid < L)
+      lse[(size_t)b * L + tid] = fin_m[tid] + logf(fin_s[tid]);
+    return;
+  }
+  const size_t part = (size_t)b * spans + sp;
+  if (mixer) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + g + 8 * h;
+        if (r >= L) continue;
+        float* dst = acc_part + (part * L + r) * Dv + warp * 64 + 2 * tq;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          *reinterpret_cast<float2*>(dst + t * 8) =
+              make_float2(acc[mt][t][2 * h], acc[mt][t][2 * h + 1]);
+      }
+  }
+  if (tid < L) {
+    m_part[part * L + tid] = fin_m[tid];
+    s_part[part * L + tid] = fin_s[tid];
+  }
+}
+
 size_t g2l_simt_smem(int L, int D, int Dv) {
   return sizeof(float) *
          ((size_t)L * D + (size_t)L * Dv + kWarps * D + kWarps * kMaxL);
@@ -459,6 +707,28 @@ size_t l2g_smem(int L, int D) {
   return sizeof(float) * ((size_t)L * D + (size_t)L * kChunk + kWarps * D);
 }
 
+// Shared memory of l2g_mma_kernel beside its ring: Q, the logits, P as
+// hi + lo, and three per-latent rows (corr, final m and s).
+size_t l2g_mma_fixed(int lp, int kt, int D) {
+  return (size_t)lp * D * 2 + (size_t)lp * kt * 4 +
+         2 * (size_t)lp * (kt + kKeyPad) * 2 + 3 * (size_t)lp * 4;
+}
+
+KeyTiling l2g_tiling(int B, int n, int L, int D, int Dv) {
+  const int lp = key_lp(L);
+  return key_tiling([&](int kt) { return l2g_mma_fixed(lp, kt, D); },
+                    (D + Dv) * 2, B, n);
+}
+
+// latent_to_grid's route: the tensor cores for bf16 at the shapes they
+// take (their ring fits), else the CUDA-core kernels.
+int l2g_path(int dtype, int L, int D, int Dv) {
+  if (dtype == GT_DTYPE_BF16 && key_shape_ok(L, D, Dv) &&
+      l2g_tiling(1, 1, L, D, Dv).kt > 0)
+    return kL2GMma;
+  return kL2GSimt;
+}
+
 template <typename T>
 int g2l_launch(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int n, int L, int D, int Dv, float scale,
@@ -489,6 +759,19 @@ int g2l_mma_launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// The fixed-order sum over the partials of `parts` spans or chunks.
+template <typename T>
+int l2g_combine(const float* m_part, const float* s_part,
+                const float* acc_part, void* o, float* lse, int B, int parts,
+                int L, int Dv, cudaStream_t st) {
+  const long long total = (long long)B * L * Dv;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 132LL * 32) blocks = 132LL * 32;
+  l2g_combine_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
+      m_part, s_part, acc_part, (T*)o, lse, B, parts, L, Dv);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int LMAX>
 int l2g_launch(const void* q, const void* k, const void* v, void* o,
                float* lse, float* m_part, float* s_part, float* acc_part,
@@ -505,12 +788,29 @@ int l2g_launch(const void* q, const void* k, const void* v, void* o,
       D, Dv, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)B * L * Dv;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;
-  l2g_combine_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
-      m_part, s_part, acc_part, (T*)o, lse, B, nchunks, L, Dv);
-  return (int)cudaGetLastError();
+  return l2g_combine<T>(m_part, s_part, acc_part, o, lse, B, nchunks, L, Dv,
+                        st);
+}
+
+template <int LP>
+int l2g_mma_launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, float* m_part, float* s_part, float* acc_part,
+                   int B, int n, int L, int D, int Dv, float scale,
+                   cudaStream_t st) {
+  const KeyTiling t = l2g_tiling(B, n, L, D, Dv);
+  if (t.spans > 1 && (m_part == nullptr || s_part == nullptr ||
+                      acc_part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int err = set_smem(l2g_mma_kernel<LP>, (int)t.smem);
+  if (err != 0) return err;
+  l2g_mma_kernel<LP><<<dim3(t.spans, B), kKeyWarps * 32, t.smem, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, m_part, s_part,
+      acc_part, n, L, D, Dv, scale, t.kt, t.stages, t.tps);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || t.spans == 1) return (int)e;
+  return l2g_combine<__nv_bfloat16>(m_part, s_part, acc_part, o, lse, B,
+                                    t.spans, L, Dv, st);
 }
 
 template <typename T>
@@ -545,8 +845,23 @@ extern "C" void gt_g2l_plan(int dtype, int B, int n, int L, int D, int Dv,
   out[4] = (int)g2l_smem(path, L, D, Dv);
 }
 
-extern "C" long long gt_l2g_smem(int L, int D) {
-  return (long long)l2g_smem(L, D);
+// The plan of a latent_to_grid launch, for the wrapper's check: {path,
+// LP, keys a tile, tiles a span, spans, ring stages, dynamic shared
+// memory}; the CUDA-core route reports its chunk as the tile, one tile a
+// span, LP and stages 0.
+extern "C" void gt_l2g_plan(int dtype, int B, int n, int L, int D, int Dv,
+                            int* out) {
+  const int path = l2g_path(dtype, L, D, Dv);
+  if (path == kL2GMma) {
+    const KeyTiling t = l2g_tiling(B, n, L, D, Dv);
+    const int plan[7] = {path, key_lp(L), t.kt, t.tps, t.spans, t.stages,
+                         (int)t.smem};
+    for (int i = 0; i < 7; ++i) out[i] = plan[i];
+    return;
+  }
+  const int plan[7] = {path, 0, kChunk, 1, (n + kChunk - 1) / kChunk, 0,
+                       (int)l2g_smem(L, D)};
+  for (int i = 0; i < 7; ++i) out[i] = plan[i];
 }
 
 // `path` must be the route g2l_path gives (the wrapper's g2l_path).
@@ -572,13 +887,24 @@ extern "C" int gt_grid_to_latent(int path, int dtype, const void* q,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int gt_latent_to_grid(int dtype, const void* q, const void* k,
-                                 const void* v, void* o, float* lse,
-                                 float* m_part, float* s_part,
+// `path` must be the route l2g_path gives (the wrapper's l2g_plan); the
+// partials are those of the plan's spans (chunks on the CUDA-core route),
+// null where the tensor-core plan has one span.
+extern "C" int gt_latent_to_grid(int path, int dtype, const void* q,
+                                 const void* k, const void* v, void* o,
+                                 float* lse, float* m_part, float* s_part,
                                  float* acc_part, int B, int n, int L, int D,
                                  int Dv, float scale, void* stream) {
-  if (L < 1 || L > kMaxL) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > kMaxL || n < 1 || path != l2g_path(dtype, L, D, Dv))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (path == kL2GMma) {
+    if (L <= 16)
+      return l2g_mma_launch<16>(q, k, v, o, lse, m_part, s_part, acc_part, B,
+                                n, L, D, Dv, scale, st);
+    return l2g_mma_launch<32>(q, k, v, o, lse, m_part, s_part, acc_part, B,
+                              n, L, D, Dv, scale, st);
+  }
   if (dtype == GT_DTYPE_F32)
     return l2g_dispatch<float>(q, k, v, o, lse, m_part, s_part, acc_part, B,
                                n, L, D, Dv, scale, st);

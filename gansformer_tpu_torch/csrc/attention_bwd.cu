@@ -22,23 +22,39 @@
 //   body _latent_to_grid_bwd_kernel): q/do [B, L, D|Dv] latents, k/v
 //   [B, n, D|Dv] grid keys, softmax over n.  delta = rowsum(do * o) comes
 //   from the caller (computed outside, as the JAX package computes it
-//   outside its pallas_call).  One block per (64-key chunk, batch entry)
-//   keeps Q and dO in shared memory; each warp walks keys, forms the key's
-//   column of P and dS, and writes dv = P^T dO and dk = dS^T Q * scale for
-//   that key directly.  dq = dS K * scale is a sum over all n keys: the
-//   chunk's dS [L, chunk] stays in shared memory, each chunk writes an fp32
-//   partial [B, chunks, L, D], and the same fixed-order reduce sums them.
-//   Keys past n are never visited (the TPU masks its padded columns).
+//   outside its pallas_call).  dk and dv are per key; dq = dS K * scale is
+//   a sum over all n keys: each span of keys writes an fp32 partial
+//   [B, spans, L, D] and a fixed-order reduce sums them (one span writes
+//   dq itself).  Keys past n add nothing (the TPU masks its padded
+//   columns).  Two routes (l2g_bwd_path):
+//   * l2g_bwd_mma_kernel<LP> (bf16, L <= 32, D and Dv multiples of 64 up
+//     to 512: every preset launch): Q and dO resident in shared memory, K
+//     and V tiles through a cp.async ring (key_tiling in hopper.cuh: 32
+//     keys a tile, 16 at D = Dv = 512), each read from HBM once (the K
+//     tile in shared memory also feeds dq, where the CUDA-core kernel
+//     read k a second time); the five products on mma.sync m16n8k16.
+//     mma.sync and not wgmma: the kernel is bytes-bound (below), and
+//     M = 16 latents and 16-key tiles are what mma.sync's tiles fit.  The
+//     TPU keeps p and ds in fp32 in its products; the tensor cores round
+//     their operands to bf16, so P^T and dS^T enter as hi + lo bf16 terms
+//     (split_bf16): one rounding of each would move dq, dk, dv by ~2e-3
+//     of their max, hi + lo by fp32's own noise
+//     (tests/test_torch_l2g_plan.py holds an emulation of this
+//     decomposition to the Pallas kernel within 2e-5 of each output's max).
+//   * l2g_bwd_kernel + l2g_bwd_reduce_kernel (fp32, other shapes): one
+//     block per 64-key chunk (kRows) on the CUDA cores, each warp walking
+//     keys, dq through per-chunk partials.
 //
 // Bound: bytes.  q, k, v, do are read once and dq, dk, dv written once; the
 // five products of the flash backward are 2 Lq Lk (3 D + 2 Dv) flops, a
-// few dozen per byte at L = 16, far under Hopper's ridge.  This first
-// version runs on the fp32 FMA units with warp reductions; q/do (kernel 8)
-// and k (kernel 9) are read a second time for the chunk sums, mostly from
-// L2.
+// few dozen per byte at L = 16, far under Hopper's ridge (~295).  The
+// grid->latent backward (kernel 8) runs on the fp32 FMA units with warp
+// reductions; q/do are read a second time for its chunk sums, mostly
+// from L2.
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -47,6 +63,10 @@ constexpr int kWarps = 8;       // warps per block
 // Grid rows (keys) per block, both kernels: small enough that the path's
 // small grids (n = 256, 1024 at batch 8) still launch a few dozen blocks.
 constexpr int kRows = 64;
+// latent_to_grid backward routes: the tensor-core kernel
+// (l2g_bwd_mma_kernel, bf16 at the shapes of key_shape_ok, its keys a
+// tile from key_tiling) and the CUDA-core kernel on kRows-key chunks.
+enum { kL2GBwdSimt = 0, kL2GBwdMma = 1 };
 
 // Fixed-order sum over chunks of fp32 partials [B, chunks, M] -> out [B, M].
 template <typename T>
@@ -258,6 +278,278 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// latent_to_grid backward on the tensor cores (bf16; key_shape_ok).  One
+// block of kKeyWarps warps per (span of tiles, batch entry); Q [LP, D] and
+// dO [LP, Dv] resident (swizzled, rows past L zero), lse and delta in
+// shared memory; each tile's K and V rows landed whole in one slot of a
+// `stages`-slot cp.async ring, so k is read once for S, dP and dq.  Per
+// tile, two phases between barriers:
+//   1. one 16-key x 16-latent block a warp: S^T = K Q^T (depth D) and
+//      dP^T = V dO^T (depth Dv) on mma.sync m16n8k16 (fp32 out), then in
+//      registers P^T = exp(S^T scale - lse) (0 past n and past L) and
+//      dS^T = P^T (dP^T - delta); both written as hi + lo bf16
+//      (split_bf16) in the [key, latent] layout (the A operand of dV and
+//      dK) and dS also as [latent, key] (the A operand of dq);
+//   2. the products, every warp: 16-key x 64-column chunks of
+//      dV = P^T dO (dO through ldmatrix.trans) and dK = scale dS^T Q (Q
+//      through ldmatrix.trans), hi and lo one product each, each chunk
+//      rounded once to bf16, staged in the warp's 2 KB tile and written
+//      16 bytes a thread; and dq[LP, 64 warp ..] += dS K (K from the
+//      tile's slot through ldmatrix.trans) in fp32 registers across the
+//      span.
+// The span's dq is scaled once at the end and written in bf16 (one span)
+// or as an fp32 partial [B, spans, L, D] for l2g_bwd_reduce_kernel's
+// fixed-order sum.
+template <int LP>
+__global__ void __launch_bounds__(kKeyWarps * 32, 1)
+    l2g_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const __nv_bfloat16* __restrict__ dout,
+                       __nv_bfloat16* __restrict__ dq,
+                       float* __restrict__ dq_part,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int n, int L, int D,
+                       int Dv, float scale, int kt, int stages, int tps) {
+  constexpr int MT = LP / 16;
+  constexpr int AS = LP + kKeyPad;            // [key, latent] row stride
+  extern __shared__ __align__(128) unsigned char l2g_bwd_smem_raw[];
+  const int kv_bytes = kt * (D + Dv) * 2;
+  const int ds_stride = kt + kKeyPad;         // [latent, key] row stride
+  unsigned char* ring = l2g_bwd_smem_raw;
+  unsigned char* Qs = ring + stages * kv_bytes;             // [LP, D]
+  unsigned char* dOs = Qs + LP * D * 2;                      // [LP, Dv]
+  unsigned char* stg_all = dOs + LP * Dv * 2;                // [warps][2 KB]
+  __nv_bfloat16* PThi =
+      reinterpret_cast<__nv_bfloat16*>(stg_all + kKeyWarps * 2048);
+  __nv_bfloat16* PTlo = PThi + kt * AS;                      // [kt, AS]
+  __nv_bfloat16* dSThi = PTlo + kt * AS;
+  __nv_bfloat16* dSTlo = dSThi + kt * AS;
+  __nv_bfloat16* dShi = dSTlo + kt * AS;                     // [LP, kt+pad]
+  __nv_bfloat16* dSlo = dShi + LP * ds_stride;
+  float* lse_s = reinterpret_cast<float*>(dSlo + LP * ds_stride);
+  float* delta_s = lse_s + LP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int sp = blockIdx.x, spans = gridDim.x, b = blockIdx.y;
+  const int tile0 = sp * tps;
+  const int ntiles = min(tps, (n + kt - 1) / kt - tile0);
+  unsigned char* stg = stg_all + warp * 2048;                // [16, 64] bf16
+  load_latent_rows(Qs, q + (size_t)b * L * D, L, LP, D);
+  load_latent_rows(dOs, dout + (size_t)b * L * Dv, L, LP, Dv);
+  if (tid < LP) {
+    lse_s[tid] = tid < L ? lse[(size_t)b * L + tid] : 0.f;
+    delta_s[tid] = tid < L ? delta[(size_t)b * L + tid] : 0.f;
+  }
+  auto prefetch = [&](int j) {
+    if (j < ntiles) {
+      unsigned char* slot = ring + (j % stages) * kv_bytes;
+      load_key_tile(slot, slot + kt * D * 2, k, v, b, n, (tile0 + j) * kt,
+                    kt, D, Dv);
+    }
+    cp_async_commit();
+  };
+  for (int j = 0; j < stages - 1; ++j) prefetch(j);   // Q, dO ride with tile 0
+
+  const int kgs = kt / 16;
+  const bool dq_owner = warp * 64 < D;        // owns 64 columns of dq
+  float dqa[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[mt][t][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait_ring(stages);        // tile j has landed ...
+    __syncthreads();                   // ... for all, and slot j - 1 is free
+    prefetch(j + stages - 1);
+    const unsigned char* slot = ring + (j % stages) * kv_bytes;
+    const unsigned char* vslot = slot + kt * D * 2;
+    const int key0 = (tile0 + j) * kt;
+
+    // 1. S^T, dP^T, P^T and dS^T of 16 keys x 16 latents a warp
+    for (int item = warp; item < kgs * MT; item += kKeyWarps) {
+      const int kg = item % kgs, lg = item / kgs;
+      // even and odd 16-deep steps in separate accumulators: four
+      // independent mma chains a warp, summed below
+      float s2[2][2][4] = {}, dp2[2][2][4] = {};
+      const int br = lg * 16 + (lane & 7) + ((lane >> 4) << 3);
+      for (int k2 = 0; k2 < D / 16; k2 += 2)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ks = k2 + h;
+        uint32_t a[4], bb[4];
+        ldmatrix_x4(a, smem_u32(slot + swz(kg * 16 + (lane & 15),
+                                           ks * 2 + (lane >> 4), D * 2)));
+        ldmatrix_x4(bb, smem_u32(Qs + swz(br, ks * 2 + ((lane >> 3) & 1),
+                                          D * 2)));
+        mma_m16n8k16(s2[h][0], a, bb[0], bb[1]);
+        mma_m16n8k16(s2[h][1], a, bb[2], bb[3]);
+      }
+      for (int k2 = 0; k2 < Dv / 16; k2 += 2)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ks = k2 + h;
+        uint32_t a[4], bb[4];
+        ldmatrix_x4(a, smem_u32(vslot + swz(kg * 16 + (lane & 15),
+                                            ks * 2 + (lane >> 4), Dv * 2)));
+        ldmatrix_x4(bb, smem_u32(dOs + swz(br, ks * 2 + ((lane >> 3) & 1),
+                                           Dv * 2)));
+        mma_m16n8k16(dp2[h][0], a, bb[0], bb[1]);
+        mma_m16n8k16(dp2[h][1], a, bb[2], bb[3]);
+      }
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][e] = s2[0][t][e] + s2[1][t][e];
+          dp[t][e] = dp2[0][t][e] + dp2[1][t][e];
+        }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = kg * 16 + g + 8 * h;
+          const int lat = lg * 16 + t * 8 + 2 * tq;
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool live = key0 + key < n && lat + e < L;
+            p[e] = live ? expf(s[t][2 * h + e] * scale - lse_s[lat + e])
+                        : 0.f;
+            ds[e] = p[e] * (dp[t][2 * h + e] - delta_s[lat + e]);
+          }
+          __nv_bfloat16 ph[2], pl[2], dh[2], dl[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            split_bf16(p[e], &ph[e], &pl[e]);
+            split_bf16(ds[e], &dh[e], &dl[e]);
+            dShi[(lat + e) * ds_stride + key] = dh[e];
+            dSlo[(lat + e) * ds_stride + key] = dl[e];
+          }
+          const int at = key * AS + lat;
+          *reinterpret_cast<__nv_bfloat162*>(PThi + at) = __halves2bfloat162(ph[0], ph[1]);
+          *reinterpret_cast<__nv_bfloat162*>(PTlo + at) = __halves2bfloat162(pl[0], pl[1]);
+          *reinterpret_cast<__nv_bfloat162*>(dSThi + at) = __halves2bfloat162(dh[0], dh[1]);
+          *reinterpret_cast<__nv_bfloat162*>(dSTlo + at) = __halves2bfloat162(dl[0], dl[1]);
+        }
+    }
+    __syncthreads();
+
+    // 2a. dV and dK in 16-key x 64-column chunks
+    const int vchunks = Dv / 64;
+    for (int item = warp; item < kgs * (vchunks + D / 64);
+         item += kKeyWarps) {
+      const int kg = item % kgs, c = item / kgs;
+      const bool is_v = c < vchunks;
+      const int cc = is_v ? c : c - vchunks, width = is_v ? Dv : D;
+      const __nv_bfloat16* Ahi = is_v ? PThi : dSThi;
+      const __nv_bfloat16* Alo = is_v ? PTlo : dSTlo;
+      const unsigned char* Bs = is_v ? dOs : Qs;
+      float acc[8][4];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < MT; ++ks) {
+        uint32_t ah[4], al[4];
+        const int off = (kg * 16 + (lane & 15)) * AS + ks * 16 +
+                        (lane >> 4) * 8;
+        ldmatrix_x4(ah, smem_u32(Ahi + off));
+        ldmatrix_x4(al, smem_u32(Alo + off));
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bb[4];
+          const int r = ks * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+          const int col = cc * 8 + np * 2 + (lane >> 4);
+          ldmatrix_x4_trans(bb, smem_u32(Bs + swz(r, col, width * 2)));
+          mma_m16n8k16(acc[2 * np], ah, bb[0], bb[1]);
+          mma_m16n8k16(acc[2 * np + 1], ah, bb[2], bb[3]);
+          mma_m16n8k16(acc[2 * np], al, bb[0], bb[1]);
+          mma_m16n8k16(acc[2 * np + 1], al, bb[2], bb[3]);
+        }
+      }
+      const float mul = is_v ? 1.f : scale;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        *reinterpret_cast<uint32_t*>(stg + swz(g, t, 128) + tq * 4) =
+            pack_bf16(acc[t][0] * mul, acc[t][1] * mul);
+        *reinterpret_cast<uint32_t*>(stg + swz(g + 8, t, 128) + tq * 4) =
+            pack_bf16(acc[t][2] * mul, acc[t][3] * mul);
+      }
+      __syncwarp();
+      __nv_bfloat16* out = is_v ? dv : dk;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int idx = i * 32 + lane, rr = idx >> 3, ch = idx & 7;
+        const int key = key0 + kg * 16 + rr;
+        if (key < n)
+          *reinterpret_cast<uint4*>(out + ((size_t)b * n + key) * width +
+                                    cc * 64 + ch * 8) =
+              *reinterpret_cast<const uint4*>(stg + swz(rr, ch, 128));
+      }
+      __syncwarp();
+    }
+
+    // 2b. dq[:, 64 warp ..] += dS_hi K + dS_lo K over the tile's keys
+    if (dq_owner) {
+      for (int ks = 0; ks < kgs; ++ks) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int off = (mt * 16 + (lane & 15)) * ds_stride + ks * 16 +
+                          (lane >> 4) * 8;
+          ldmatrix_x4(ah[mt], smem_u32(dShi + off));
+          ldmatrix_x4(al[mt], smem_u32(dSlo + off));
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bb[4];
+          const int r = ks * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+          const int col = warp * 8 + np * 2 + (lane >> 4);
+          ldmatrix_x4_trans(bb, smem_u32(slot + swz(r, col, D * 2)));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_m16n8k16(dqa[mt][2 * np], ah[mt], bb[0], bb[1]);
+            mma_m16n8k16(dqa[mt][2 * np + 1], ah[mt], bb[2], bb[3]);
+            mma_m16n8k16(dqa[mt][2 * np], al[mt], bb[0], bb[1]);
+            mma_m16n8k16(dqa[mt][2 * np + 1], al[mt], bb[2], bb[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!dq_owner) return;
+  const size_t part = (size_t)b * spans + sp;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + g + 8 * h;
+      if (r >= L) continue;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int col = warp * 64 + t * 8 + 2 * tq;
+        const float x0 = dqa[mt][t][2 * h] * scale;
+        const float x1 = dqa[mt][t][2 * h + 1] * scale;
+        if (spans == 1)
+          *reinterpret_cast<uint32_t*>(dq + ((size_t)b * L + r) * D + col) =
+              pack_bf16(x0, x1);
+        else
+          *reinterpret_cast<float2*>(dq_part + (part * L + r) * D + col) =
+              make_float2(x0, x1);
+      }
+    }
+}
+
 size_t g2l_bwd_smem(int L, int D, int Dv) {
   return sizeof(float) * ((size_t)L * (D + Dv) + 2 * (size_t)kRows * L +
                           (size_t)kWarps * (D + Dv));
@@ -266,6 +558,29 @@ size_t g2l_bwd_smem(int L, int D, int Dv) {
 size_t l2g_bwd_smem(int L, int D, int Dv) {
   return sizeof(float) * ((size_t)L * (D + Dv) + (size_t)L * kRows +
                           (size_t)kWarps * (D + Dv) + kWarps * 2 * kMaxL);
+}
+
+// Shared memory of l2g_bwd_mma_kernel beside its ring: Q and dO, the
+// warps' staging tiles, P^T and dS^T as hi + lo [kt, LP + pad], dS as hi +
+// lo [LP, kt + pad], lse and delta.
+size_t l2g_bwd_mma_fixed(int lp, int kt, int D, int Dv) {
+  return (size_t)lp * (D + Dv) * 2 + (size_t)kKeyWarps * 2048 +
+         4 * (size_t)kt * (lp + kKeyPad) * 2 +
+         2 * (size_t)lp * (kt + kKeyPad) * 2 + 2 * (size_t)lp * 4;
+}
+
+KeyTiling l2g_bwd_tiling(int B, int n, int L, int D, int Dv) {
+  const int lp = key_lp(L);
+  return key_tiling(
+      [&](int kt) { return l2g_bwd_mma_fixed(lp, kt, D, Dv); },
+      (D + Dv) * 2, B, n);
+}
+
+int l2g_bwd_path(int dtype, int L, int D, int Dv) {
+  if (dtype == GT_DTYPE_BF16 && key_shape_ok(L, D, Dv) &&
+      l2g_bwd_tiling(1, 1, L, D, Dv).kt > 0)
+    return kL2GBwdMma;
+  return kL2GBwdSimt;
 }
 
 template <typename T, bool G2L>
@@ -340,6 +655,27 @@ int g2l_bwd_dispatch(const void* q, const void* k, const void* v,
                                dv_part, B, n, L, D, Dv, scale, st);
 }
 
+template <int LP>
+int l2g_bwd_mma_launch(const void* q, const void* k, const void* v,
+                       const float* lse, const float* delta, const void* dout,
+                       void* dq, void* dk, void* dv, float* dq_part, int B,
+                       int n, int L, int D, int Dv, float scale,
+                       cudaStream_t st) {
+  const KeyTiling t = l2g_bwd_tiling(B, n, L, D, Dv);
+  if (t.spans > 1 && dq_part == nullptr) return (int)cudaErrorInvalidValue;
+  const int err = set_smem(l2g_bwd_mma_kernel<LP>, (int)t.smem);
+  if (err != 0) return err;
+  using bf16 = __nv_bfloat16;
+  l2g_bwd_mma_kernel<LP><<<dim3(t.spans, B), kKeyWarps * 32, t.smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, lse, delta,
+      (const bf16*)dout, (bf16*)dq, dq_part, (bf16*)dk, (bf16*)dv, n, L, D,
+      Dv, scale, t.kt, t.stages, t.tps);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || t.spans == 1) return (int)e;
+  return launch_reduce<bf16, false>(dq_part, (bf16*)dq, B, t.spans,
+                                    (long long)L * D, st);
+}
+
 template <typename T>
 int l2g_bwd_dispatch(const void* q, const void* k, const void* v,
                      const float* lse, const float* delta, const void* dout,
@@ -364,8 +700,23 @@ extern "C" long long gt_g2l_bwd_smem(int L, int D, int Dv) {
   return (long long)g2l_bwd_smem(L, D, Dv);
 }
 
-extern "C" long long gt_l2g_bwd_smem(int L, int D, int Dv) {
-  return (long long)l2g_bwd_smem(L, D, Dv);
+// The plan of a latent_to_grid backward launch, for the wrapper's check:
+// {path, LP, keys a tile, tiles a span, spans, ring stages, dynamic shared
+// memory}; the CUDA-core route reports its kRows chunk as the tile, one
+// tile a span, LP and stages 0.
+extern "C" void gt_l2g_bwd_plan(int dtype, int B, int n, int L, int D,
+                                int Dv, int* out) {
+  const int path = l2g_bwd_path(dtype, L, D, Dv);
+  if (path == kL2GBwdMma) {
+    const KeyTiling t = l2g_bwd_tiling(B, n, L, D, Dv);
+    const int plan[7] = {path, key_lp(L), t.kt, t.tps, t.spans, t.stages,
+                         (int)t.smem};
+    for (int i = 0; i < 7; ++i) out[i] = plan[i];
+    return;
+  }
+  const int plan[7] = {path, 0, kRows, 1, (n + kRows - 1) / kRows, 0,
+                       (int)l2g_bwd_smem(L, D, Dv)};
+  for (int i = 0; i < 7; ++i) out[i] = plan[i];
 }
 
 extern "C" int gt_grid_to_latent_bwd(int dtype, const void* q, const void* k,
@@ -386,15 +737,26 @@ extern "C" int gt_grid_to_latent_bwd(int dtype, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int gt_latent_to_grid_bwd(int dtype, const void* q, const void* k,
-                                     const void* v, const float* lse,
-                                     const float* delta, const void* dout,
-                                     void* dq, void* dk, void* dv,
-                                     float* dq_part, int B, int n, int L,
-                                     int D, int Dv, float scale,
+// `path` must be the route l2g_bwd_path gives (the wrapper's plan);
+// dq_part holds the plan's spans (chunks on the CUDA-core route), null
+// where the tensor-core plan has one span.
+extern "C" int gt_latent_to_grid_bwd(int path, int dtype, const void* q,
+                                     const void* k, const void* v,
+                                     const float* lse, const float* delta,
+                                     const void* dout, void* dq, void* dk,
+                                     void* dv, float* dq_part, int B, int n,
+                                     int L, int D, int Dv, float scale,
                                      void* stream) {
-  if (L < 1 || L > kMaxL || n < 1) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > kMaxL || n < 1 || path != l2g_bwd_path(dtype, L, D, Dv))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (path == kL2GBwdMma) {
+    if (L <= 16)
+      return l2g_bwd_mma_launch<16>(q, k, v, lse, delta, dout, dq, dk, dv,
+                                    dq_part, B, n, L, D, Dv, scale, st);
+    return l2g_bwd_mma_launch<32>(q, k, v, lse, delta, dout, dq, dk, dv,
+                                  dq_part, B, n, L, D, Dv, scale, st);
+  }
   if (dtype == GT_DTYPE_F32)
     return l2g_bwd_dispatch<float>(q, k, v, lse, delta, dout, dq, dk, dv,
                                    dq_part, B, n, L, D, Dv, scale, st);

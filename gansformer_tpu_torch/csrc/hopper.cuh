@@ -9,7 +9,9 @@
 // to more than 48 KB of dynamic shared memory, shared by csrc/modconv.cu
 // and csrc/modconv_bwd.cu.  Also the warp-level pieces of the kernels
 // that need no warpgroup: cp.async with zero fill (csrc/upfirdn.cu,
-// csrc/attention.cu) and mma.sync with ldmatrix (csrc/attention.cu).
+// csrc/attention.cu, csrc/attention_bwd.cu), mma.sync with ldmatrix, the
+// swizzle and the hi + lo bf16 split of the attention kernels, and the
+// key tiling of the latent->grid kernels.
 //
 // Operand layout: the 128-byte swizzle that TMA writes and wgmma reads.
 // A tile is stored as rows of 128 bytes (64 bf16 along the row's
@@ -392,6 +394,40 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The wait of a cp.async ring of `stages` slots (3 or 4) that runs
+// stages - 1 commit groups ahead, one group a stage: the oldest stage has
+// landed once at most stages - 2 groups are in flight.
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages >= 4)
+    cp_async_wait<2>();
+  else
+    cp_async_wait<1>();
+}
+
+// Byte offset of 16-byte chunk `c` of row `r` in a shared-memory operand
+// whose rows are `row_bytes` long (a multiple of 128): the chunk index is
+// XOR-ed with r % 8, so the 8 rows of an ldmatrix 8 x 8 matrix, and the 8
+// chunks of one row, fall in distinct banks (csrc/attention.cu,
+// csrc/attention_bwd.cu).
+__device__ __forceinline__ int swz(int r, int c, int row_bytes) {
+  return r * row_bytes + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// x as the sum of two bf16 terms, hi = bf16(x) and lo = bf16(x - hi)
+// (x - hi is exact in fp32): a tensor-core product of hi and of lo, summed
+// in fp32, carries x to about 2^-17 of itself, where one bf16 rounding
+// would keep 2^-9.
+__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16* hi,
+                                           __nv_bfloat16* lo) {
+  *hi = __float2bfloat16(x);
+  *lo = __float2bfloat16(x - __bfloat162float(*hi));
+}
+
 // ---- host side: tensor maps and shared-memory opt-in ----------------------
 
 // Dynamic shared memory of a launch, checked against the card's limit.
@@ -402,6 +438,107 @@ int set_smem(Kernel kernel, int bytes) {
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The key tiling of the latent->grid tensor-core kernels, forward
+// (csrc/attention.cu) and backward (csrc/attention_bwd.cu): a block of
+// kKeyWarps warps walks a span of tiles of `kt` keys of one batch entry,
+// each tile's K and V rows landed whole in one slot of a cp.async ring.
+// kt is the largest of 64, 32, 16 whose ring has at least kKeyMinStages
+// slots beside the kernel's `fixed` bytes (at most kKeyMaxStages), so
+// two or three tiles are in flight while one is multiplied.  Spans: one
+// block an SM over the batch (a block takes 120-227 KB), each span at
+// least kKeySpanBytes of K and V; a batch entry of at most
+// kKeyOneSpanTiles tiles runs in one span and needs no combine (such a
+// launch is set by the host's time per launch, not the card's; a block
+// takes 2-5 us a tile, so longer entries split).  The wrapper (ops/cuda_attention.py key_tiling)
+// mirrors this; the plans are exported (gt_l2g_plan, gt_l2g_bwd_plan).
+constexpr int kKeyWarps = 8;
+constexpr int kKeyMinStages = 3;
+constexpr int kKeyMaxStages = 4;
+constexpr int kKeySpanBytes = 262144;
+constexpr int kKeyOneSpanTiles = 8;
+constexpr int kKeyPad = 8;          // bf16 padding of a P / dS row
+constexpr int kKeyMaxLp = 32;       // latents, padded to 16 or 32
+constexpr int kKeyMaxCols = 512;    // D and Dv: 8 warps x 64 columns
+constexpr int kKeySms = 132;
+
+// cp.async of rows key0 .. key0 + kt - 1 of batch entry b of k [B, n, D]
+// and v [B, n, Dv] into the K and V parts of a ring slot, swizzled, rows
+// past n zero-filled: 8 threads a row, 32 rows a pass of the block's
+// kKeyWarps warps (D and Dv are multiples of 64, so a row is whole passes
+// of 8 chunks and no thread divides).
+__device__ __forceinline__ void load_key_tile(
+    unsigned char* kslot, unsigned char* vslot,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    int b, int n, int key0, int kt, int D, int Dv) {
+  const int tid = threadIdx.x;
+  for (int r = tid >> 3; r < kt; r += kKeyWarps * 4) {
+    const bool in = key0 + r < n;
+    const size_t row = (size_t)b * n + (in ? key0 + r : 0);
+    for (int c = tid & 7; c < D / 8; c += 8)
+      cp_async16(kslot + swz(r, c, D * 2), k + row * D + c * 8, in ? 16 : 0);
+    for (int c = tid & 7; c < Dv / 8; c += 8)
+      cp_async16(vslot + swz(r, c, Dv * 2), v + row * Dv + c * 8,
+                 in ? 16 : 0);
+  }
+}
+
+// cp.async of the L rows of `width` bf16 of `src` into a swizzled
+// resident operand of LP rows, the rows past L zeroed.
+__device__ __forceinline__ void load_latent_rows(
+    unsigned char* dst, const __nv_bfloat16* __restrict__ src, int L, int LP,
+    int width) {
+  const int tid = threadIdx.x, ch = width / 8;
+  for (int i = tid; i < L * ch; i += blockDim.x)
+    cp_async16(dst + swz(i / ch, i % ch, width * 2), src + (size_t)i * 8,
+               16);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = tid; i < (LP - L) * ch; i += blockDim.x)
+    reinterpret_cast<uint4*>(dst + L * width * 2)[i] = zero;
+}
+
+// The latents padded to the kernels' bucket (16 or 32).
+inline int key_lp(int L) { return L <= 16 ? 16 : 32; }
+
+// The shapes the tensor-core kernels take (bf16 is checked by the
+// caller): L <= 32, D and Dv multiples of 64 and at most 512.
+inline bool key_shape_ok(int L, int D, int Dv) {
+  return L >= 1 && L <= kKeyMaxLp && D > 0 && Dv > 0 && D % 64 == 0 &&
+         Dv % 64 == 0 && D <= kKeyMaxCols && Dv <= kKeyMaxCols;
+}
+
+struct KeyTiling {
+  int kt, stages, tps, spans;   // kt = 0: no tile fits
+  size_t smem;
+};
+
+template <typename Fixed>
+inline KeyTiling key_tiling(Fixed fixed, int key_bytes, int B, int n) {
+  KeyTiling t{0, 0, 0, 0, 0};
+  for (int kt = 64; kt >= 16; kt /= 2) {
+    const size_t stage = (size_t)kt * key_bytes, f = fixed(kt);
+    if (f >= (size_t)kMaxSmem) continue;
+    size_t s = ((size_t)kMaxSmem - f) / stage;
+    if (s > (size_t)kKeyMaxStages) s = kKeyMaxStages;
+    if (s >= (size_t)kKeyMinStages) {
+      t.kt = kt;
+      t.stages = (int)s;
+      t.smem = f + s * stage;
+      break;
+    }
+  }
+  if (t.kt == 0 || n < 1 || B < 1) return t;
+  const int tiles = (n + t.kt - 1) / t.kt;
+  const int spans_max = kKeySms / B > 1 ? kKeySms / B : 1;
+  const long long stage = (long long)t.kt * key_bytes;
+  const int min_tps = (int)((kKeySpanBytes + stage - 1) / stage);
+  int tps = (tiles + spans_max - 1) / spans_max;
+  if (tps < min_tps) tps = min_tps;
+  if (tps > tiles || tiles <= kKeyOneSpanTiles) tps = tiles;
+  t.tps = tps;
+  t.spans = (tiles + tps - 1) / tps;
+  return t;
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (the library

@@ -13,8 +13,13 @@ Replaces ``gansformer_tpu/ops/pallas_attention.py``:
 * ``latent_to_grid`` <- ``_latent_to_grid_fwd`` -> ``pl.pallas_call``
   (bodies ``_latent_to_grid_kernel``/``_nostats``): latents attend over the
   n grid positions; the TPU's sequential online-softmax carry becomes a
-  split over n (fp32 partials per chunk) and a combine kernel, because
-  Hopper blocks run in no order.
+  split over n into spans (fp32 partials per span, a fixed-order combine
+  kernel; one span writes o itself), because Hopper blocks run in no
+  order.  In bf16 with L <= 32 and D, Dv multiples of 64 up to 512 (every
+  preset launch) a tensor-core kernel (``l2g_plan``: K and V tiles
+  through a cp.async ring, logits and the mix on mma.sync, the online
+  softmax per block in fp32); else the CUDA-core kernels on 256-key
+  chunks.
 * ``grid_to_latent_bwd_cuda`` <- ``_grid_to_latent_bwd`` ->
   ``pl.pallas_call`` (body ``_grid_to_latent_bwd_kernel``): P rebuilt from
   ``lse``, dq per row, dk/dv summed over n through per-chunk fp32
@@ -23,7 +28,17 @@ Replaces ``gansformer_tpu/ops/pallas_attention.py``:
   ``pl.pallas_call`` (body ``_latent_to_grid_bwd_kernel``): the
   FlashAttention backward with delta = rowsum(do * o) computed here, in
   torch, outside the kernel (as the JAX package computes it outside its
-  ``pallas_call``); dk/dv per key, dq summed over n the same way.
+  ``pallas_call``); dk/dv per key, dq summed over n the same way.  The
+  same routes as the forward (``l2g_plan(..., bwd=True)``): on the
+  tensor cores K and V are read once, S, dP, dV, dK and dq on mma.sync.
+
+Both latent->grid kernels are bound by bytes (16 operations a byte at L
+= 16, against the card's ~295), so ``mma.sync`` serves where ``wgmma``
+would buy nothing.  The TPU kernels keep P (and dS) in fp32 in their
+products; the tensor cores round operands to bf16, so P and dS enter
+them as hi + lo bf16 terms (two products): one rounding would move o by
+~1e-4 and dq, dk, dv by ~2e-3 of their max, a rounding point the TPU
+kernels lack (``tests/test_torch_l2g_plan.py`` pins both).
 
 The forwards write the fp32 row statistic ``lse`` only when asked
 (``with_stats``): the Functions ask, the serving path (no graph wanted)
@@ -132,6 +147,118 @@ def g2l_rows_per_block(path: int, b: int, n: int) -> int:
     return G2L_SIMT_ROWS
 
 
+# latent_to_grid's routes, forward and backward (csrc/attention.cu
+# l2g_path, csrc/attention_bwd.cu l2g_bwd_path), and launches by route
+# since the last reset.  The tensor-core kernels' key tiling mirrors
+# csrc/hopper.cuh key_tiling (kKeyWarps, kKeyMinStages, kKeyMaxStages,
+# kKeySpanBytes, kKeyOneSpanTiles, kKeyPad, kKeyMaxLp, kKeyMaxCols,
+# kKeySms); the CUDA-core route's chunks are csrc/attention.cu kChunk and
+# attention_bwd.cu kRows.  tests/test_torch_l2g_plan.py holds these to
+# the sources, and chip_smoke.py the built library's plans to this one.
+L2G_SIMT, L2G_MMA = 0, 1
+L2G_NAMES = {L2G_SIMT: "simt", L2G_MMA: "mma"}
+l2g_path_launches = dict.fromkeys(L2G_NAMES, 0)
+l2g_bwd_path_launches = dict.fromkeys(L2G_NAMES, 0)
+KEY_WARPS = 8
+KEY_MIN_STAGES = 3
+KEY_MAX_STAGES = 4
+KEY_SPAN_BYTES = 262144
+KEY_ONE_SPAN_TILES = 8
+KEY_PAD = 8
+KEY_MAX_LP = 32
+KEY_MAX_COLS = 512
+L2G_SIMT_CHUNK = 256
+L2G_BWD_SIMT_ROWS = 64
+L2G_SIMT_WARPS = 8
+
+
+def key_lp(l: int) -> int:
+    """The latents padded to the tensor-core kernels' bucket."""
+    return 16 if l <= 16 else 32
+
+
+def _l2g_mma_fixed(lp: int, kt: int, d: int) -> int:
+    """Forward shared memory beside the ring: Q, the logits, P as hi +
+    lo, three per-latent rows."""
+    return lp * d * 2 + lp * kt * 4 + 2 * lp * (kt + KEY_PAD) * 2 + 3 * lp * 4
+
+
+def _l2g_bwd_mma_fixed(lp: int, kt: int, d: int, dv: int) -> int:
+    """Backward shared memory beside the ring: Q and dO, the warps'
+    staging tiles, P^T and dS^T hi + lo, dS hi + lo, lse and delta."""
+    return (lp * (d + dv) * 2 + KEY_WARPS * 2048
+            + 4 * kt * (lp + KEY_PAD) * 2 + 2 * lp * (kt + KEY_PAD) * 2
+            + 2 * lp * 4)
+
+
+def key_tiling(fixed, key_bytes: int, b: int, n: int):
+    """(keys a tile, tiles a span, spans, ring stages, shared memory), or
+    None where no tile size leaves KEY_MIN_STAGES slots: the largest of
+    64, 32, 16 keys whose ring fits beside ``fixed(kt)`` bytes with at
+    least KEY_MIN_STAGES (at most KEY_MAX_STAGES) slots; spans fill the
+    card at one block an SM, each at least KEY_SPAN_BYTES of K and V, and
+    a batch entry of at most KEY_ONE_SPAN_TILES tiles is one span."""
+    for kt in (64, 32, 16):
+        stage, f = kt * key_bytes, fixed(kt)
+        if f >= _build.SMEM_LIMIT:
+            continue
+        stages = min(KEY_MAX_STAGES, (_build.SMEM_LIMIT - f) // stage)
+        if stages >= KEY_MIN_STAGES:
+            break
+    else:
+        return None
+    tiles = -(-n // kt)
+    spans_max = max(1, SMS // b)
+    tps = min(tiles, max(-(-tiles // spans_max),
+                         -(-KEY_SPAN_BYTES // stage)))
+    if tiles <= KEY_ONE_SPAN_TILES:
+        tps = tiles
+    return kt, tps, -(-tiles // tps), stages, f + stages * stage
+
+
+def l2g_plan(dtype: torch.dtype, b: int, n: int, l: int, d: int, dv: int,
+             bwd: bool = False):
+    """(path, LP, keys a tile, tiles a span, spans, ring stages, shared
+    memory) of a latent_to_grid launch, forward or backward: the
+    tensor-core kernel for bf16 with L <= 32 and D, Dv multiples of 64 up
+    to 512, else the CUDA-core kernel (its chunk as the tile, one tile a
+    span, LP and stages 0)."""
+    if (dtype == torch.bfloat16 and 1 <= l <= KEY_MAX_LP and d > 0
+            and dv > 0 and d % 64 == 0 and dv % 64 == 0
+            and d <= KEY_MAX_COLS and dv <= KEY_MAX_COLS):
+        lp = key_lp(l)
+        fixed = ((lambda kt: _l2g_bwd_mma_fixed(lp, kt, d, dv)) if bwd
+                 else (lambda kt: _l2g_mma_fixed(lp, kt, d)))
+        t = key_tiling(fixed, (d + dv) * 2, b, n)
+        if t is not None:
+            return (L2G_MMA, lp) + t
+    if bwd:
+        smem = 4 * (l * (d + dv) + l * L2G_BWD_SIMT_ROWS
+                    + L2G_SIMT_WARPS * (d + dv)
+                    + L2G_SIMT_WARPS * 2 * MAX_LATENTS)
+        return (L2G_SIMT, 0, L2G_BWD_SIMT_ROWS, 1,
+                -(-n // L2G_BWD_SIMT_ROWS), 0, smem)
+    smem = 4 * (l * d + l * L2G_SIMT_CHUNK + L2G_SIMT_WARPS * d)
+    return (L2G_SIMT, 0, L2G_SIMT_CHUNK, 1, -(-n // L2G_SIMT_CHUNK), 0, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _l2g_route(dtype: torch.dtype, b: int, n: int, l: int, d: int, dv: int,
+               bwd: bool):
+    """The plan of a launch, its shared memory checked (worked out once
+    per launch shape)."""
+    plan = l2g_plan(dtype, b, n, l, d, dv, bwd)
+    _build.check_smem(plan[6], f"latent_to_grid{' backward' if bwd else ''}"
+                      f" of {l}x({d}+{dv})")
+    return plan
+
+
+def _aligned(*ts):
+    """The tensors, each cloned where its address is not a multiple of
+    16 bytes (the tensor-core kernels copy 16 bytes at a time)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def _check(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("attention kernels take CUDA tensors")
@@ -170,9 +297,8 @@ def grid_to_latent_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l, dv = v.shape[1], v.shape[2]
     _check_latents(l, "grid_to_latent")
     path = _g2l_route(q.dtype, l, d, dv)
-    if path == G2L_MMA and any(t.data_ptr() % 16 for t in (q, k, v)):
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
+    if path == G2L_MMA:
+        q, k, v = _aligned(q, k, v)
     lib = _build.load_library()
     o = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
     lse = _stats(q, n, with_stats)
@@ -199,23 +325,26 @@ def latent_to_grid_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, l, d = q.shape
     n, dv = v.shape[1], v.shape[2]
     _check_latents(l, "latent_to_grid")
+    path, _, _, _, spans, _, _ = _l2g_route(q.dtype, b, n, l, d, dv, False)
+    if path == L2G_MMA:
+        q, k, v = _aligned(q, k, v)
     lib = _build.load_library()
-    _build.check_smem(lib.gt_l2g_smem(l, d),
-                      f"latent_to_grid Q of {l}x{d}")
-    chunks = -(-n // lib.gt_attn_chunk())
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((b, chunks, l), **f32)
-    s_part = torch.empty((b, chunks, l), **f32)
-    acc_part = torch.empty((b, chunks, l, dv), **f32)
     o = torch.empty((b, l, dv), dtype=v.dtype, device=v.device)
     lse = _stats(q, l, with_stats)
+    m_part = s_part = acc_part = None
+    if path == L2G_SIMT or spans > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m_part = torch.empty((b, spans, l), **f32)
+        s_part = torch.empty((b, spans, l), **f32)
+        acc_part = torch.empty((b, spans, l, dv), **f32)
     rc = lib.gt_latent_to_grid(
-        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), _ptr(lse), m_part.data_ptr(), s_part.data_ptr(),
-        acc_part.data_ptr(), b, n, l, d, dv, 1.0 / math.sqrt(d),
-        _build.stream_ptr(q))
-    _build.check(rc, "latent_to_grid kernel")
+        path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), _ptr(lse), _ptr(m_part), _ptr(s_part), _ptr(acc_part),
+        b, n, l, d, dv, 1.0 / math.sqrt(d), _build.stream_ptr(q))
+    if rc:
+        _build.check(rc, f"latent_to_grid kernel ({L2G_NAMES[path]})")
     launches_l2g += 1
+    l2g_path_launches[path] += 1
     if with_stats:
         launches_l2g_lse += 1
         return o, lse
@@ -276,21 +405,25 @@ def latent_to_grid_bwd_cuda(q, k, v, lse, do, delta):
                          f"{tuple(delta.shape)}")
     delta = delta.contiguous()
     _check_latents(l, "latent_to_grid backward")
+    path, _, _, _, spans, _, _ = _l2g_route(q.dtype, b, n, l, d, dv, True)
+    if path == L2G_MMA:
+        q, k, v, do = _aligned(q, k, v, do)
     lib = _build.load_library()
-    _build.check_smem(lib.gt_l2g_bwd_smem(l, d, dv),
-                      f"latent_to_grid backward of {l}x({d}+{dv})")
-    chunks = -(-n // lib.gt_attn_bwd_rows())
-    dq_part = torch.empty((b, chunks, l, d), dtype=torch.float32,
-                          device=q.device)
+    dq_part = (torch.empty((b, spans, l, d), dtype=torch.float32,
+                           device=q.device)
+               if path == L2G_SIMT or spans > 1 else None)
     dq, dk, dvv = (torch.empty_like(q), torch.empty_like(k),
                    torch.empty_like(v))
     rc = lib.gt_latent_to_grid_bwd(
-        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dvv.data_ptr(), dq_part.data_ptr(), b, n, l, d, dv,
+        dk.data_ptr(), dvv.data_ptr(), _ptr(dq_part), b, n, l, d, dv,
         1.0 / math.sqrt(d), _build.stream_ptr(q))
-    _build.check(rc, "latent_to_grid backward kernel")
+    if rc:
+        _build.check(rc, f"latent_to_grid backward kernel "
+                     f"({L2G_NAMES[path]})")
     launches_l2g_bwd += 1
+    l2g_bwd_path_launches[path] += 1
     return dq, dk, dvv
 
 

@@ -14,6 +14,10 @@ Kernels (comma-separated for several in one process):
   upfirdn_adjoint     the adjoint launches of one d_step + one g_step
   grid_to_latent      the launches of one synthesize (SDPA)
   grid_to_latent_lse  the same launches writing lse (a g_step's)
+  latent_to_grid      the launches of one synthesize (SDPA)
+  latent_to_grid_lse  the same launches writing lse (a g_step's)
+  latent_to_grid_bwd  the backward launches of one g_step (the backward
+                      alone of SDPA)
 
 To compare a change with its parent on one card, put a copy of this
 script in each tree's root and run it there in turns (parent, change,
@@ -35,7 +39,8 @@ from gansformer_tpu_torch.core import get_preset
 
 BATCH = 8
 KERNELS = ("modconv", "upfirdn", "upfirdn_adjoint", "grid_to_latent",
-           "grid_to_latent_lse")
+           "grid_to_latent_lse", "latent_to_grid", "latent_to_grid_lse",
+           "latent_to_grid_bwd")
 
 
 def median_ms(fn) -> float:
@@ -65,12 +70,12 @@ def median_ms(fn) -> float:
 def launches(cfg, kernel):
     """The launches of ``kernel`` that the sums cover, from the tree's
     own plans."""
-    if kernel == "upfirdn_adjoint":
+    if kernel in ("upfirdn_adjoint", "latent_to_grid_bwd"):
         calls = chip_smoke.train_path_calls(cfg, BATCH)
     else:
-        calls = chip_smoke.main_path_calls(
-            cfg, BATCH, lse=kernel == "grid_to_latent_lse")
-    name = "grid_to_latent" if kernel == "grid_to_latent_lse" else kernel
+        calls = chip_smoke.main_path_calls(cfg, BATCH,
+                                           lse=kernel.endswith("_lse"))
+    name = kernel[:-len("_lse")] if kernel.endswith("_lse") else kernel
     return [c for c in calls if c["kernel"] == name]
 
 
