@@ -9,8 +9,8 @@ In order:
    kernel's registers and spills (ptxas; it fails where a kernel of
    ``NO_SPILL`` spills) and fails unless the SASS of the modconv wgmma
    kernels, forward and backward, holds HGMMA and that of the attention
-   tensor-core kernels (grid->latent, latent->grid forward and backward)
-   HMMA (``cuobjdump -sass``);
+   tensor-core kernels (grid->latent and latent->grid, forward and
+   backward each) HMMA (``cuobjdump -sass``);
 3. serving.  First the library's tile and shared memory of each modconv
    forward launch against the wrapper's, and its route, tile and shared
    memory of each upfirdn and grid->latent launch, and its route, tile,
@@ -36,7 +36,8 @@ In order:
    epilogue, upfirdn's general route once at a 3x3 filter, and the
    attention tensor-core kernels once each at a ragged shape no preset
    makes (grid->latent at n 200, L 20; latent->grid forward with lse and
-   backward at n 1000, L 20, three spans, a ragged last tile);
+   backward, and grid->latent backward, at n 1000, L 20, three spans, a
+   ragged last tile; grid->latent backward at n 200 too);
 4. serves ffhq256-duplex at full width from a random init (bf16):
    ``map_seeds`` + ``synthesize`` over buckets 1, 2, 4 and 8 with mixed
    psi, with the launch counters reset just before and read just after;
@@ -66,8 +67,8 @@ In order:
    the adjoint with its filter not flipped (at the path's symmetric
    filter that changes nothing, so each adjoint geometry also runs with
    an asymmetric filter), the attention backward with one chunk's
-   partial dropped (dk/dv of grid->latent; dq of latent->grid: one
-   span's partial and one tile on the tensor cores, one 64-key chunk in
+   partial dropped (dk/dv of grid->latent, dq of latent->grid: one
+   span's partial and one tile on the tensor cores, one 64-row chunk in
    fp32) and with its row correction delta left out, and lse without
    log(den);
 7. drives ``d_step`` + ``g_step`` with the counters reset just before and
@@ -366,16 +367,17 @@ def plan_lse_counts(calls, phase):
 def plan_path_counts(calls, dtype_name):
     """Of the plan's upfirdn launches (forward and adjoint),
     grid->latent launches and latent->grid launches (forward and
-    backward), how many each route takes in ``dtype_name`` (the keys of
-    ``ops.path_launch_counts``)."""
+    backward each), how many each route takes in ``dtype_name`` (the keys
+    of ``ops.path_launch_counts``)."""
     import torch
 
     from gansformer_tpu_torch.ops import cuda_attention, cuda_upfirdn
 
     dtype = getattr(torch, dtype_name)
     out = {f"upfirdn_{n}": 0 for n in cuda_upfirdn.PATH_NAMES.values()}
-    out.update({f"grid_to_latent_{n}": 0
-                for n in cuda_attention.G2L_NAMES.values()})
+    for kname in ("grid_to_latent", "grid_to_latent_bwd"):
+        out.update({f"{kname}_{n}": 0
+                    for n in cuda_attention.G2L_NAMES.values()})
     for kname in ("latent_to_grid", "latent_to_grid_bwd"):
         out.update({f"{kname}_{n}": 0
                     for n in cuda_attention.L2G_NAMES.values()})
@@ -383,6 +385,10 @@ def plan_path_counts(calls, dtype_name):
         if c["kernel"] in ("latent_to_grid", "latent_to_grid_bwd"):
             path = l2g_call_plan(c, dtype)[0]
             out[f"{c['kernel']}_{cuda_attention.L2G_NAMES[path]}"] += 1
+            continue
+        if c["kernel"] == "grid_to_latent_bwd":
+            path = g2l_bwd_call_plan(c, dtype)[0]
+            out[f"grid_to_latent_bwd_{cuda_attention.G2L_NAMES[path]}"] += 1
             continue
         if c["kernel"] in ("upfirdn", "upfirdn_adjoint"):
             up, down = c["up"], c.get("down", 1)
@@ -404,6 +410,15 @@ def l2g_call_plan(call, dtype):
     return cuda_attention.l2g_plan(dtype, call["B"], call["Lk"], call["Lq"],
                                    call["D"], call["Dv"],
                                    bwd=call["kernel"] == "latent_to_grid_bwd")
+
+
+def g2l_bwd_call_plan(call, dtype):
+    """The wrapper's plan (``cuda_attention.g2l_bwd_plan``) of a
+    grid->latent backward launch."""
+    from gansformer_tpu_torch.ops import cuda_attention
+
+    return cuda_attention.g2l_bwd_plan(dtype, call["B"], call["Lq"],
+                                       call["Lk"], call["D"], call["Dv"])
 
 
 def check_path_counts(got, calls, dtype_name, what):
@@ -549,8 +564,8 @@ def build_case(call, dtype, gen, dev="cuda", chunk=None):
     latent_to_grid's faults, forward and backward, drop keys at each level
     of the route's reduction (``l2g_key_drops``: a span and a tile on the
     tensor cores, a ``chunk``-key chunk on the CUDA cores), and
-    grid_to_latent's backward faults one of its ``chunk``-row chunks (the
-    kernel's own chunk unless given).  The attention backward's case also
+    grid_to_latent's backward drops rows at each level of its sums of dk
+    and dv (``g2l_bwd_row_drops``).  The attention backward's case also
     names the SDPA backend of its library call (``library_backend``)."""
     import numpy as np
     import torch
@@ -807,6 +822,32 @@ def l2g_key_drops(call, dtype, dev, chunk=None):
     return drops
 
 
+def g2l_bwd_row_drops(call, dtype, dev, chunk=None):
+    """(what, kept row indices) of the planted faults of a grid->latent
+    backward launch at each level of its sums of dk and dv over the grid
+    rows.  Tensor-core route (the wrapper's plan): the middle span dropped
+    where the launch splits n into spans, and the middle tile where n
+    spans more than one tile.  CUDA-core route: the middle ``chunk``-row
+    chunk (the library's own kRows unless given) where n spans more than
+    one."""
+    from gansformer_tpu_torch.ops import _build, cuda_attention
+
+    n = call["Lq"]
+    path, _, kt, tps, spans, _, _ = g2l_bwd_call_plan(call, dtype)
+    if path == cuda_attention.G2L_SIMT:
+        chunk = chunk or _build.load_library().gt_attn_bwd_rows()
+        keep = _without_middle_chunk(n, chunk, dev)
+        return [] if keep is None else [("one row chunk's partial", keep)]
+    drops = []
+    if spans > 1:
+        drops.append((f"one span's partial ({tps * kt} rows)",
+                      _without_middle_chunk(n, tps * kt, dev)))
+    keep = _without_middle_chunk(n, kt, dev)
+    if keep is not None:
+        drops.append((f"one {kt}-row tile", keep))
+    return drops
+
+
 def _attention_case(call, dtype, randn, dev, chunk):
     """``build_case`` for the four attention kernels.  Forward: o (and
     lse when the call writes it).  Backward: dq, dk, dv on the forward's
@@ -815,7 +856,7 @@ def _attention_case(call, dtype, randn, dev, chunk):
     backward kernel takes the lse its forward kernel wrote."""
     import torch
 
-    from gansformer_tpu_torch.ops import _build, cuda_attention
+    from gansformer_tpu_torch.ops import cuda_attention
     from gansformer_tpu_torch.ops.attention import (attention_bwd_plain,
                                                     attention_delta,
                                                     attention_fwd_stats_plain,
@@ -874,7 +915,6 @@ def _attention_case(call, dtype, randn, dev, chunk):
     o, lse = attention_fwd_stats_plain(q, k, v)
     library, backend = library_attention_bwd(q, k, v, do)
     if kname == "grid_to_latent_bwd":
-        chunk = chunk or _build.load_library().gt_attn_bwd_rows()
         args = (q, k, v, lse, do)
         # on the card the kernel rebuilds P from the lse the forward kernel
         # wrote, the plain version from its own
@@ -883,16 +923,15 @@ def _attention_case(call, dtype, randn, dev, chunk):
                  if dev == "cuda" else lse)
         kern = lambda: cuda_attention.grid_to_latent_bwd_cuda(  # noqa: E731
             q, k, v, lse_k, do)
-        keep = _without_middle_chunk(lq, chunk, dev)
-        if keep is not None:
-            def drop(i):
-                return lambda: attention_bwd_plain(
-                    q[:, keep], k, v, lse[:, keep], do[:, keep])[i]
+        def drop(keep, i):
+            return lambda: attention_bwd_plain(
+                q[:, keep], k, v, lse[:, keep], do[:, keep])[i]
 
-            controls += [dict(desc="dk without one row chunk's partial",
-                              out=1, fault=drop(1)),
-                         dict(desc="dv without one row chunk's partial",
-                              out=2, fault=drop(2))]
+        for what, keep in g2l_bwd_row_drops(call, dtype, dev, chunk):
+            controls += [dict(desc=f"dk without {what}", out=1,
+                              fault=drop(keep, 1)),
+                         dict(desc=f"dv without {what}", out=2,
+                              fault=drop(keep, 2))]
         zero = torch.zeros_like(lse)
         controls += [dict(desc=f"{name} with dS = P dP (no delta)", out=i,
                           fault=lambda i=i: attention_bwd_plain(
@@ -1645,10 +1684,11 @@ def check_fwd_configs(calls):
 
 def check_attn_ufd_configs(calls):
     """The built library's plan (route, tile, shared memory; for
-    latent->grid also the tiles a span, the spans and the ring's stages)
-    of every upfirdn launch (forward and adjoint), every grid->latent
-    launch and every latent->grid launch (forward and backward) of
-    ``calls`` agrees with the wrapper's, in both dtypes."""
+    latent->grid and the grid->latent backward also the tiles a span, the
+    spans and the ring's stages) of every upfirdn launch (forward and
+    adjoint), every grid->latent launch and every latent->grid launch
+    (forward and backward each) of ``calls`` agrees with the wrapper's,
+    in both dtypes."""
     import ctypes
 
     import torch
@@ -1684,6 +1724,11 @@ def check_attn_ufd_configs(calls):
                       else lib.gt_l2g_bwd_plan)
                 fn(code, c["B"], c["Lk"], c["Lq"], c["D"], c["Dv"], got)
                 want = l2g_call_plan(c, dtype)
+            elif c["kernel"] == "grid_to_latent_bwd":
+                got = (ctypes.c_int * 7)()
+                lib.gt_g2l_bwd_plan(code, c["B"], c["Lq"], c["Lk"], c["D"],
+                                    c["Dv"], got)
+                want = g2l_bwd_call_plan(c, dtype)
             else:
                 continue
             if tuple(got) != want:
@@ -1697,9 +1742,11 @@ def check_attn_ufd_configs(calls):
 NO_SPILL = ("fwd_wgmma_kernel", "fwd_reduce_kernel", "fwd_smallk_kernel",
             "dx_wgmma_kernel", "dw_wgmma_kernel", "dx_smallk_kernel",
             "dw_smallk_kernel", "g2l_mma_kernel", "ufd_tile_kernel",
-            "ufd_smallc_kernel", "l2g_mma_kernel", "l2g_bwd_mma_kernel")
+            "ufd_smallc_kernel", "l2g_mma_kernel", "l2g_bwd_mma_kernel",
+            "g2l_bwd_mma_kernel", "g2l_bwd_kernel")
 WGMMA_KERNELS = ("fwd_wgmma_kernel", "dx_wgmma_kernel", "dw_wgmma_kernel")
-MMA_KERNELS = ("g2l_mma_kernel", "l2g_mma_kernel", "l2g_bwd_mma_kernel")
+MMA_KERNELS = ("g2l_mma_kernel", "l2g_mma_kernel", "l2g_bwd_mma_kernel",
+               "g2l_bwd_mma_kernel")
 # The presets beside ffhq256-duplex, each driven once at its new launch
 # shapes; bedroom256-duplex is ffhq256-duplex's ModelConfig field for
 # field.
@@ -1763,7 +1810,8 @@ def check_general_route(peaks):
     the attention tensor-core kernels once each at a shape no preset
     makes: grid->latent at n not a multiple of 16, L padded from 20 to
     32; latent->grid, forward and backward, at n 1000 (a ragged last
-    tile, three spans at batch 3) with L padded from 20 to 32."""
+    tile, three spans at batch 3) with L padded from 20 to 32; the
+    grid->latent backward at both (n 200 in one span, n 1000 in three)."""
     from gansformer_tpu_torch import ops
 
     call = dict(kernel="upfirdn", label="b64 3x3 filter (general route)",
@@ -1802,6 +1850,20 @@ def check_general_route(peaks):
     if got["latent_to_grid_simt"] or got["latent_to_grid_bwd_simt"] or \
             not (got["latent_to_grid_mma"] and got["latent_to_grid_bwd_mma"]):
         fail(f"the ragged latent->grid launches took the routes {got}")
+    g2l_bwd = [dict(tail, kernel="grid_to_latent_bwd", lse=False),
+               dict(l2g, kernel="grid_to_latent_bwd", Lq=1000, Lk=20,
+                    lse=False)]
+    print("grid->latent's backward tensor-core kernel at a row tail, a "
+          "ragged last tile, several spans and a latent count off its "
+          f"buckets (plans {[g2l_bwd_call_plan(c, torch.bfloat16) for c in g2l_bwd]}"
+          "), bf16:", flush=True)
+    check_attn_ufd_configs(g2l_bwd)
+    ops.reset_launch_counts()
+    check_kernels(g2l_bwd, "bfloat16", peaks)
+    got = ops.path_launch_counts()
+    if got["grid_to_latent_bwd_simt"] or not got["grid_to_latent_bwd_mma"]:
+        fail(f"the ragged grid->latent backward launches took the routes "
+             f"{got}")
 
 
 def preset_phase(name, peaks, held):

@@ -384,6 +384,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 4 bytes the same way (cp.async.ca), zero-filled where `bytes` is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -465,15 +474,15 @@ constexpr int kKeySms = 132;
 
 // cp.async of rows key0 .. key0 + kt - 1 of batch entry b of k [B, n, D]
 // and v [B, n, Dv] into the K and V parts of a ring slot, swizzled, rows
-// past n zero-filled: 8 threads a row, 32 rows a pass of the block's
-// kKeyWarps warps (D and Dv are multiples of 64, so a row is whole passes
-// of 8 chunks and no thread divides).
+// past n zero-filled: 8 threads a row, nthreads / 8 rows a pass (by
+// default all the block's kKeyWarps warps; D and Dv are multiples of 64,
+// so a row is whole passes of 8 chunks and no thread divides).
 __device__ __forceinline__ void load_key_tile(
     unsigned char* kslot, unsigned char* vslot,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    int b, int n, int key0, int kt, int D, int Dv) {
-  const int tid = threadIdx.x;
-  for (int r = tid >> 3; r < kt; r += kKeyWarps * 4) {
+    int b, int n, int key0, int kt, int D, int Dv, int tid = threadIdx.x,
+    int nthreads = kKeyWarps * 32) {
+  for (int r = tid >> 3; r < kt; r += nthreads >> 3) {
     const bool in = key0 + r < n;
     const size_t row = (size_t)b * n + (in ? key0 + r : 0);
     for (int c = tid & 7; c < D / 8; c += 8)

@@ -43,12 +43,14 @@ def lse_launch_counts() -> Dict[str, int]:
 
 def path_launch_counts() -> Dict[str, int]:
     """Launches since the last reset of the routes of the kernels that
-    have several: upfirdn (forward and adjoint) by route, grid->latent,
-    latent->grid and latent->grid backward by route."""
+    have several: upfirdn (forward and adjoint) by route, grid->latent
+    and latent->grid, forward and backward, by route."""
     ca = cuda_attention
     out = {f"upfirdn_{name}": cuda_upfirdn.path_launches[p]
            for p, name in cuda_upfirdn.PATH_NAMES.items()}
     out.update({f"grid_to_latent_{name}": ca.g2l_path_launches[p]
+                for p, name in ca.G2L_NAMES.items()})
+    out.update({f"grid_to_latent_bwd_{name}": ca.g2l_bwd_path_launches[p]
                 for p, name in ca.G2L_NAMES.items()})
     out.update({f"latent_to_grid_{name}": ca.l2g_path_launches[p]
                 for p, name in ca.L2G_NAMES.items()})
@@ -71,6 +73,7 @@ def reset_launch_counts() -> None:
     cuda_attention.launches_l2g_lse = 0
     for counts in (cuda_upfirdn.path_launches,
                    cuda_attention.g2l_path_launches,
+                   cuda_attention.g2l_bwd_path_launches,
                    cuda_attention.l2g_path_launches,
                    cuda_attention.l2g_bwd_path_launches):
         for key in counts:

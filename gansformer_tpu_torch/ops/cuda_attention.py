@@ -22,8 +22,13 @@ Replaces ``gansformer_tpu/ops/pallas_attention.py``:
   chunks.
 * ``grid_to_latent_bwd_cuda`` <- ``_grid_to_latent_bwd`` ->
   ``pl.pallas_call`` (body ``_grid_to_latent_bwd_kernel``): P rebuilt from
-  ``lse``, dq per row, dk/dv summed over n through per-chunk fp32
-  partials and a fixed-order reduce.
+  ``lse``, delta = rowsum(dP * P) inside the kernel, dq per row, dk/dv
+  summed over n.  In bf16 with L <= 32 and D, Dv multiples of 64 up to
+  512 (every preset launch) a tensor-core kernel (``g2l_bwd_plan``: K and
+  V resident, q and do tiles through a cp.async ring, read once; dK and
+  dV in registers across a span of tiles, fp32 partials and a
+  fixed-order reduce only where n splits into spans); else the CUDA-core
+  kernel on 64-row chunks, each writing partials.
 * ``latent_to_grid_bwd_cuda`` <- ``_latent_to_grid_bwd`` ->
   ``pl.pallas_call`` (body ``_latent_to_grid_bwd_kernel``): the
   FlashAttention backward with delta = rowsum(do * o) computed here, in
@@ -32,13 +37,15 @@ Replaces ``gansformer_tpu/ops/pallas_attention.py``:
   same routes as the forward (``l2g_plan(..., bwd=True)``): on the
   tensor cores K and V are read once, S, dP, dV, dK and dq on mma.sync.
 
-Both latent->grid kernels are bound by bytes (16 operations a byte at L
-= 16, against the card's ~295), so ``mma.sync`` serves where ``wgmma``
-would buy nothing.  The TPU kernels keep P (and dS) in fp32 in their
-products; the tensor cores round operands to bf16, so P and dS enter
-them as hi + lo bf16 terms (two products): one rounding would move o by
-~1e-4 and dq, dk, dv by ~2e-3 of their max, a rounding point the TPU
-kernels lack (``tests/test_torch_l2g_plan.py`` pins both).
+The latent->grid kernels and the backward of both are bound by bytes
+(16-26 operations a byte at L = 16, against the card's ~295), so
+``mma.sync`` serves where ``wgmma`` would buy nothing.  The TPU kernels
+keep P (and dS) in fp32 in their products; the tensor cores round
+operands to bf16, so P and dS enter them as hi + lo bf16 terms (two
+products): one rounding would move o by ~1e-4 and dq, dk, dv by ~2e-3 of
+their max, a rounding point the TPU kernels lack
+(``tests/test_torch_l2g_plan.py`` and ``tests/test_torch_g2l_bwd_plan.py``
+pin it).
 
 The forwards write the fp32 row statistic ``lse`` only when asked
 (``with_stats``): the Functions ask, the serving path (no graph wanted)
@@ -148,17 +155,22 @@ def g2l_rows_per_block(path: int, b: int, n: int) -> int:
 
 
 # latent_to_grid's routes, forward and backward (csrc/attention.cu
-# l2g_path, csrc/attention_bwd.cu l2g_bwd_path), and launches by route
-# since the last reset.  The tensor-core kernels' key tiling mirrors
+# l2g_path, csrc/attention_bwd.cu l2g_bwd_path), grid_to_latent
+# backward's (attention_bwd.cu g2l_bwd_path), and launches by route since
+# the last reset.  The tensor-core kernels' tiling of the grid side (keys
+# of latent->grid, rows of the grid->latent backward) mirrors
 # csrc/hopper.cuh key_tiling (kKeyWarps, kKeyMinStages, kKeyMaxStages,
 # kKeySpanBytes, kKeyOneSpanTiles, kKeyPad, kKeyMaxLp, kKeyMaxCols,
-# kKeySms); the CUDA-core route's chunks are csrc/attention.cu kChunk and
-# attention_bwd.cu kRows.  tests/test_torch_l2g_plan.py holds these to
-# the sources, and chip_smoke.py the built library's plans to this one.
+# kKeySms); the CUDA-core routes' chunks are csrc/attention.cu kChunk and
+# attention_bwd.cu kRows (both backward directions).
+# tests/test_torch_l2g_plan.py and tests/test_torch_g2l_bwd_plan.py hold
+# these to the sources, and chip_smoke.py the built library's plans to
+# these.
 L2G_SIMT, L2G_MMA = 0, 1
 L2G_NAMES = {L2G_SIMT: "simt", L2G_MMA: "mma"}
 l2g_path_launches = dict.fromkeys(L2G_NAMES, 0)
 l2g_bwd_path_launches = dict.fromkeys(L2G_NAMES, 0)
+g2l_bwd_path_launches = dict.fromkeys(G2L_NAMES, 0)
 KEY_WARPS = 8
 KEY_MIN_STAGES = 3
 KEY_MAX_STAGES = 4
@@ -189,6 +201,22 @@ def _l2g_bwd_mma_fixed(lp: int, kt: int, d: int, dv: int) -> int:
     return (lp * (d + dv) * 2 + KEY_WARPS * 2048
             + 4 * kt * (lp + KEY_PAD) * 2 + 2 * lp * (kt + KEY_PAD) * 2
             + 2 * lp * 4)
+
+
+def _g2l_bwd_mma_fixed(lp: int, kt: int, d: int, dv: int) -> int:
+    """grid->latent backward shared memory beside the ring: K and V, the
+    warps' S and dP parts (the dq staging tiles reuse them), P and dS hi
+    + lo."""
+    return (lp * (d + dv) * 2 + KEY_WARPS * 128 * lp
+            + 4 * kt * (lp + KEY_PAD) * 2)
+
+
+def key_shape_ok(dtype: torch.dtype, l: int, d: int, dv: int) -> bool:
+    """The launches the tensor-core kernels of the grid side take: bf16,
+    L <= 32, D and Dv multiples of 64 up to 512."""
+    return (dtype == torch.bfloat16 and 1 <= l <= KEY_MAX_LP and d > 0
+            and dv > 0 and d % 64 == 0 and dv % 64 == 0
+            and d <= KEY_MAX_COLS and dv <= KEY_MAX_COLS)
 
 
 def key_tiling(fixed, key_bytes: int, b: int, n: int):
@@ -223,9 +251,7 @@ def l2g_plan(dtype: torch.dtype, b: int, n: int, l: int, d: int, dv: int,
     tensor-core kernel for bf16 with L <= 32 and D, Dv multiples of 64 up
     to 512, else the CUDA-core kernel (its chunk as the tile, one tile a
     span, LP and stages 0)."""
-    if (dtype == torch.bfloat16 and 1 <= l <= KEY_MAX_LP and d > 0
-            and dv > 0 and d % 64 == 0 and dv % 64 == 0
-            and d <= KEY_MAX_COLS and dv <= KEY_MAX_COLS):
+    if key_shape_ok(dtype, l, d, dv):
         lp = key_lp(l)
         fixed = ((lambda kt: _l2g_bwd_mma_fixed(lp, kt, d, dv)) if bwd
                  else (lambda kt: _l2g_mma_fixed(lp, kt, d)))
@@ -240,6 +266,34 @@ def l2g_plan(dtype: torch.dtype, b: int, n: int, l: int, d: int, dv: int,
                 -(-n // L2G_BWD_SIMT_ROWS), 0, smem)
     smem = 4 * (l * d + l * L2G_SIMT_CHUNK + L2G_SIMT_WARPS * d)
     return (L2G_SIMT, 0, L2G_SIMT_CHUNK, 1, -(-n // L2G_SIMT_CHUNK), 0, smem)
+
+
+def g2l_bwd_plan(dtype: torch.dtype, b: int, n: int, l: int, d: int,
+                 dv: int):
+    """(path, LP, rows a tile, tiles a span, spans, ring stages, shared
+    memory) of a grid_to_latent backward launch: the tensor-core kernel
+    at ``key_shape_ok`` (the n grid rows tiled as latent->grid tiles its
+    keys), else the CUDA-core kernel (its 64-row chunk as the tile, one
+    tile a span, LP and stages 0)."""
+    if key_shape_ok(dtype, l, d, dv):
+        lp = key_lp(l)
+        t = key_tiling(lambda kt: _g2l_bwd_mma_fixed(lp, kt, d, dv),
+                       (d + dv) * 2 + 4, b, n)
+        if t is not None:
+            return (G2L_MMA, lp) + t
+    rows = L2G_BWD_SIMT_ROWS
+    smem = 4 * (l * (d + dv) + 2 * rows * l + L2G_SIMT_WARPS * (d + dv))
+    return (G2L_SIMT, 0, rows, 1, -(-n // rows), 0, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _g2l_bwd_route(dtype: torch.dtype, b: int, n: int, l: int, d: int,
+                   dv: int):
+    """The plan of a grid_to_latent backward launch, its shared memory
+    checked (worked out once per launch shape)."""
+    plan = g2l_bwd_plan(dtype, b, n, l, d, dv)
+    _build.check_smem(plan[6], f"grid_to_latent backward of {l}x({d}+{dv})")
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -373,22 +427,27 @@ def grid_to_latent_bwd_cuda(q, k, v, lse, do):
     b, n, d = q.shape
     l, dv = v.shape[1], v.shape[2]
     _check_latents(l, "grid_to_latent backward")
+    path, _, _, _, spans, _, _ = _g2l_bwd_route(q.dtype, b, n, l, d, dv)
+    if path == G2L_MMA:
+        q, k, v, do = _aligned(q, k, v, do)
     lib = _build.load_library()
-    _build.check_smem(lib.gt_g2l_bwd_smem(l, d, dv),
-                      f"grid_to_latent backward of {l}x({d}+{dv})")
-    chunks = -(-n // lib.gt_attn_bwd_rows())
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dk_part = torch.empty((b, chunks, l, d), **f32)
-    dv_part = torch.empty((b, chunks, l, dv), **f32)
+    dk_part = dv_part = None
+    if path == G2L_SIMT or spans > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        dk_part = torch.empty((b, spans, l, d), **f32)
+        dv_part = torch.empty((b, spans, l, dv), **f32)
     dq, dk, dvv = (torch.empty_like(q), torch.empty_like(k),
                    torch.empty_like(v))
     rc = lib.gt_grid_to_latent_bwd(
-        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dvv.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), b, n, l, d,
-        dv, 1.0 / math.sqrt(d), _build.stream_ptr(q))
-    _build.check(rc, "grid_to_latent backward kernel")
+        dvv.data_ptr(), _ptr(dk_part), _ptr(dv_part), b, n, l, d, dv,
+        1.0 / math.sqrt(d), _build.stream_ptr(q))
+    if rc:
+        _build.check(rc, f"grid_to_latent backward kernel "
+                     f"({G2L_NAMES[path]})")
     launches_g2l_bwd += 1
+    g2l_bwd_path_launches[path] += 1
     return dq, dk, dvv
 
 

@@ -16,8 +16,9 @@ Kernels (comma-separated for several in one process):
   grid_to_latent_lse  the same launches writing lse (a g_step's)
   latent_to_grid      the launches of one synthesize (SDPA)
   latent_to_grid_lse  the same launches writing lse (a g_step's)
-  latent_to_grid_bwd  the backward launches of one g_step (the backward
-                      alone of SDPA)
+  grid_to_latent_bwd  the backward launches of one d_step + one g_step
+                      (the backward alone of SDPA)
+  latent_to_grid_bwd  the same for latent_to_grid
 
 To compare a change with its parent on one card, put a copy of this
 script in each tree's root and run it there in turns (parent, change,
@@ -26,13 +27,17 @@ change, parent):
     python3 time_kernels.py TAG KERNEL[,KERNEL...] PRESET [PRESET ...]
 
 Prints one line per launch and a sum per preset and kernel, each
-prefixed with TAG.
+prefixed with TAG: the timer's time of one call (the host's time where
+the wrapper takes longer than the card), and the device time of one call
+by the profiler (the summed time of the kernels the call launches).
 """
 
 import sys
 import time
+import warnings
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
 from gansformer_tpu_torch.core import get_preset
@@ -40,7 +45,7 @@ from gansformer_tpu_torch.core import get_preset
 BATCH = 8
 KERNELS = ("modconv", "upfirdn", "upfirdn_adjoint", "grid_to_latent",
            "grid_to_latent_lse", "latent_to_grid", "latent_to_grid_lse",
-           "latent_to_grid_bwd")
+           "grid_to_latent_bwd", "latent_to_grid_bwd")
 
 
 def median_ms(fn) -> float:
@@ -67,10 +72,29 @@ def median_ms(fn) -> float:
     return sorted(runs)[len(runs) // 2]
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: the summed time of the kernels that
+    ``reps`` calls launch, by the profiler, over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+             for ev in events)
+    return us / reps / 1e3
+
+
 def launches(cfg, kernel):
     """The launches of ``kernel`` that the sums cover, from the tree's
     own plans."""
-    if kernel in ("upfirdn_adjoint", "latent_to_grid_bwd"):
+    if kernel in ("upfirdn_adjoint", "grid_to_latent_bwd",
+                  "latent_to_grid_bwd"):
         calls = chip_smoke.train_path_calls(cfg, BATCH)
     else:
         calls = chip_smoke.main_path_calls(cfg, BATCH,
@@ -96,22 +120,27 @@ def main() -> int:
         rate = peaks[1] if cfg.dtype == "bfloat16" else peaks[2]
         for kernel in kernels:
             gen = torch.Generator(device="cuda").manual_seed(0)
-            sums = [0.0, 0.0, 0.0]
+            sums = [0.0] * 5
             calls = launches(cfg, kernel)
             for c in calls:
                 case = chip_smoke.build_case(c, dtype, gen)
                 ms, lib = median_ms(case["kernel"]), median_ms(case["library"])
+                dev, lib_dev = (device_ms(case["kernel"]),
+                                device_ms(case["library"]))
                 bound = max(case["bytes"] / peaks[0],
                             case["ops"] / rate) * 1e3
-                sums = [sums[0] + ms, sums[1] + lib, sums[2] + bound]
+                sums = [x + y for x, y in zip(sums, (ms, lib, bound, dev,
+                                                     lib_dev))]
                 print(f"{tag} {name} {kernel} {c['label']:28s} kernel "
                       f"{ms:.4f} ms library {lib:.4f} ms bound {bound:.4f} "
-                      f"ms", flush=True)
+                      f"ms; device: kernel {dev:.4f} ms library "
+                      f"{lib_dev:.4f} ms", flush=True)
                 del case
                 torch.cuda.empty_cache()
             print(f"{tag} {name} {kernel} sum of {len(calls)} kernel "
                   f"{sums[0]:.4f} ms library {sums[1]:.4f} ms bound "
-                  f"{sums[2]:.4f} ms ({cfg.dtype}, batch {BATCH})",
+                  f"{sums[2]:.4f} ms; device: kernel {sums[3]:.4f} ms "
+                  f"library {sums[4]:.4f} ms ({cfg.dtype}, batch {BATCH})",
                   flush=True)
     return 0
 
