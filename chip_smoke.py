@@ -79,7 +79,18 @@ In order:
    then the preset with ``d_attention`` (one d_step + one g_step): its
    counters against its plan, finite losses and gradients, and any
    attention launch shape the preset's run did not hold against its
-   plain version; then each other preset (cityscapes256-duplex at L = 32,
+   plain version; then R1: one ``d_step_r1`` of the preset and one with
+   ``d_attention`` (batch 8, bf16; R1 on the whole batch at the preset's
+   ``r1_batch_shrink``), each with its counters (kernel launches, lse,
+   routes and the second-order passes: kernel 2 as the adjoint's
+   adjoint, the attention's torch-op passes) reset just before and held
+   to ``r1_step_calls``' plan, any launch shape no earlier phase held
+   against its plain version (none is expected: the second order
+   re-enters known geometries), finite losses with ``Loss/D/r1``, every
+   leaf of D finite and nonzero, and the step's peak device memory; the
+   preset's then 3 more iterations of d_step_r1, d_step and g_step by
+   CUDA events and the profiler's breakdown of one d_step_r1; then each
+   other preset (cityscapes256-duplex at L = 32,
    ffhq1024-duplex at 512^2 and 1024^2, clevr64-simplex in fp32; the
    ModelConfig of bedroom256-duplex is ffhq256-duplex's, which the
    script asserts), at batch 8: every launch of one synthesize and one
@@ -90,13 +101,27 @@ In order:
    on the card and on the host: every gradient leaf held to the host's,
    D's and G's apart, the attention leaves printed apart; then G alone,
    both sides given the host's gradient of the loss wrt the images (D's
-   cuDNN convolutions out of the chain);
+   cuDNN convolutions out of the chain); then the card's and the host's
+   fp32 gradients against the host's float64 plain path (ROADMAP C.2):
+   one d_step_r1 with and without ``d_attention`` (D's leaves) and one
+   d_step + g_step at ReZero gates 0.1 (D's and G's), a leaf passing
+   within ``GRAD_TOL`` of its scale or within ``REF_HOST_FACTOR`` times
+   the host fp32's error on it (the larger of two host samples: on the
+   inputs, and on the inputs at another fp32 rounding), every side given
+   the same reals and G's images from the host's float64 path in the
+   reals' range; the R1 penalty's own gradient, with and without
+   ``d_attention``, held the same way, every card side through the
+   kernels; each R1 check again with one adjoint launch of the image
+   gradient outside its Function (its second order silently lost), which
+   the rule must reject where R1 is not a negligible part of the
+   gradient;
 9. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
    Every number of a kernel in the JSON line covers that kernel's
    ``span``: the serve run's launches for the forward kernels (and, in a
    second entry with ``"lse": true``, the forward attention launches of
    one d_step + one g_step that write lse), one d_step + one g_step for
-   the backward kernels.
+   the backward kernels, and one d_step_r1 (a third entry per kernel it
+   launches: every launch of the step, the second order's included).
 
 Exits non-zero, printing no result, on any failure, without CUDA, or
 without the ``gansformer_tpu_torch`` package beside it.
@@ -310,6 +335,39 @@ def train_path_calls(cfg, batch: int):
     g_step = g_fwd + d_fake + backward_calls(g_fwd + d_fake)
     return ([dict(c, phase="d_step") for c in d_step]
             + [dict(c, phase="g_step") for c in g_step])
+
+
+def r1_step_calls(cfg, batch: int, shrink: int = 1):
+    """Every kernel launch of one d_step_r1 at ``cfg``, tagged with its
+    phase: G's forward under no_grad; D on the reals, on the fakes and on
+    the R1 slice (the first ``batch // shrink`` reals); the R1 slice's
+    image gradient, whose graph is kept (its adjoint and attention
+    backward launches); then the backward of the loss: the backward
+    launches of all three D graphs (the R1 graph's forward is reached
+    through D's nonlinear backward ops, the stddev and the attention) and,
+    for each upfirdn launch of the R1 graph, kernel 2 at its own geometry
+    as the adjoint's adjoint (``second order`` in the label).  The
+    attention's second order launches nothing (torch ops); its passes
+    are counted by ``plan_second_order_counts``."""
+    d_real, d_fake = d_forward_calls(cfg, batch, "r"), \
+        d_forward_calls(cfg, batch, "f")
+    d_r1 = d_forward_calls(cfg, batch // shrink, "r1")
+    image_grad = [dict(c, label=c["label"] + " (image gradient)")
+                  for c in backward_calls(d_r1)]
+    second = [dict(c, label=c["label"] + " second order") for c in d_r1
+              if c["kernel"] == "upfirdn"]
+    calls = (main_path_calls(cfg, batch) + d_real + d_fake + d_r1
+             + image_grad + backward_calls(d_fake) + backward_calls(d_real)
+             + backward_calls(d_r1) + second)
+    return [dict(c, phase="d_step_r1") for c in calls]
+
+
+def plan_second_order_counts(cfg, batch: int, shrink: int = 1):
+    """``ops.second_order_counts`` of one d_step_r1: one pass per upfirdn
+    and per attention launch of D's forward on the R1 slice."""
+    d_r1 = d_forward_calls(cfg, batch // shrink, "r1")
+    return {f"{k}_second_order": sum(c["kernel"] == k for c in d_r1)
+            for k in ("upfirdn",) + ATTENTION_KERNELS}
 
 
 def attention_cost(call, itemsize: int):
@@ -1360,11 +1418,12 @@ def counted_steps(state, reals, calls, dtype_name):
     return {p: d[0] for p, d in deltas.items()}, lse_g, losses
 
 
-def check_grads(state):
-    """Every gradient leaf of G and D present, finite and nonzero."""
+def check_grads(state, nets=("G", "D")):
+    """Every gradient leaf of ``nets`` present, finite and nonzero."""
     import torch
 
-    grads = _named_grads(state)
+    grads = {k: g for k, g in _named_grads(state).items()
+             if k.split("/")[0] in nets}
     for name, g in grads.items():
         if g is None:
             fail(f"{name}: no gradient")
@@ -1453,6 +1512,89 @@ def d_attention_run(model, train, calls):
     _, _, losses = counted_steps(state, reals, calls, model.dtype)
     print(f"  losses {losses}", flush=True)
     check_grads(state)
+
+
+def r1_counted_step(state, reals, calls, second, dtype_name, what):
+    """One d_step_r1 with the counters reset just before and read just
+    after, held to the plan: kernel launches, forward attention launches
+    that wrote lse, the routes of the upfirdn and attention launches, and
+    the second-order passes (``second``); finite losses, ``Loss/D/r1``
+    among them.  Returns the launch counts, the lse counts and the
+    losses."""
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.train import d_step_r1
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    aux = d_step_r1(state, reals, 0)
+    torch.cuda.synchronize()
+    got, lse = ops.launch_counts(), ops.lse_launch_counts()
+    got_second = ops.second_order_counts()
+    check_path_counts(ops.path_launch_counts(), calls, dtype_name, what)
+    want = plan_counts(calls, "d_step_r1")
+    want_lse = plan_lse_counts(calls, "d_step_r1")
+    print(f"  {what}: launches {got}; with lse {lse}; second order "
+          f"{got_second}", flush=True)
+    if got != want:
+        fail(f"{what}: launches {got} != the plan's {want}")
+    if lse != want_lse:
+        fail(f"{what}: launches with lse {lse} != the plan's {want_lse}")
+    if got_second != second:
+        fail(f"{what}: second-order passes {got_second} != the plan's "
+             f"{second}")
+    losses = {k: float(v) for k, v in aux.items()}
+    if "Loss/D/r1" not in losses or not all(
+            math.isfinite(v) for v in losses.values()):
+        fail(f"{what}: losses {losses}")
+    return got, lse, losses
+
+
+def r1_run(model, train, calls, second, timed: bool):
+    """One d_step_r1 of ``model`` at the training batch with its counters
+    held to the plan, then every gradient leaf of D finite and nonzero,
+    and the peak device memory of that step.  ``timed``: 3 more
+    iterations of d_step_r1, d_step and g_step by CUDA events, and the
+    profiler's breakdown of one d_step_r1.  Returns the launch counts,
+    the peak bytes and the mean ms of each step (None untimed)."""
+    import torch
+
+    from gansformer_tpu_torch.data import SyntheticDataset
+    from gansformer_tpu_torch.train import d_step, d_step_r1, g_step
+
+    state = train_state_on_card(model, train)
+    data = SyntheticDataset(model.resolution, model.img_channels).batches(
+        TRAIN_BATCH, seed=3)
+    batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, _, losses = r1_counted_step(state, batches[0], calls, second,
+                                        model.dtype, "d_step_r1")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {losses}; peak device memory of the step "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    check_grads(state, ("D",))
+    if not timed:
+        return counts, peak, None
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ms = {"d_step_r1": [], "d_step": [], "g_step": []}
+    for it in range(1, 4):
+        ev[0].record()
+        d_step_r1(state, batches[it], it)
+        ev[1].record()
+        d_step(state, batches[it], it)
+        ev[2].record()
+        g_step(state, it, TRAIN_BATCH)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(ms):
+            ms[name].append(ev[i].elapsed_time(ev[i + 1]))
+        print(f"  iteration {it}: " + ", ".join(
+            f"{k} {v[-1]:.2f} ms" for k, v in ms.items())
+            + " (CUDA events)", flush=True)
+    profile(lambda: d_step_r1(state, batches[0], 9), "one d_step_r1")
+    return counts, peak, {k: sum(v) / len(v) for k, v in ms.items()}
 
 
 def _is_attention_leaf(name: str) -> bool:
@@ -1553,6 +1695,309 @@ def grads_compare(model, train):
                  g_only["cpu"])
     print(f"  one d_step + one g_step: card {times['cuda']:.1f} s, host "
           f"{times['cpu']:.1f} s", flush=True)
+
+
+# The card's fp32 gradient of a leaf against the host's float64 reference
+# (ROADMAP C.2): it passes within GRAD_TOL of the leaf's max |reference|,
+# or within REF_HOST_FACTOR times the host fp32's own error on that leaf.
+# At random init an lrelu input within fp32 rounding of zero takes either
+# slope, so a leaf's fp32 error depends on the rounding a run lands on:
+# the host's error is the larger of two fp32 samples, on the inputs and
+# on the same inputs at another fp32 rounding (``perturbed``).  On the
+# ffhq256-duplex D with attention the R1 penalty's D/b8_conv0.b reads
+# 1.03e-2 of its scale in the first sample and 6.83e-2 in the second,
+# where float64 moves 1.29e-5 for the same change of its inputs, and the
+# card read 3.31e-3 and 3.56e-2 of it in two runs (r1_reference.py and
+# chip_smoke.py on an H100).
+REF_HOST_FACTOR = 2.0
+REF_ROUNDOFF = 2.0 ** -24
+REF_SEED = 7
+
+
+def perturbed(x, seed: int = REF_SEED):
+    """``x`` at another fp32 rounding: each entry scaled by 1 +
+    REF_ROUNDOFF e, e ~ N(0, 1) from ``seed``, in float64, then cast back
+    to ``x``'s dtype."""
+    import torch
+
+    e = torch.randn(x.shape, generator=torch.Generator().manual_seed(seed),
+                    dtype=torch.float64)
+    return (x.double() * (1.0 + REF_ROUNDOFF * e)).to(x.dtype)
+
+
+def planted_second_order_drop():
+    """A context in which the first adjoint launch of an image gradient
+    runs bare, outside ``UpfirdnAdjointFunction``: its value is right and
+    the second order through it is silently lost, as a ctypes launch in
+    the backward would lose it.  Yields a list that holds one entry once
+    the fault was planted."""
+    import contextlib
+    import importlib
+
+    ufd = importlib.import_module("gansformer_tpu_torch.ops.upfirdn2d")
+
+    @contextlib.contextmanager
+    def planted():
+        adj = ufd.UpfirdnAdjointFunction
+        apply, done = adj.apply, []
+
+        def bare_once(*a):
+            if done:
+                return apply(*a)
+            done.append(1)
+            return ufd.upfirdn2d_adjoint(*a)
+
+        adj.apply = staticmethod(bare_once)
+        try:
+            yield done
+        finally:
+            del adj.apply                  # the inherited classmethod again
+    return planted()
+
+
+def host_fakes(model, train):
+    """G's images of a d_step at iteration 0 (batch 2, noise off, the
+    gates at 0.1, seed 0) by the host's float64 path."""
+    import torch
+
+    from gansformer_tpu_torch.train import create_train_state, draw_step, \
+        g_forward
+
+    state = create_train_state(dataclasses.replace(model, dtype="float64"),
+                               train, seed=0, device="cpu")
+    perturb(state.generator)
+    with torch.no_grad():
+        return g_forward(state.generator, draw_step(
+            state, 0, "d", 2, noise_mode="none"), "none")[0]
+
+
+def reference_inputs(model, train):
+    """The inputs every side of the float64-referenced checks sees: the
+    reals (seed 5, batch 2, uint8) normalized in fp32 as a step does, and
+    ``host_fakes`` divided by their largest |value|, so they lie in the
+    reals' range.  G's raw images at this init reach |x| 33.5; on them
+    D's attention logits reach 3.0e4 and float64 itself moves leaves of
+    D's gradient by up to 0.2 of their scale when the images take
+    another fp32 rounding (r1_reference.py), so no fp32 route can be held
+    to it there.  In the reals' range the logits stay below 14 and
+    float64 moves by 2e-7."""
+    import torch
+
+    from gansformer_tpu_torch.data import SyntheticDataset, normalize_images
+
+    reals = torch.from_numpy(next(SyntheticDataset(
+        model.resolution, model.img_channels).batches(2, seed=5)))
+    fakes = host_fakes(model, train)
+    print(f"  G's images by the host's float64 path: max |x| "
+          f"{float(fakes.abs().max()):.3f}, divided by it", flush=True)
+    return normalize_images(reals), fakes / fakes.abs().max()
+
+
+def host_branches(model, train, dtype, x, fakes):
+    """D's gradient leaves of each branch of a d_step_r1's loss by the
+    host's plain path in ``dtype``: the logistic loss on the reals ``x``
+    ("reals") and on ``fakes`` ("fakes"), and the R1 penalty on ``x``
+    ("R1", unweighted)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gansformer_tpu_torch.core.precision import input_dtype
+    from gansformer_tpu_torch.losses import r1_penalty
+    from gansformer_tpu_torch.train import create_train_state
+
+    d = create_train_state(dataclasses.replace(model, dtype=dtype), train,
+                           seed=0, device="cpu").discriminator
+    x, fakes = (t.to(input_dtype(dtype)) for t in (x, fakes))
+    out = {}
+    for branch, loss in (("reals", lambda: F.softplus(-d(x)).mean()),
+                         ("fakes", lambda: F.softplus(d(fakes)).mean()),
+                         ("R1", lambda: r1_penalty(d, x))):
+        grads = torch.autograd.grad(loss(), list(d.parameters()),
+                                    allow_unused=True)
+        out[branch] = {f"D/{n}": (torch.zeros(p.shape, dtype=torch.float64)
+                                  if g is None else g.detach().double())
+                       for (n, p), g in zip(d.named_parameters(), grads)}
+    return out
+
+
+def _reference_grads(model, train, kind, dev, dtype, plant=False,
+                     fakes=None, perturb_reals=False):
+    """The gradient leaves of one ``kind`` at batch 2, noise and mixing
+    off, the ReZero gates at 0.1 (``perturb``), from seed 0, in ``dtype``
+    on ``dev``, through the entry points: "d_step_r1" (D's), "R1 penalty"
+    (D's gradient of the penalty alone: the second-order term),
+    "d_step + g_step" (D's and G's).  ``fakes`` stand in for G's images
+    in the d_step_r1; ``plant`` runs one image-gradient adjoint launch
+    outside its Function; ``perturb_reals`` gives the step the
+    normalized reals at another fp32 rounding (``perturbed``)."""
+    import contextlib
+
+    import torch
+
+    from gansformer_tpu_torch.core.precision import input_dtype
+    from gansformer_tpu_torch.data import SyntheticDataset, normalize_images
+    from gansformer_tpu_torch.losses import r1_penalty
+    from gansformer_tpu_torch.train import create_train_state, d_step, \
+        d_step_r1, g_step, steps
+
+    reals = torch.from_numpy(next(SyntheticDataset(
+        model.resolution, model.img_channels).batches(2, seed=5)))
+    state = create_train_state(dataclasses.replace(model, dtype=dtype),
+                               train, seed=0, device=dev)
+    perturb(state.generator)
+    d = state.discriminator
+    saved = steps.g_forward, steps.normalize_images
+    if fakes is not None:
+        steps.g_forward = lambda *a: (fakes.to(dev, input_dtype(dtype)),
+                                      None)
+    if perturb_reals:
+        steps.normalize_images = lambda u: perturbed(saved[1](u))
+    try:
+        with (planted_second_order_drop() if plant
+              else contextlib.nullcontext([1])) as done:
+            if kind == "d_step_r1":
+                d_step_r1(state, reals, 0, noise_mode="none")
+            elif kind == "R1 penalty":
+                x = normalize_images(reals.to(dev)).to(input_dtype(dtype))
+                for p, g in zip(d.parameters(), torch.autograd.grad(
+                        r1_penalty(d, x), list(d.parameters()),
+                        allow_unused=True)):
+                    p.grad = torch.zeros_like(p) if g is None else g
+            elif kind == "d_step + g_step":
+                d_step(state, reals, 0, noise_mode="none")
+                g_step(state, 0, 2, noise_mode="none")
+            else:
+                fail(f"unknown gradient kind {kind!r}")
+    finally:
+        steps.g_forward, steps.normalize_images = saved
+    if not done:
+        fail(f"{kind}: the planted fault found no adjoint launch")
+    nets = ("D", "G") if kind == "d_step + g_step" else ("D",)
+    return {k: g.detach().double().cpu()
+            for k, g in _named_grads(state).items()
+            if k.split("/")[0] in nets}
+
+
+def hold_to_reference(title, ref, hosts, card):
+    """Each leaf of ``card`` (fp32 on the card) against ``ref`` (float64 on
+    the host) by the REF_HOST_FACTOR rule, the largest error of the
+    ``hosts`` runs (fp32 on the host) giving the leaf's own fp32 error;
+    key biases at their weight's scale.  Prints the worst leaves of
+    both; returns the leaves that fail as (name, card error,
+    allowance)."""
+    rows, failed, unused = [], [], 0
+    for name, r in ref.items():
+        scale = float((ref[name[:-1] + "w"] if _key_bias(name) else r)
+                      .abs().max())
+        cerr = float((card[name] - r).abs().max())
+        herr = max(float((h[name] - r).abs().max()) for h in hosts)
+        if scale == 0.0 and cerr == 0.0 and herr == 0.0:
+            unused += 1          # noise off: the strengths are unused
+            continue
+        allow = max(GRAD_TOL * scale, REF_HOST_FACTOR * herr)
+        ok = math.isfinite(cerr) and cerr <= allow
+        if not ok:
+            failed.append((name, cerr, allow))
+        by_host_error = ok and cerr > GRAD_TOL * scale
+        scale = max(scale, 1e-30)
+        rows.append((cerr / scale, herr / scale, by_host_error, name))
+    by_card = sorted(rows, reverse=True)
+    by_host = sorted(rows, key=lambda r: -r[1])
+    print(f"  {title}: {len(rows)} leaves ({unused} zero everywhere); "
+          f"{len(rows) - len(failed)} pass, "
+          f"{sum(r[2] for r in rows)} of them by the host-error clause; "
+          f"card vs float64 median {by_card[len(rows) // 2][0]:.3e}, "
+          "worst " + ", ".join(f"{c:.3e} ({n}; host {h:.3e})"
+                               for c, h, _, n in by_card[:4])
+          + "; host fp32 vs float64 worst "
+          + ", ".join(f"{h:.3e} ({n})" for _, h, _, n in by_host[:3]),
+          flush=True)
+    return failed
+
+
+def reference_compare(model, train):
+    """The card's fp32 gradients against the host's float64 plain path
+    (ROADMAP C.2), the host's two fp32 samples beside them:
+    the R1 penalty's gradient and one d_step_r1 (D's leaves), with and
+    without ``d_attention``, all through the kernels, each also with its
+    planted fault (one image-gradient adjoint launch outside its
+    Function), which the rule must reject wherever the penalty is held
+    alone and in the d_step_r1 with ``d_attention``, whose loss R1
+    dominates at this init; then one d_step + g_step end to end at
+    ReZero gates 0.1 (D's and G's leaves).  fp32, batch 2, noise and
+    mixing off, the inputs of ``reference_inputs``.
+
+    The host computes each branch of the d_step_r1 loss once per model
+    and side (``host_branches``): the R1 penalty's reference is its R1
+    branch, the d_step_r1's the sum of the logistic branches and the
+    weighted R1 branch; the card runs the entry points."""
+    model = dataclasses.replace(model, dtype="float32")
+    train = dataclasses.replace(train, style_mixing_prob=0.0)
+    x, fakes = reference_inputs(model, train)
+    weight = train.r1_gamma * 0.5 * train.d_reg_interval
+
+    def step(br):
+        return {n: br["reals"][n] + br["fakes"][n] + weight * br["R1"][n]
+                for n in br["R1"]}
+
+    def hold(title, ref, hosts, card, planted, must_reject):
+        failed = hold_to_reference(title, ref, hosts, card)
+        if failed:
+            fail(f"{title}: card vs float64 reference: "
+                 + ", ".join(f"{n} {e:.3e} > {a:.3e}" for n, e, a in
+                             failed[:5]))
+        if planted is None:
+            return
+        caught = hold_to_reference(f"{title}, planted fault", ref, hosts,
+                                   planted)
+        if caught:
+            worst = max(caught, key=lambda c: c[1] / c[2])
+            print(f"  {title}: planted second-order drop rejected at "
+                  f"{len(caught)} leaves, worst {worst[0]} {worst[1]:.3e} > "
+                  f"{worst[2]:.3e}", flush=True)
+        elif must_reject:
+            fail(f"{title}: the planted second-order drop passes the rule")
+        else:
+            print(f"  {title}: the planted second-order drop stays within "
+                  "the rule here: R1 is a small part of this step's "
+                  "gradient at this init (the penalty's own gradient is "
+                  "held above)", flush=True)
+
+    for m, tag in ((model, ""),
+                   (dataclasses.replace(model, d_attention=True),
+                    " with d_attention")):
+        t0 = time.perf_counter()
+        ref = host_branches(m, train, "float64", x, fakes)
+        t1 = time.perf_counter()
+        hosts = [host_branches(m, train, "float32", x, fakes),
+                 host_branches(m, train, "float32", perturbed(x),
+                               perturbed(fakes.float()))]
+        t2 = time.perf_counter()
+        cards = {(kind, plant): _reference_grads(
+            m, train, kind, "cuda", "float32", plant=plant, fakes=fakes)
+            for kind in ("R1 penalty", "d_step_r1") for plant in (False,
+                                                                  True)}
+        print(f"  D{tag}: host float64 {t1 - t0:.1f} s, host fp32 (two "
+              f"samples) {t2 - t1:.1f} s, card (four runs) "
+              f"{time.perf_counter() - t2:.1f} s", flush=True)
+        hold(f"R1 penalty{tag}", ref["R1"], [h["R1"] for h in hosts],
+             cards["R1 penalty", False], cards["R1 penalty", True], True)
+        hold(f"d_step_r1{tag}", step(ref), [step(h) for h in hosts],
+             cards["d_step_r1", False], cards["d_step_r1", True],
+             bool(tag))
+    kind = "d_step + g_step"
+    title = f"{kind}, gates 0.1"
+    t0 = time.perf_counter()
+    ref = _reference_grads(model, train, kind, "cpu", "float64")
+    t1 = time.perf_counter()
+    hosts = [_reference_grads(model, train, kind, "cpu", "float32",
+                              perturb_reals=p) for p in (False, True)]
+    t2 = time.perf_counter()
+    card = _reference_grads(model, train, kind, "cuda", "float32")
+    print(f"  {title}: host float64 {t1 - t0:.1f} s, host fp32 (two "
+          f"samples) {t2 - t1:.1f} s, card {time.perf_counter() - t2:.1f} "
+          "s", flush=True)
+    hold(title, ref, hosts, card, None, False)
 
 
 def _demangled_name(mangled: str) -> str:
@@ -1997,12 +2442,14 @@ def main() -> int:
     check_kernels(flagship, "float32", peaks)
     held = {call_key(c, "float32") for c in flagship}
     held |= {call_key(c, "bfloat16") for b in BUCKETS for c in calls[b]}
-    rows = []
+    rows, row_of = [], {}
     for b in BUCKETS:
         print(f"kernels vs plain, bf16, every launch of one synthesize at "
               f"batch {b}:", flush=True)
         bucket_rows = check_kernels(calls[b], "bfloat16", peaks,
                                     show=b == BUCKETS[-1])
+        row_of.update((call_key(c, "bfloat16"), r)
+                      for c, r in zip(calls[b], bucket_rows))
         print_sums(f"  sums over the {len(bucket_rows)} launches of one "
                    f"synthesize at batch {b}:",
                    kernel_sums(bucket_rows, SERVE_KERNELS))
@@ -2065,6 +2512,8 @@ def main() -> int:
           "one g_step, every forward attention launch that writes lse, and "
           "D's forward upfirdn launches:", flush=True)
     train_rows = check_kernels(checked, "bfloat16", peaks)
+    row_of.update((call_key(c, "bfloat16"), r)
+                  for c, r in zip(checked, train_rows))
     train_sums = kernel_sums(train_rows, TRAIN_KERNELS)
     lse_rows = [r for r in train_rows if r.get("lse")]
     lse_sums = kernel_sums(lse_rows, ATTENTION_KERNELS)
@@ -2111,13 +2560,55 @@ def main() -> int:
     if new:
         print("  its attention launch shapes that the preset's run does not "
               "hold, kernel vs plain, bf16:", flush=True)
-        check_kernels(new, "bfloat16", peaks)
+        row_of.update((call_key(c, "bfloat16"), r) for c, r in zip(
+            new, check_kernels(new, "bfloat16", peaks)))
         held |= seen
     else:
         print("  every attention launch shape of its d_step + g_step is "
               "one the preset's run already held", flush=True)
     d_attention_run(dmodel, tcfg, dcalls)
     torch.cuda.empty_cache()
+
+    # ---- R1: d_step_r1, with and without d_attention ----------------------
+    r1_out = {}
+    for title, rmodel in (("ffhq256-duplex", cfg),
+                          ("ffhq256-duplex with d_attention", dmodel)):
+        shrink = tcfg.r1_batch_shrink
+        rcalls = r1_step_calls(rmodel, TRAIN_BATCH, shrink)
+        second = plan_second_order_counts(rmodel, TRAIN_BATCH, shrink)
+        print(f"d_step_r1 of {title}, batch {TRAIN_BATCH} (R1 on "
+              f"{TRAIN_BATCH // shrink}), bf16, r1_gamma {tcfg.r1_gamma}, "
+              f"d_reg_interval {tcfg.d_reg_interval}; launch plan "
+              f"{plan_counts(rcalls, 'd_step_r1')}; with lse "
+              f"{plan_lse_counts(rcalls, 'd_step_r1')}; second order "
+              f"{second}", flush=True)
+        check_attn_ufd_configs(rcalls)
+        new = [c for c in rcalls if call_key(c, "bfloat16") not in row_of]
+        if new:
+            print(f"  {len(new)} of its launch shapes no earlier phase "
+                  "held, kernel vs plain, bf16:", flush=True)
+            row_of.update((call_key(c, "bfloat16"), r) for c, r in zip(
+                new, check_kernels(new, "bfloat16", peaks)))
+        else:
+            print("  every launch shape of its d_step_r1 (the second order "
+                  "included) is one an earlier phase held", flush=True)
+        r1_out[title] = (rcalls,) + r1_run(rmodel, tcfg, rcalls, second,
+                                           timed=rmodel is cfg)
+        torch.cuda.empty_cache()
+    r1_calls, r1_counts, r1_peak, r1_ms = r1_out["ffhq256-duplex"]
+    r1_kernels = tuple(k for k in REPLACES if r1_counts[k])
+    r1_sums = kernel_sums([row_of[call_key(c, "bfloat16")]
+                           for c in r1_calls], r1_kernels)
+    print_sums("  sums over the launches of one d_step_r1 (bf16, batch "
+               f"{TRAIN_BATCH}):", r1_sums)
+    for kname, s in r1_sums.items():
+        if s["launches"] != r1_counts[kname]:
+            fail(f"{kname}: the d_step_r1 made {r1_counts[kname]} launches, "
+                 f"the sums cover {s['launches']}")
+    print(f"  d_step_r1 {r1_ms['d_step_r1']:.2f} ms, d_step "
+          f"{r1_ms['d_step']:.2f} ms, g_step {r1_ms['g_step']:.2f} ms (CUDA "
+          f"events, mean of 3); peak device memory of one d_step_r1 "
+          f"{r1_peak / 2**30:.2f} GiB ({card})", flush=True)
 
     # ---- the other presets ------------------------------------------------
     if get_preset("bedroom256-duplex") != cfg:
@@ -2130,12 +2621,19 @@ def main() -> int:
     print("card vs host gradients, fp32, batch 2, noise and mixing off:",
           flush=True)
     grads_compare(cfg, tcfg)
+    print("card and host fp32 gradients against the host's float64 plain "
+          f"path, batch 2, noise and mixing off (rule: within {GRAD_TOL} of "
+          f"the leaf's max |float64|, or within {REF_HOST_FACTOR}x the host "
+          "fp32's error on the leaf, the larger of two samples: on the "
+          "inputs and on them at another fp32 rounding):", flush=True)
+    reference_compare(cfg, tcfg)
     print(f"training phases took {time.perf_counter() - t_train:.1f} s; "
           f"the smoke {time.perf_counter() - t_start:.1f} s", flush=True)
 
     train_counts = {k: deltas["d_step"][k] + deltas["g_step"][k]
                     for k in TRAIN_KERNELS}
     span_train = f"one d_step + one g_step at batch {TRAIN_BATCH} (bf16)"
+    span_r1 = f"one d_step_r1 at batch {TRAIN_BATCH} (bf16)"
     kernels = [{
         "name": kname, "route": "cuda", "source": SOURCES[kname],
         "replaces": REPLACES[kname], "launches": launches,
@@ -2147,7 +2645,8 @@ def main() -> int:
          "1, 2, 4, 8 (bf16)", {}),
         (lse_sums, lse_counts, span_train + ", forward launches that write "
          "lse", {"lse": True}),
-        (train_sums, train_counts, span_train, {}))
+        (train_sums, train_counts, span_train, {}),
+        (r1_sums, r1_counts, span_r1, {}))
         for kname, s in sums.items() for launches in (cnt[kname],)]
     print("kernels over each span's launches (ms, plain_ms, bound_ms and "
           "library_ms are sums over them):", flush=True)

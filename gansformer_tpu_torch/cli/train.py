@@ -1,11 +1,15 @@
-"""Train with the PyTorch port: alternating first-order D and G steps on
-the procedural dataset.
+"""Train with the PyTorch port: alternating D and G steps on the
+procedural dataset, with D's lazy R1 penalty (``d_step_r1``) every
+``d_reg_interval`` iterations from iteration 0, as the JAX loop runs it;
+G's path-length penalty is not ported yet, so every G step is first
+order.
 
     python -m gansformer_tpu_torch.cli.train --preset ffhq256-duplex \\
         --steps 4 --batch-size 8 --seed 0 [--device cpu]
 
-Prints one line per iteration: the losses and the milliseconds of the d
-and g steps (host clock around synchronized work).  ``--config`` reads
+Prints one line per iteration: the losses (``Loss/D/r1`` on the R1
+iterations) and the milliseconds of the d and g steps (host clock around
+synchronized work).  ``--config`` reads
 the ``model`` and ``train`` sections and ``data.mirror_augment`` of a
 JAX run's ``config.json`` instead of a preset (the way to
 ``d_attention``, which has no flag, as in the JAX CLI); the flags apply
@@ -35,12 +39,14 @@ from gansformer_tpu_torch.core.config import (PRESETS,
 from gansformer_tpu_torch.core.device import resolve_device
 from gansformer_tpu_torch.data.dataset import SyntheticDataset
 from gansformer_tpu_torch.train.state import create_train_state
-from gansformer_tpu_torch.train.steps import d_step, g_step
+from gansformer_tpu_torch.train.steps import d_step, d_step_r1, g_step
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GANsformer training, PyTorch "
-                                            "port (first-order steps)")
+                                            "port (R1 every d_reg_interval "
+                                            "iterations; no path length "
+                                            "yet)")
     p.add_argument("--preset", default="ffhq256-duplex",
                    choices=sorted(PRESETS))
     p.add_argument("--config", default=None,
@@ -106,16 +112,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         reals = torch.from_numpy(next(data))
         sync()
         t0 = time.perf_counter()
-        d_aux = d_step(state, reals, it, mirror_augment=mirror)
+        step = d_step_r1 if it % train.d_reg_interval == 0 else d_step
+        d_aux = step(state, reals, it, mirror_augment=mirror)
         sync()
         t1 = time.perf_counter()
         g_aux = g_step(state, it, train.batch_size)
         sync()
         t2 = time.perf_counter()
         losses = {k: float(v) for k, v in {**d_aux, **g_aux}.items()}
+        r1 = (f" Loss/D/r1 {losses['Loss/D/r1']:.4f}"
+              if "Loss/D/r1" in losses else "")
         print(f"step {it}: kimg {state.step / 1000:.3f} "
-              f"Loss/D {losses['Loss/D']:.4f} Loss/G {losses['Loss/G']:.4f} "
-              f"real {losses['Loss/scores/real']:.4f} fake "
+              f"Loss/D {losses['Loss/D']:.4f}{r1} Loss/G "
+              f"{losses['Loss/G']:.4f} real "
+              f"{losses['Loss/scores/real']:.4f} fake "
               f"{losses['Loss/scores/fake']:.4f} d_ms "
               f"{(t1 - t0) * 1e3:.2f} g_ms {(t2 - t1) * 1e3:.2f}",
               flush=True)

@@ -2,7 +2,7 @@
 
 A copy of ``gansformer_tpu/core/config.py``'s ``ModelConfig`` (the same
 fields with the same defaults, the same fmap schedule) and of the part of
-its ``TrainConfig`` that the first-order training steps use, with the
+its ``TrainConfig`` that the port's training steps use, with the
 model and train parts of the named presets.  It reads the ``model`` and
 ``train`` sections of a ``config.json`` written by the JAX trainer, and
 its ``data.mirror_augment``; ``validate`` runs the checks of the JAX
@@ -64,7 +64,9 @@ class ModelConfig:
     d_attention: bool = False
     d_components: int = 16
 
-    # numerics: compute dtype of the conv/matmul paths; params stay fp32
+    # numerics: compute dtype of the conv/matmul paths; params stay fp32.
+    # 'float64' is the port's host-only reference mode (core/precision.py),
+    # which ``validate`` refuses as the JAX package does.
     dtype: str = "float32"             # 'float32' | 'bfloat16'
     blur_filter: Tuple[int, ...] = (1, 3, 3, 1)
 
@@ -142,9 +144,11 @@ def get_preset(name: str) -> ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Two-timescale G/D Adam training with lazy regularization: the
-    fields of the JAX ``TrainConfig`` that the first-order steps read
-    (same names and defaults).  ``r1_gamma`` is kept for the regularized
-    steps, which come later."""
+    fields of the JAX ``TrainConfig`` that the port's steps read (same
+    names and defaults).  R1 (``d_step_r1``) runs every
+    ``d_reg_interval`` iterations on the first ``batch_size //
+    r1_batch_shrink`` reals, weighted by ``r1_gamma``; the path-length
+    regularizer comes later."""
 
     batch_size: int = 32
     g_lr: float = 2e-3
@@ -154,6 +158,7 @@ class TrainConfig:
     adam_eps: float = 1e-8
     r1_gamma: float = 10.0
     d_reg_interval: int = 16
+    r1_batch_shrink: int = 1
     g_reg_interval: int = 4
     style_mixing_prob: float = 0.9
     ema_kimg: float = 10.0
@@ -162,12 +167,12 @@ class TrainConfig:
 
 
 # Keys of the JAX ``TrainConfig`` that the port reads and does not use yet
-# (regularizers, the tick loop, checkpoints, telemetry).
+# (the path-length regularizer, the tick loop, checkpoints, telemetry).
 IGNORED_TRAIN_KEYS = frozenset({
-    "total_kimg", "r1_batch_shrink", "pl_weight", "pl_decay",
-    "pl_batch_shrink", "fused_cycle", "async_checkpoint", "kimg_per_tick",
-    "snapshot_ticks", "image_snapshot_ticks", "metric_ticks", "metrics",
-    "debug_nans", "profile_dir", "device_time_ticks"})
+    "total_kimg", "pl_weight", "pl_decay", "pl_batch_shrink",
+    "fused_cycle", "async_checkpoint", "kimg_per_tick", "snapshot_ticks",
+    "image_snapshot_ticks", "metric_ticks", "metrics", "debug_nans",
+    "profile_dir", "device_time_ticks"})
 
 
 def train_config_from_dict(d: Dict[str, Any]) -> TrainConfig:
@@ -222,6 +227,13 @@ def validate(model: ModelConfig, train: TrainConfig) -> None:
             f"train.batch_size ({t.batch_size}) must be divisible by "
             f"model.mbstd_group_size ({m.mbstd_group_size}) — the "
             f"stddev layer would silently use a smaller group")
+    if t.r1_batch_shrink < 1:
+        errs.append(f"r1_batch_shrink must be ≥ 1, got "
+                    f"{t.r1_batch_shrink}")
+    elif t.batch_size % t.r1_batch_shrink:
+        errs.append(f"r1_batch_shrink ({t.r1_batch_shrink}) must divide "
+                    f"batch_size ({t.batch_size}) — the R1 slice would "
+                    f"silently truncate")
     if errs:
         raise ValueError("invalid config:\n  - " + "\n  - ".join(errs))
 

@@ -11,6 +11,8 @@ from typing import Optional, Union
 
 import torch
 
+from gansformer_tpu_torch.core.precision import REFERENCE
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
@@ -37,8 +39,12 @@ def wants_graph(*ts) -> bool:
 
 def kernel_route(t: torch.Tensor) -> bool:
     """True when ``t`` lies on the card (launch the kernel), False on the
-    CPU (run the plain version).  Any other device raises."""
+    CPU (run the plain version).  Any other device raises, and so does a
+    float64 tensor on the card (the host-only reference mode)."""
     if t.device.type == "cuda":
+        if t.dtype == REFERENCE:
+            raise ValueError("float64 is the host-only reference mode; the "
+                             "kernels take float32 and bfloat16")
         return True
     if t.device.type == "cpu":
         return False

@@ -10,10 +10,12 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from gansformer_tpu_torch.core.precision import widen
+
 
 def normalize_images(uint8_images: torch.Tensor) -> torch.Tensor:
     """uint8 [N,H,W,C] -> float32 in [-1, 1], on the tensor's device."""
-    return uint8_images.float() / 127.5 - 1.0
+    return widen(uint8_images) / 127.5 - 1.0
 
 
 class SyntheticDataset:

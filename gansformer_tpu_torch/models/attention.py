@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from gansformer_tpu_torch.core.precision import widen
 from gansformer_tpu_torch.models.layers import EqualDense
 from gansformer_tpu_torch.ops.attention import sinusoidal_grid_encoding
 from gansformer_tpu_torch.ops.cuda_attention import fused_multihead_attention
@@ -25,7 +26,7 @@ def _instance_norm(x: torch.Tensor, dim: int = 1,
                    eps: float = 1e-8) -> torch.Tensor:
     """Non-affine instance norm over grid positions, an fp32 island with the
     population variance (``torch.var`` defaults to the unbiased one)."""
-    x32 = x.float()
+    x32 = widen(x)
     mu = x32.mean(dim=dim, keepdim=True)
     var = x32.var(dim=dim, keepdim=True, unbiased=False)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
@@ -116,7 +117,7 @@ class BipartiteAttention(nn.Module):
                     v_x = getattr(self, f"dup{it}_v_x")(grid.to(dt))
                 upd = self._attend(q_y, k_x, v_x)
                 gate = getattr(self, f"dup{it}_gate")(upd)
-                y = y + torch.sigmoid(gate.float()).to(y.dtype) \
+                y = y + torch.sigmoid(widen(gate)).to(y.dtype) \
                     * getattr(self, f"dup{it}_proj")(upd).to(y.dtype)
 
         q_x = self.q_x(grid_qk) + pos

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from gansformer_tpu_torch.core.config import ModelConfig
+from gansformer_tpu_torch.core.precision import widen
 from gansformer_tpu_torch.models.attention import BipartiteAttention
 from gansformer_tpu_torch.models.layers import (EqualConv, EqualDense,
                                                 minibatch_stddev)
@@ -99,10 +100,10 @@ class Discriminator(nn.Module):
         if cfg.label_dim > 0:
             if label is None:
                 raise ValueError("conditional discriminator needs a label")
-            feat = self.head_out(x.float())
-            cmap = self.label_embed(label.float())
+            feat = self.head_out(widen(x))
+            cmap = self.label_embed(widen(label))
             cmap = cmap * torch.rsqrt(cmap.square().mean(dim=-1, keepdim=True)
                                       + 1e-8)
             return (feat * cmap).sum(dim=-1, keepdim=True) / math.sqrt(
                 cfg.nf(2))
-        return self.head_out(x.float())
+        return self.head_out(widen(x))

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from gansformer_tpu_torch.core.precision import island_dtype, widen
 from gansformer_tpu_torch.ops.fused_bias_act import fused_bias_act
 from gansformer_tpu_torch.ops.modulated_conv import conv2d, modulated_conv2d
 
@@ -42,7 +43,8 @@ class EqualDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         coef = self.gain / math.sqrt(self.w.shape[0]) * self.lrmul
-        y = x.to(self.dtype) @ (self.w * coef).to(self.dtype)
+        dt = island_dtype(x, self.dtype)
+        y = x.to(dt) @ (self.w * coef).to(dt)
         return fused_bias_act(y, self.b * self.lrmul, act=self.act)
 
 
@@ -91,7 +93,7 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
     while n % g != 0:
         g -= 1
     f = num_features
-    y = x.reshape(n // g, g, h, w, f, c // f).float()
+    y = widen(x.reshape(n // g, g, h, w, f, c // f))
     y = y - y.mean(dim=1, keepdim=True)
     y = torch.sqrt(y.square().mean(dim=1) + 1e-8)      # [n/g, h, w, f, c/f]
     y = y.mean(dim=(1, 2, 4))                           # [n/g, f]

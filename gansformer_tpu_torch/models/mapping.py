@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from gansformer_tpu_torch.core.precision import widen
 from gansformer_tpu_torch.models.layers import EqualDense
 
 
@@ -36,11 +37,11 @@ class MappingNetwork(nn.Module):
         """z [N, num_ws, latent_dim] (+ label [N, label_dim]) ->
         w [N, num_ws, w_dim] in fp32."""
         assert z.ndim == 3
-        x = _pixel_norm(z.float())
+        x = _pixel_norm(widen(z))
         if self.label_dim > 0:
             if label is None:
                 raise ValueError("conditional mapping needs a label")
-            y = _pixel_norm(self.label_embed(label.float()))
+            y = _pixel_norm(self.label_embed(widen(label)))
             x = torch.cat([x, y[:, None, :].expand(x.shape[0], x.shape[1],
                                                    y.shape[-1])], dim=-1)
         for i in range(self.num_layers):

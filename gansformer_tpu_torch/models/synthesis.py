@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from gansformer_tpu_torch.core.config import ModelConfig
+from gansformer_tpu_torch.core.precision import widen
 from gansformer_tpu_torch.models.attention import BipartiteAttention
 from gansformer_tpu_torch.models.layers import EqualDense, ModulatedConv
 from gansformer_tpu_torch.ops.upfirdn2d import upsample_2d
@@ -117,9 +118,9 @@ class SynthesisNetwork(nn.Module):
                 x, y = getattr(self, f"b{res}_attn")(x, y)
                 if cfg.style_mode == "attention":
                     w_attn = getattr(self, f"b{res}_wattn")(
-                        y.mean(dim=1).float())
+                        widen(y.mean(dim=1)))
                     gate = getattr(self, f"b{res}_wattn_gate")
                     w_style = w_global + gate * w_attn
             t = getattr(self, f"b{res}_trgb")(x, w_style)
             rgb = t if rgb is None else upsample_2d(rgb, cfg.blur_filter) + t
-        return rgb.float()
+        return widen(rgb)

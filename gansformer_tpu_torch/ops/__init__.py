@@ -41,6 +41,16 @@ def lse_launch_counts() -> Dict[str, int]:
             "latent_to_grid": cuda_attention.launches_l2g_lse}
 
 
+def second_order_counts() -> Dict[str, int]:
+    """Second-order passes since the last reset: the launches of the
+    upfirdn kernel made as the adjoint's adjoint (also counted among the
+    ``upfirdn`` launches), and the torch-op second-order passes of each
+    attention direction, which launch no kernel."""
+    return {"upfirdn_second_order": cuda_upfirdn.launches_second_order,
+            "grid_to_latent_second_order": cuda_attention.second_order_g2l,
+            "latent_to_grid_second_order": cuda_attention.second_order_l2g}
+
+
 def path_launch_counts() -> Dict[str, int]:
     """Launches since the last reset of the routes of the kernels that
     have several: upfirdn (forward and adjoint) by route, grid->latent
@@ -65,12 +75,15 @@ def reset_launch_counts() -> None:
     cuda_modconv.launches_dw = 0
     cuda_upfirdn.launches = 0
     cuda_upfirdn.launches_adjoint = 0
+    cuda_upfirdn.launches_second_order = 0
     cuda_attention.launches_g2l = 0
     cuda_attention.launches_l2g = 0
     cuda_attention.launches_g2l_bwd = 0
     cuda_attention.launches_l2g_bwd = 0
     cuda_attention.launches_g2l_lse = 0
     cuda_attention.launches_l2g_lse = 0
+    cuda_attention.second_order_g2l = 0
+    cuda_attention.second_order_l2g = 0
     for counts in (cuda_upfirdn.path_launches,
                    cuda_attention.g2l_path_launches,
                    cuda_attention.g2l_bwd_path_launches,
@@ -84,6 +97,6 @@ __all__ = ["ACTIVATIONS", "attention_plain", "conv2d", "downsample_2d",
            "filter_2d", "fused_bias_act", "fused_multihead_attention",
            "launch_counts", "lse_launch_counts", "modconv_plain",
            "modulated_conv2d", "multihead_attention", "path_launch_counts",
-           "poly_w4",
-           "reset_launch_counts", "setup_filter", "sinusoidal_grid_encoding",
-           "upfirdn2d", "upfirdn2d_plain", "upsample_2d"]
+           "poly_w4", "reset_launch_counts", "second_order_counts",
+           "setup_filter", "sinusoidal_grid_encoding", "upfirdn2d",
+           "upfirdn2d_plain", "upsample_2d"]

@@ -15,6 +15,12 @@ grid->latent backward kernel's form) and ``attention_bwd_with_o_plain``
 (delta ``rowsum(do * o)``, the latent->grid backward kernel's form).  On
 the card they are the kernels' oracles; on the CPU autograd of
 ``attention_plain`` is the route.
+
+``attention_bwd_vjp_plain`` is the second order on the card: the VJP of
+that backward as a function of (q, k, v, do), with lse (and o) rebuilt
+from q, k and v, as ``_g2l_grads_jvp``/``_l2g_grads_jvp`` take it through
+``jax.jvp`` of ``_ref_bwd``/``_ref_bwd_with_o``.  No Pallas kernel
+computes it in the JAX package, so it is torch ops by design.
 """
 
 from __future__ import annotations
@@ -25,9 +31,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gansformer_tpu_torch.core.precision import widen
+
 
 def _logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bnd,bld->bnl", q.float(), k.float()) / math.sqrt(
+    return torch.einsum("bnd,bld->bnl", widen(q), widen(k)) / math.sqrt(
         q.shape[-1])
 
 
@@ -37,7 +45,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
     fp32 logits and softmax, probabilities cast to v's dtype before the
     mix (as the reference does), output in v's dtype."""
     p = torch.softmax(_logits(q, k), dim=-1).to(v.dtype)
-    return torch.einsum("bnl,bld->bnd", p.float(), v.float()).to(v.dtype)
+    return torch.einsum("bnl,bld->bnd", widen(p), widen(v)).to(v.dtype)
 
 
 def attention_fwd_stats_plain(q: torch.Tensor, k: torch.Tensor,
@@ -49,7 +57,7 @@ def attention_fwd_stats_plain(q: torch.Tensor, k: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True)
     den = torch.exp(s - m).sum(dim=-1, keepdim=True)
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    o = torch.einsum("bnl,bld->bnd", p.float(), v.float()).to(v.dtype)
+    o = torch.einsum("bnl,bld->bnd", widen(p), widen(v)).to(v.dtype)
     return o, (m + torch.log(den))[..., 0]
 
 
@@ -62,14 +70,14 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k's and v's dtypes.  ``delta`` [B, Lq] is the row correction
     rowsum(dP * P); when None it is computed here from P and dP."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    q32, k32, v32, do32 = widen(q), widen(k), widen(v), widen(do)
     p = torch.exp(torch.einsum("bnd,bld->bnl", q32, k32) * scale
-                  - lse.float()[..., None])
+                  - widen(lse)[..., None])
     dv = torch.einsum("bnl,bnd->bld", p, do32)
     dp = torch.einsum("bnd,bld->bnl", do32, v32)
     if delta is None:
         delta = (dp * p).sum(dim=-1)
-    ds = p * (dp - delta.float()[..., None])
+    ds = p * (dp - widen(delta)[..., None])
     dq = torch.einsum("bnl,bld->bnd", ds, k32) * scale
     dk = torch.einsum("bnl,bnd->bld", ds, q32) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -79,7 +87,7 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """rowsum(do * o) [B, Lq] in fp32: the FlashAttention identity for
     rowsum(dP * P), computed once outside the latent->grid backward
     kernel as the JAX package computes it outside its ``pallas_call``."""
-    return (do.float() * o.float()).sum(dim=-1)
+    return (widen(do) * widen(o)).sum(dim=-1)
 
 
 def attention_bwd_with_o_plain(q: torch.Tensor, k: torch.Tensor,
@@ -90,6 +98,28 @@ def attention_bwd_with_o_plain(q: torch.Tensor, k: torch.Tensor,
     """``attention_bwd_plain`` with delta = rowsum(do * o) from the saved
     output: the latent->grid backward kernel's form."""
     return attention_bwd_plain(q, k, v, lse, do, attention_delta(o, do))
+
+
+def attention_bwd_vjp_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            gdq: torch.Tensor, gdk: torch.Tensor,
+                            gdv: torch.Tensor, delta_from_o: bool
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The gradients wrt (q, k, v, do) of <(gdq, gdk, gdv), backward(q, k,
+    v, do)>, where backward is ``attention_bwd_plain`` (``delta_from_o``
+    False: grid->latent) or ``attention_bwd_with_o_plain`` (True:
+    latent->grid) with lse and o rebuilt from q, k and v, so their own
+    dependence on q, k and v is in the result.  Each gradient in its
+    input's dtype; ``do`` takes one because in R1 the cotangent itself
+    depends on the parameters."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (q, k, v, do)]
+        o, lse = attention_fwd_stats_plain(*ins[:3])
+        if delta_from_o:
+            grads = attention_bwd_with_o_plain(*ins[:3], o, lse, ins[3])
+        else:
+            grads = attention_bwd_plain(*ins[:3], lse, ins[3])
+        return torch.autograd.grad(grads, ins, (gdq, gdk, gdv))
 
 
 def multihead_attention(
@@ -104,13 +134,13 @@ def multihead_attention(
     _, lk, dv = v.shape
     assert d % num_heads == 0 and dv % num_heads == 0
     dh = d // num_heads
-    qh = q.reshape(n, lq, num_heads, dh).float()
-    kh = k.reshape(n, lk, num_heads, dh).float()
+    qh = widen(q.reshape(n, lq, num_heads, dh))
+    kh = widen(k.reshape(n, lk, num_heads, dh))
     vh = v.reshape(n, lk, num_heads, dv // num_heads)
     logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) / math.sqrt(dh)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("nhqk,nkhd->nqhd", probs.to(vh.dtype).float(),
-                       vh.float()).to(v.dtype)
+    out = torch.einsum("nhqk,nkhd->nqhd", widen(probs.to(vh.dtype)),
+                       widen(vh)).to(v.dtype)
     return out.reshape(n, lq, dv), probs
 
 

@@ -51,10 +51,20 @@ The forwards write the fp32 row statistic ``lse`` only when asked
 (``with_stats``): the Functions ask, the serving path (no graph wanted)
 does not, as the TPU's no-grad path declares no ``lse`` output.  All
 four are bound by bytes on the card: the flops per byte are a few dozen
-at most.  The backward is first order (``once_differentiable``), as the
-conv family's.  ``fused_multihead_attention`` keeps the Pallas wrapper's
-rule: ``lq >= lk`` takes grid_to_latent, so at res 4 (n = 16 = k) both
-duplex phases do, forward and backward.
+at most.
+
+Where the backward is itself differentiated (R1 through D's attention),
+the backward launch is ``GridToLatentGradsFunction`` /
+``LatentToGridGradsFunction``: kernel 8 / 9 as a function of (q, k, v,
+do), whose own backward is the second order.  The JAX package takes that
+through its jnp references (``_g2l_grads_jvp``, ``_l2g_grads_jvp``), no
+Pallas kernel, so here it is torch ops by design
+(``attention_bwd_vjp_plain``), counted per direction in
+``second_order_g2l`` / ``second_order_l2g``; a third derivative raises.
+With no graph wanted they run their forward alone: the same launch.
+``fused_multihead_attention`` keeps the Pallas wrapper's rule: ``lq >=
+lk`` takes grid_to_latent, so at res 4 (n = 16 = k) both duplex phases
+do, forward and backward.
 """
 
 from __future__ import annotations
@@ -67,7 +77,8 @@ from torch.autograd.function import once_differentiable
 
 from gansformer_tpu_torch.core.device import kernel_route, wants_graph
 from gansformer_tpu_torch.ops import _build
-from gansformer_tpu_torch.ops.attention import (attention_delta,
+from gansformer_tpu_torch.ops.attention import (attention_bwd_vjp_plain,
+                                                attention_delta,
                                                 attention_plain)
 
 # Launches since the last reset: one per grid_to_latent call, one per
@@ -80,6 +91,9 @@ launches_l2g_bwd = 0
 # Of the forward launches, those that wrote ``lse`` (a graph was wanted).
 launches_g2l_lse = 0
 launches_l2g_lse = 0
+# Second-order passes (torch ops, no launch) since the last reset.
+second_order_g2l = 0
+second_order_l2g = 0
 
 MAX_LATENTS = 64
 
@@ -497,10 +511,28 @@ class GridToLatentFunction(torch.autograd.Function):
         return o
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
+        return GridToLatentGradsFunction.apply(q, k, v, do, lse)
+
+
+class GridToLatentGradsFunction(torch.autograd.Function):
+    """(dq, dk, dv) of grid_to_latent by kernel 8, differentiable in (q,
+    k, v, do): the backward is the plain second order, lse rebuilt from q
+    and k (the saved ``lse`` enters the launch only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, do, lse):
+        ctx.save_for_backward(q, k, v, do)
         return grid_to_latent_bwd_cuda(q, k, v, lse, do)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gdq, gdk, gdv):
+        global second_order_g2l
+        second_order_g2l += 1
+        return attention_bwd_vjp_plain(*ctx.saved_tensors, gdq, gdk, gdv,
+                                       delta_from_o=False) + (None,)
 
 
 class LatentToGridFunction(torch.autograd.Function):
@@ -515,11 +547,29 @@ class LatentToGridFunction(torch.autograd.Function):
         return o
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        return LatentToGridGradsFunction.apply(q, k, v, do, o.detach(), lse)
+
+
+class LatentToGridGradsFunction(torch.autograd.Function):
+    """(dq, dk, dv) of latent_to_grid by kernel 9, differentiable in (q,
+    k, v, do): the backward is the plain second order, o and lse rebuilt
+    from q, k and v (the saved ones enter the launch and delta only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, do, o, lse):
+        ctx.save_for_backward(q, k, v, do)
         return latent_to_grid_bwd_cuda(q, k, v, lse, do,
                                        attention_delta(o, do))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gdq, gdk, gdv):
+        global second_order_l2g
+        second_order_l2g += 1
+        return attention_bwd_vjp_plain(*ctx.saved_tensors, gdq, gdk, gdv,
+                                       delta_from_o=True) + (None, None)
 
 
 def grid_to_latent(q, k, v):

@@ -42,9 +42,12 @@ import torch
 from gansformer_tpu_torch.ops import _build
 
 # Launches of the kernels since the last reset: forward calls, and the
-# adjoint calls of the backward; and both by route.
+# adjoint calls of the backward; and both by route.  Of the forward
+# calls, those made as the adjoint's adjoint (a second derivative, e.g.
+# R1's) are also counted apart.
 launches = 0
 launches_adjoint = 0
+launches_second_order = 0
 PATH_GENERAL, PATH_TILE, PATH_SMALLC = 0, 1, 2
 PATH_NAMES = {PATH_GENERAL: "general", PATH_TILE: "tile",
               PATH_SMALLC: "smallc"}
@@ -183,11 +186,14 @@ def _taps(key: bytes, shape: Tuple[int, int], path: int, up: int,
 def upfirdn2d_cuda(x: torch.Tensor, f: np.ndarray, up: int, down: int,
                    pads: Tuple[int, int, int, int],
                    bias: Optional[torch.Tensor], act: Optional[str],
-                   alpha: float, gain: float) -> torch.Tensor:
-    """Launch the kernel on a CUDA NHWC tensor (fp32 or bf16)."""
-    global launches
+                   alpha: float, gain: float,
+                   second_order: bool = False) -> torch.Tensor:
+    """Launch the kernel on a CUDA NHWC tensor (fp32 or bf16);
+    ``second_order``: the launch is the adjoint's adjoint."""
+    global launches, launches_second_order
     y = _launch(x, f, up, down, pads, bias, act, alpha, gain)
     launches += 1
+    launches_second_order += second_order
     return y
 
 

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from gansformer_tpu_torch.core.device import kernel_route, wants_graph
+from gansformer_tpu_torch.core.precision import widen
 from gansformer_tpu_torch.ops import cuda_modconv
 from gansformer_tpu_torch.ops.cuda_modconv import TAPS
 from gansformer_tpu_torch.ops.fused_bias_act import (ACTIVATIONS,
@@ -150,8 +151,8 @@ def modconv_plain(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
     dtype."""
     n, h, w, ci = x.shape
     cok = wstack.shape[2]
-    xs = x.float() * s.float()[:, None, None, :]
-    w32 = wstack.float()
+    xs = widen(x) * widen(s)[:, None, None, :]
+    w32 = widen(wstack)
     if kind == "same3":
         y = _conv(xs, w32.reshape(3, 3, ci, cok), 1, 1)
     elif kind == "same1":
@@ -161,7 +162,7 @@ def modconv_plain(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
         y = _conv(xp, w32.reshape(2, 2, ci, cok), 1, 0)
     else:
         raise ValueError(f"unknown kind {kind!r}")
-    y = y * post.float()[:, None, None, :]
+    y = y * widen(post)[:, None, None, :]
     if kind == "poly":                       # co-major depth-to-space
         co = cok // 4
         y = (y.reshape(n, h, w, co, 2, 2).permute(0, 1, 4, 2, 5, 3)
@@ -169,7 +170,7 @@ def modconv_plain(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
     if act is not None:
         fn, _ = ACTIVATIONS[act]
         if bias is not None:
-            y = y + bias.float()
+            y = y + widen(bias)
         y = fn(y, alpha) * gain
     return y.to(x.dtype).contiguous()
 
@@ -257,9 +258,9 @@ def adjoint_u_plain(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
     """u = sum_t shift_t(du) . (wT_t * d), fp32 [N, H, W, Ci]; the demod
     ``pre`` is folded into the weights in fp32 and rounded to the compute
     dtype, as the kernel (and ``_bwd_body``) do."""
-    d32 = du4.float()
-    wn = (wT.float()[None] * pre.float()[:, None, :, None]).to(
-        du4.dtype).float()                                  # [N,T,CoK,Ci]
+    d32 = widen(du4)
+    wn = widen((widen(wT)[None] * widen(pre)[:, None, :, None]).to(
+        du4.dtype))                                  # [N,T,CoK,Ci]
     u = None
     for t, (oy, ox) in enumerate(taps):
         ut = torch.einsum("nhwk,nkc->nhwc", _shift(d32, oy, ox), wn[:, t])
@@ -274,8 +275,8 @@ def modconv_dx_plain(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
     and ``ds = sum_hw x * u`` in fp32, with ``u`` from
     ``adjoint_u_plain``."""
     u = adjoint_u_plain(du4, wT, pre, taps)
-    dx = (u * post.float()[:, None, None, :]).to(x.dtype)
-    return dx, (x.float() * u).sum(dim=(1, 2))
+    dx = (u * widen(post)[:, None, None, :]).to(x.dtype)
+    return dx, (widen(x) * u).sum(dim=(1, 2))
 
 
 def modconv_dw_per_sample(x: torch.Tensor, du4: torch.Tensor,
@@ -283,8 +284,8 @@ def modconv_dw_per_sample(x: torch.Tensor, du4: torch.Tensor,
                           ) -> torch.Tensor:
     """[N, T, Ci, CoK] fp32: each sample's term of dw, the rank-1 scale
     ``s_n (x) d_n`` applied to the tap product ``shift_t(x)^T du``."""
-    x32, d32 = x.float(), du4.float()
-    scale = s.float()[:, :, None] * pre.float()[:, None, :]
+    x32, d32 = widen(x), widen(du4)
+    scale = widen(s)[:, :, None] * widen(pre)[:, None, :]
     return torch.stack([
         torch.einsum("nhwc,nhwk->nck", _shift(x32, oy, ox), d32) * scale
         for oy, ox in taps], dim=1)
@@ -354,18 +355,18 @@ class ModconvCore(torch.autograd.Function):
         kind, act, alpha, gain = ctx.spec
         x, w, s, d, bias, y = ctx.saved_tensors
         need_x, need_w, need_s, need_d, need_b = ctx.needs_input_grad[:5]
-        y32, ct32 = y.float(), ct.float()
+        y32, ct32 = widen(y), widen(ct)
         if act is None:
             du32, c = ct32, y32
         else:
             du32 = ct32 * act_grad(y32, act, alpha) * gain
             c = _act_inv(y32, act, alpha, gain)
             if bias is not None:
-                c = c - bias.float()
+                c = c - widen(bias)
         db = du32.sum(dim=(0, 1, 2)) if bias is not None and need_b else None
         # dd = sum_hw du * conv(s x, w): the pre-demod conv recovered from
         # the saved output (c = d * conv), so no recompute pass
-        dd = ((du32 * c).sum(dim=(1, 2)) / d.float()).to(d.dtype) \
+        dd = ((du32 * c).sum(dim=(1, 2)) / widen(d)).to(d.dtype) \
             if need_d else None
         du = du32.to(ct.dtype)
         du4 = (_space_to_depth(du) if kind == "poly" else du).contiguous()
@@ -426,11 +427,11 @@ def modulated_conv2d(
         raise NotImplementedError(
             f"modulated_conv2d: up={up} down={down} kernel {kh}x{kw} is not "
             f"on the generator's path")
-    s32 = styles.float()
+    s32 = widen(styles)
     if demodulate:
-        d = _demod_coeffs(w.float(), s32, eps)
+        d = _demod_coeffs(widen(w), s32, eps)
     else:
-        d = torch.ones((n, co), dtype=torch.float32, device=x.device)
+        d = torch.ones((n, co), dtype=s32.dtype, device=x.device)
     w = w.to(x.dtype)
     g = default_gain(act, gain) if act is not None else 1.0
     if up == 1:

@@ -11,7 +11,16 @@ On the card, when autograd records, the op is ``UpfirdnFunction``: the
 counterpart of ``_ufd_bwd_rule``/``_ufd_ba_bwd_rule``, whose backward
 recovers ``act'`` from the saved output, sums ``db`` in fp32 and runs the
 adjoint (flipped filter, up and down swapped, ``grad_pad4``) through the
-same kernel.  It is first-order only.
+same kernel.  Where that backward is itself differentiated (R1 takes the
+gradient of D's image gradient), the adjoint launch is
+``UpfirdnAdjointFunction``: upfirdn is linear, so the adjoint of the
+adjoint is the forward launch with the original geometry, which is
+``UpfirdnFunction`` again, one derivative order per call, as the JAX
+package's ``_ufd_plain_jvp`` closes its rule.  act' and db stay torch
+ops on the saved output (lrelu' is piecewise constant: its derivative is
+0 almost everywhere), as in ``_ufd_ba_bwd_rule``.  A launch's output
+never carries a graph, so every launch the second order needs sits
+inside one of these Functions.
 """
 
 from __future__ import annotations
@@ -22,9 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torch.autograd.function import once_differentiable
-
 from gansformer_tpu_torch.core.device import kernel_route, wants_graph
+from gansformer_tpu_torch.core.precision import widen
 from gansformer_tpu_torch.ops import cuda_upfirdn
 from gansformer_tpu_torch.ops.fused_bias_act import ACTIVATIONS, default_gain
 
@@ -75,7 +83,7 @@ def upfirdn2d_plain(x: torch.Tensor, f: np.ndarray, up: int, down: int,
     output in ``x``'s dtype."""
     n, h, w, c = x.shape
     fh, fw = f.shape
-    x32 = x.float()
+    x32 = widen(x)
     if up > 1:
         z = x32.new_zeros(n, h, up, w, up, c)
         z[:, :, 0, :, 0, :] = x32
@@ -83,13 +91,13 @@ def upfirdn2d_plain(x: torch.Tensor, f: np.ndarray, up: int, down: int,
     py0, py1, px0, px1 = pads
     z = F.pad(x32.permute(0, 3, 1, 2), (px0, px1, py0, py1))  # <0 crops
     # true convolution: correlate with the flipped filter, depthwise
-    k = torch.from_numpy(np.ascontiguousarray(f[::-1, ::-1])).to(z.device)
-    k = k[None, None].expand(c, 1, fh, fw)
+    k = torch.from_numpy(np.ascontiguousarray(f[::-1, ::-1]))
+    k = k.to(z.device, z.dtype)[None, None].expand(c, 1, fh, fw)
     y = F.conv2d(z, k, stride=down, groups=c).permute(0, 2, 3, 1)
     if act is not None:
         fn, _ = ACTIVATIONS[act]
         if bias is not None:
-            y = y + bias.float()
+            y = y + widen(bias)
         y = fn(y, alpha) * gain
     return y.to(x.dtype).contiguous()
 
@@ -152,21 +160,26 @@ def upfirdn2d_adjoint(ct: torch.Tensor, f: np.ndarray, up: int, down: int,
     return dx
 
 
-def _upfirdn_launch(x, f, up, down, pads, bias, act, alpha, gain):
+def _upfirdn_launch(x, f, up, down, pads, bias, act, alpha, gain,
+                    second_order=False):
     if kernel_route(x):
         return cuda_upfirdn.upfirdn2d_cuda(x, f, up, down, pads, bias, act,
-                                           alpha, gain)
+                                           alpha, gain, second_order)
     return upfirdn2d_plain(x, f, up, down, pads, bias, act, alpha, gain)
 
 
 class UpfirdnFunction(torch.autograd.Function):
     """upfirdn (+ optional ``act(y + bias) * gain``) with the adjoint
     backward.  Forward and backward launch kernels for CUDA tensors and
-    run the plain versions for CPU tensors."""
+    run the plain versions for CPU tensors; the backward's adjoint is
+    ``UpfirdnAdjointFunction``, so it builds a graph when one is wanted.
+    ``second_order``: the call is an adjoint's adjoint (counted apart)."""
 
     @staticmethod
-    def forward(ctx, x, bias, f, up, down, pads, act, alpha, gain):
-        y = _upfirdn_launch(x, f, up, down, pads, bias, act, alpha, gain)
+    def forward(ctx, x, bias, f, up, down, pads, act, alpha, gain,
+                second_order=False):
+        y = _upfirdn_launch(x, f, up, down, pads, bias, act, alpha, gain,
+                            second_order)
         ctx.geom = (f, up, down, pads, tuple(x.shape[1:3]))
         ctx.epilogue = (act, alpha, gain, bias is not None)
         if act is not None:
@@ -174,21 +187,40 @@ class UpfirdnFunction(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         f, up, down, pads, in_hw = ctx.geom
         act, alpha, gain, has_bias = ctx.epilogue
         db = None
         if act is not None:
             (y,) = ctx.saved_tensors
-            du32 = ct.float() * act_grad(y.float(), act, alpha) * gain
+            du32 = widen(ct) * act_grad(widen(y), act, alpha) * gain
             if has_bias and ctx.needs_input_grad[1]:
                 db = du32.sum(dim=(0, 1, 2))
             ct = du32.to(ct.dtype)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = upfirdn2d_adjoint(ct.contiguous(), f, up, down, pads, in_hw)
-        return dx, db, None, None, None, None, None, None, None
+            dx = UpfirdnAdjointFunction.apply(ct.contiguous(), f, up, down,
+                                              pads, in_hw)
+        return (dx, db) + (None,) * (len(ctx.needs_input_grad) - 2)
+
+
+class UpfirdnAdjointFunction(torch.autograd.Function):
+    """The adjoint launch as a function of the cotangent (kernel 7 on a
+    CUDA tensor): its backward is the forward upfirdn at the original
+    geometry with no epilogue (kernel 2, through ``UpfirdnFunction``),
+    whose launch counts itself also as ``launches_second_order``."""
+
+    @staticmethod
+    def forward(ctx, ct, f, up, down, pads, in_hw):
+        ctx.geom = (f, up, down, pads)
+        return upfirdn2d_adjoint(ct, f, up, down, pads, in_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        f, up, down, pads = ctx.geom
+        dct = UpfirdnFunction.apply(g.contiguous(), None, f, up, down, pads,
+                                    None, 0.2, 1.0, True)
+        return dct, None, None, None, None, None
 
 
 def upfirdn2d(x: torch.Tensor, f, up: int = 1, down: int = 1, pad: Pad = 0,

@@ -1,9 +1,13 @@
-"""First-order train steps of the port (counterparts of ``_d_step`` at
-``do_r1=False`` and ``_g_step`` at ``do_pl=False`` in
-``gansformer_tpu/train/steps.py``), run eagerly.
+"""Train steps of the port (counterparts of ``_d_step`` and ``_g_step``
+at ``do_pl=False`` in ``gansformer_tpu/train/steps.py``), run eagerly.
 
 * ``d_step``: fakes from G under ``no_grad``, D on reals (optionally
   mirrored) and fakes, the logistic loss, one lazy-Adam update of D.
+* ``d_step_r1``: ``d_step`` with the lazy R1 penalty (``do_r1``): a third
+  D forward on the first ``N // r1_batch_shrink`` (mirrored) reals, their
+  image gradient with its graph, and ``(r1_gamma / 2) * r1 *
+  d_reg_interval`` added to the loss; ``Loss/D`` stays the logistic
+  loss, as in JAX, and ``Loss/D/r1`` is the penalty.
 * ``g_step``: G with style mixing, D on the fakes (D's parameters frozen),
   the non-saturating loss, one lazy-Adam update of G, then the EMA
   (``ema_beta_at`` of the step before the update) and ``w_avg`` (beta
@@ -20,7 +24,9 @@ On the card the ops build their graphs through the kernels'
 ``autograd.Function``s (the conv family's and both attention
 directions'), so every forward launch that autograd records has its
 backward kernel; G's forward under ``no_grad`` in ``d_step`` launches the
-forward kernels alone.
+forward kernels alone.  In ``d_step_r1`` D's backward is differentiated
+once more: the upfirdn and attention Functions build that graph too
+(``ops/upfirdn2d.py``, ``ops/cuda_attention.py``).
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ from typing import Dict, List, Optional
 
 import torch
 
+from gansformer_tpu_torch.core.precision import input_dtype, widen
 from gansformer_tpu_torch.data.dataset import normalize_images
 from gansformer_tpu_torch.losses.gan import (d_logistic_loss,
-                                             g_nonsaturating_loss)
+                                             g_nonsaturating_loss,
+                                             r1_penalty, r1_slice)
 from gansformer_tpu_torch.train.state import TrainState, derive_seed
 
 W_AVG_BETA = 0.995
@@ -71,7 +79,7 @@ def draw_step(state: TrainState, it: int, phase: str, batch: int,
         gens = [torch.Generator(device=dev).manual_seed(
             derive_seed(state.seed, it, phase, "noise", row))
             for row in range(batch)]
-    return StepDraws(z=z.to(dev, torch.float32), z2=z2, cut=cut,
+    return StepDraws(z=z.to(dev, input_dtype(m.dtype)), z2=z2, cut=cut,
                      do_mix=do_mix, flip=flip, noise_gens=gens)
 
 
@@ -112,11 +120,14 @@ def _backward(loss: torch.Tensor, module: torch.nn.Module) -> None:
 def d_step(state: TrainState, images: torch.Tensor, it: int, *,
            z: Optional[torch.Tensor] = None, noise_mode: str = "random",
            mirror_augment: bool = False,
-           label: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """One D update on uint8 reals ``images`` [N, R, R, C].  Leaves D's
-    gradients in ``.grad``; returns the loss and mean scores (device
-    scalars, no host sync)."""
-    reals = normalize_images(images.to(state.device))
+           label: Optional[torch.Tensor] = None,
+           do_r1: bool = False) -> Dict[str, torch.Tensor]:
+    """One D update on uint8 reals ``images`` [N, R, R, C], with the R1
+    penalty when ``do_r1``.  Leaves D's gradients in ``.grad``; returns
+    the loss and mean scores (and ``Loss/D/r1``) as device scalars, no
+    host sync."""
+    reals = normalize_images(images.to(state.device)).to(
+        input_dtype(state.model.dtype))
     draws = draw_step(state, it, "d", reals.shape[0], z, noise_mode)
     if mirror_augment:
         reals = torch.where(draws.flip[:, None, None, None],
@@ -127,12 +138,27 @@ def d_step(state: TrainState, images: torch.Tensor, it: int, *,
     real_logits = d(reals, label)
     fake_logits = d(fakes, label)
     loss = d_logistic_loss(real_logits, fake_logits)
+    aux = {"Loss/D": loss.detach(),
+           "Loss/scores/real": widen(real_logits.detach()).mean(),
+           "Loss/scores/fake": widen(fake_logits.detach()).mean()}
+    if do_r1:
+        t = state.train
+        reals_r1 = r1_slice(reals, t.r1_batch_shrink)
+        label_r1 = None if label is None else label[:reals_r1.shape[0]]
+        r1 = r1_penalty(lambda x: d(x, label_r1), reals_r1)
+        aux["Loss/D/r1"] = r1.detach()
+        loss = loss + (t.r1_gamma * 0.5) * r1 * t.d_reg_interval
     state.d_opt.zero_grad(set_to_none=True)
     _backward(loss, d)
     state.d_opt.step()
-    return {"Loss/D": loss.detach(),
-            "Loss/scores/real": real_logits.detach().float().mean(),
-            "Loss/scores/fake": fake_logits.detach().float().mean()}
+    return aux
+
+
+def d_step_r1(state: TrainState, images: torch.Tensor, it: int,
+              **kwargs) -> Dict[str, torch.Tensor]:
+    """``d_step`` with the R1 penalty, the step the training loop runs
+    every ``d_reg_interval`` iterations."""
+    return d_step(state, images, it, do_r1=True, **kwargs)
 
 
 def g_step(state: TrainState, it: int, batch: int, *,
@@ -156,7 +182,7 @@ def g_step(state: TrainState, it: int, batch: int, *,
         for e, p in zip(state.ema.parameters(),
                         state.generator.parameters()):
             e.copy_(e * beta + p * (1.0 - beta))
-        w_batch_avg = ws.detach().float().mean(dim=(0, 1))
+        w_batch_avg = widen(ws.detach()).mean(dim=(0, 1))
         state.w_avg.copy_(state.w_avg * W_AVG_BETA
                           + w_batch_avg * (1.0 - W_AVG_BETA))
     state.step += batch

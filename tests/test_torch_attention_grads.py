@@ -11,8 +11,9 @@ ragged last block) and to autograd of ``attention_plain``.  Then the
 card's route, with every launch stubbed by its plain version (the
 ``card_route`` fixture): ``fused_multihead_attention`` builds the
 Functions' graph, its gradients match JAX, the counters move by one
-forward and one backward per call, the no-grad forward writes no ``lse``
-and a second derivative raises.
+forward and one backward per call, the no-grad forward writes no ``lse``,
+and R1's double backward through the Functions matches ``jax.grad`` of
+``jax.grad`` through the Pallas op.
 
 Tolerances: fp32 ``GRAD["float32"]`` (1e-5; both sides fp32, summation
 order apart).  bf16 inputs: 2e-2 of max |ref| per output, the smoke's
@@ -248,14 +249,50 @@ def test_cards_route_no_grad_launches_without_lse(rng, card_route,
     _close(o, attention_plain(*(_t(a) for a in (q, k, v))), "o")
 
 
-@pytest.mark.parametrize("direction", DIRECTIONS)
-def test_cards_route_second_derivative_raises(rng, card_route, direction):
-    """The attention Functions are first order (``once_differentiable``):
-    differentiating their gradient raises."""
-    q, k, v, _ = _inputs(rng, direction, 1)
-    ins = [_t(a, True) for a in (q, k, v)]
-    o = ops.fused_multihead_attention(*ins)
-    (gq,) = torch.autograd.grad(o.square().sum(), [ins[0]],
+def _r1(attend, q, k, v, w):
+    """R1's shape on one attention: the input q's gradient of a loss
+    nonlinear in the output (so the cotangent depends on the
+    parameters), squared and summed; the parameters ``w`` scale q, k and
+    v."""
+    o = attend(q * w[0], k * w[1], v * w[2])
+    (gq,) = torch.autograd.grad((o * torch.cos(o)).sum(), [q],
                                 create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        gq.sum().backward()
+    return gq.square().sum()
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_cards_route_r1_double_backward_matches_pallas(rng, card_route,
+                                                       direction):
+    """The attention Functions differentiate twice on the card's route
+    (opaque launch stubs): R1's shape (``tests/test_pallas_grad.py``
+    ``test_r1_shaped_double_backward``, with k and v scaled and a
+    nonlinear loss) against ``jax.grad`` of ``jax.grad`` through
+    ``multihead_attention_pallas`` in interpret mode, wrt the three
+    scales and the input.  One forward launch with lse, two backward
+    launches (the image gradient's and the forward graph's in the final
+    backward) and one torch-op second-order pass."""
+    q, k, v, _ = _inputs(rng, direction, 1)
+    w = np.array([1.1, 0.9, 1.2], np.float32)
+
+    def r1_jax(wj, qj):
+        def loss(qq):
+            o = multihead_attention_pallas(qq * wj[0], jnp.asarray(k) * wj[1],
+                                           jnp.asarray(v) * wj[2], 1,
+                                           block_n=16, interpret=True)
+            return jnp.sum(o * jnp.cos(o))
+        return jnp.sum(jax.grad(loss)(qj) ** 2)
+
+    refs = jax.grad(r1_jax, argnums=(0, 1))(jnp.asarray(w), jnp.asarray(q))
+    tq, tw = _t(q, True), _t(w, True)
+    r1 = _r1(ops.fused_multihead_attention, tq, _t(k), _t(v), tw)
+    got = torch.autograd.grad(r1, [tw, tq])
+    for name, g, r in zip(("w", "q"), got, refs):
+        _close(g, r, name)
+    other = ("latent_to_grid" if direction == "grid_to_latent"
+             else "grid_to_latent")
+    counts = ops.launch_counts()
+    assert (counts[direction], counts[direction + "_bwd"]) == (1, 2)
+    assert counts[other] == counts[other + "_bwd"] == 0
+    assert ops.second_order_counts() == {
+        "upfirdn_second_order": 0, f"{direction}_second_order": 1,
+        f"{other}_second_order": 0}

@@ -563,3 +563,121 @@ def test_preset_phase_plans_match_the_cards_route(card_route, variant):
         assert ops.launch_counts() == chip_smoke.plan_counts(plan, phase)
         assert ops.lse_launch_counts() == chip_smoke.plan_lse_counts(plan,
                                                                      phase)
+
+
+@pytest.mark.parametrize("d_attention", [False, True],
+                         ids=["no-d_attention", "d_attention"])
+def test_d_step_r1_plan_matches_the_cards_route(card_route, d_attention):
+    """With every launch stubbed on the card's route, one d_step_r1 of a
+    micro configuration (res 32, duplex, with and without D attention)
+    launches what ``chip_smoke.r1_step_calls`` says, lse and second-order
+    passes included: the counters the smoke holds the card to."""
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.data import SyntheticDataset
+    from gansformer_tpu_torch.train import create_train_state, d_step_r1
+
+    model = port_config.ModelConfig(
+        resolution=32, latent_dim=16, w_dim=16, mapping_dim=16,
+        mapping_layers=2, fmap_base=64, fmap_max=32, mbstd_group_size=4,
+        components=2, attention="duplex", style_mode="attention",
+        d_attention=d_attention, d_components=3)
+    st = create_train_state(model, port_config.TrainConfig(batch_size=4),
+                            seed=1, device="cpu")
+    reals = torch.from_numpy(next(SyntheticDataset(32).batches(4)))
+    plan = chip_smoke.r1_step_calls(model, 4)
+    ops.reset_launch_counts()
+    aux = d_step_r1(st, reals, 0)
+    assert ops.launch_counts() == chip_smoke.plan_counts(plan, "d_step_r1")
+    assert ops.lse_launch_counts() == chip_smoke.plan_lse_counts(
+        plan, "d_step_r1")
+    second = chip_smoke.plan_second_order_counts(model, 4)
+    assert ops.second_order_counts() == second
+    assert second["upfirdn_second_order"] == 6     # 3 blocks, 2 legs each
+    assert bool(second["grid_to_latent_second_order"]) == d_attention
+    assert math.isfinite(float(aux["Loss/D/r1"]))
+
+
+@pytest.mark.parametrize("d_attention", [False, True],
+                         ids=["no-d_attention", "d_attention"])
+def test_reference_rule_passes_the_route_and_rejects_the_planted_drop(
+        d_attention):
+    """The smoke's float64-referenced check on a micro configuration: the
+    R1 penalty's gradient on the card's route (launches stubbed) passes
+    ``hold_to_reference`` against the plain path's float64 run (its fp32
+    run giving each leaf's own error), and the same with one adjoint
+    launch of the image gradient outside its Function (the planted
+    second-order drop) fails it."""
+    from gansformer_tpu_torch import ops
+    from tests.test_torch_grads import patch_card_route
+
+    model = port_config.ModelConfig(
+        resolution=32, latent_dim=16, w_dim=16, mapping_dim=16,
+        mapping_layers=2, fmap_base=128, fmap_max=32, mbstd_group_size=4,
+        components=2, attention="duplex", style_mode="attention",
+        d_attention=d_attention, d_components=3)
+    train = port_config.TrainConfig(batch_size=2, style_mixing_prob=0.0)
+    ref, host = (chip_smoke._reference_grads(model, train, "R1 penalty",
+                                             "cpu", dtype)
+                 for dtype in ("float64", "float32"))
+    with pytest.MonkeyPatch.context() as mp:
+        patch_card_route(mp)
+        ops.reset_launch_counts()
+        route, planted = (chip_smoke._reference_grads(
+            model, train, "R1 penalty", "cpu", "float32", plant=plant)
+            for plant in (False, True))
+        # 3 blocks of 2 legs, less the planted launch's second order
+        second = ops.second_order_counts()["upfirdn_second_order"]
+        ops.reset_launch_counts()
+    assert second == 6 + 5
+    assert chip_smoke.hold_to_reference("route", ref, [host], route) == []
+    assert chip_smoke.hold_to_reference("planted", ref, [host], planted)
+
+
+@pytest.mark.parametrize("d_attention", [False, True],
+                         ids=["no-d_attention", "d_attention"])
+def test_host_branches_sum_to_the_d_step_r1(d_attention):
+    """The smoke's host reference is built by branch: the logistic loss on
+    the reals, on G's images, and the R1 penalty, weighted by
+    ``r1_gamma / 2 * d_reg_interval``.  In float64 on a micro
+    configuration their sum is D's gradient of one d_step_r1 through the
+    entry point, and the R1 branch is the penalty's own, to the fp32
+    rounding of the entry points' gradients, which land in the fp32
+    parameters' ``.grad`` (1e-6 of a leaf's scale; a key bias, whose
+    exact gradient is zero, at its weight's scale as the smoke holds
+    it)."""
+    model = port_config.ModelConfig(
+        resolution=32, latent_dim=16, w_dim=16, mapping_dim=16,
+        mapping_layers=2, fmap_base=128, fmap_max=32, mbstd_group_size=4,
+        components=2, attention="duplex", style_mode="attention",
+        d_attention=d_attention, d_components=3, dtype="float32")
+    train = port_config.TrainConfig(batch_size=2, style_mixing_prob=0.0)
+    x, fakes = chip_smoke.reference_inputs(model, train)
+    assert float(fakes.abs().max()) == 1.0
+    br = chip_smoke.host_branches(model, train, "float64", x, fakes)
+    weight = train.r1_gamma * 0.5 * train.d_reg_interval
+    step = chip_smoke._reference_grads(model, train, "d_step_r1", "cpu",
+                                       "float64", fakes=fakes)
+    r1 = chip_smoke._reference_grads(model, train, "R1 penalty", "cpu",
+                                     "float64")
+    assert set(step) == set(br["R1"])
+    for name, g in step.items():
+        total = br["reals"][name] + br["fakes"][name] + weight * br["R1"][
+            name]
+        w = name[:-1] + "w" if chip_smoke._key_bias(name) else name
+        assert float((total - g).abs().max()) <= 1e-6 * float(
+            step[w].abs().max()), name
+        assert float((br["R1"][name] - r1[name]).abs().max()) <= 1e-6 * (
+            float(r1[w].abs().max()) or 1.0), name
+
+
+def test_perturbed_is_another_fp32_rounding():
+    """``perturbed`` moves fp32 entries by a few units of rounding (|e|
+    2^-24 and one rounding: below 2^-21 at these 384 draws), moves some
+    of them, and is the same for the same seed."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 8, 8, 3)
+                         .astype(np.float32))
+    a, b = chip_smoke.perturbed(x), chip_smoke.perturbed(x)
+    assert a.dtype == torch.float32 and torch.equal(a, b)
+    rel = ((a - x).abs() / x.abs()).max()
+    assert 0 < float(rel) <= 2.0 ** -21
+    assert not torch.equal(chip_smoke.perturbed(x, seed=1), a)

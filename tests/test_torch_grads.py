@@ -103,36 +103,57 @@ UP_CASES = {"same3": (3, 1, None), "same3_lrelu": (3, 1, "lrelu"),
             "up2_lrelu": (3, 2, "lrelu")}
 
 
+def _opaque(fn):
+    """A launch stub's body: the plain version's result with no graph
+    attached, as a ctypes launch returns it, so a term autograd could
+    only reach through the stub's own graph is lost here as it would be
+    on the card."""
+    def run(*a, **kw):
+        with torch.no_grad():
+            return fn(*a, **kw)
+    return run
+
+
 class _Stubs:
     """Launch stubs: the plain versions, counted on the real counters, so
-    CPU tensors take the card's route."""
+    CPU tensors take the card's route.  Their results carry no graph
+    (``_opaque``)."""
 
     @staticmethod
+    @_opaque
     def modconv(*a):
         cuda_modconv.launches += 1
         return port_mc.modconv_plain(*a)
 
     @staticmethod
+    @_opaque
     def dx(*a):
         cuda_modconv.launches_dx += 1
         return port_mc.modconv_dx_plain(*a)
 
     @staticmethod
+    @_opaque
     def dw(*a):
         cuda_modconv.launches_dw += 1
         return port_mc.modconv_dw_plain(*a)
 
     @staticmethod
-    def upfirdn(*a):
+    @_opaque
+    def upfirdn(x, f, up, down, pads, bias, act, alpha, gain,
+                second_order=False):
         cuda_upfirdn.launches += 1
-        return port_ufd.upfirdn2d_plain(*a)
+        cuda_upfirdn.launches_second_order += second_order
+        return port_ufd.upfirdn2d_plain(x, f, up, down, pads, bias, act,
+                                        alpha, gain)
 
     @staticmethod
+    @_opaque
     def adjoint(ct, f, up, down, pads):
         cuda_upfirdn.launches_adjoint += 1
         return port_ufd.upfirdn2d_plain(ct, f, up, down, pads)
 
     @staticmethod
+    @_opaque
     def _attention(q, k, v, with_stats, direction):
         setattr(cuda_attention, f"launches_{direction}",
                 getattr(cuda_attention, f"launches_{direction}") + 1)
@@ -151,19 +172,20 @@ class _Stubs:
         return _Stubs._attention(q, k, v, with_stats, "l2g")
 
     @staticmethod
+    @_opaque
     def g2l_bwd(q, k, v, lse, do):
         cuda_attention.launches_g2l_bwd += 1
         return attention_bwd_plain(q, k, v, lse, do)
 
     @staticmethod
+    @_opaque
     def l2g_bwd(q, k, v, lse, do, delta):
         cuda_attention.launches_l2g_bwd += 1
         return attention_bwd_plain(q, k, v, lse, do, delta)
 
 
-@pytest.fixture
-def card_route(monkeypatch):
-    """``kernel_route`` reports the card and every launch is a stub."""
+def patch_card_route(monkeypatch):
+    """Make ``kernel_route`` report the card and stub every launch."""
     for mod in (port_mc, port_ufd, cuda_attention):
         monkeypatch.setattr(mod, "kernel_route", lambda t: True)
     monkeypatch.setattr(cuda_modconv, "modconv_cuda", _Stubs.modconv)
@@ -178,6 +200,12 @@ def card_route(monkeypatch):
                         _Stubs.g2l_bwd)
     monkeypatch.setattr(cuda_attention, "latent_to_grid_bwd_cuda",
                         _Stubs.l2g_bwd)
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    """``kernel_route`` reports the card and every launch is a stub."""
+    patch_card_route(monkeypatch)
     ops.reset_launch_counts()
     yield
     ops.reset_launch_counts()
@@ -344,9 +372,10 @@ def test_upfirdn_adjoint_plain_is_autograd(rng, act):
 def test_graph_repair_kernel_ops_build_their_graph(rng, card_route):
     """On the card's route a grad-requiring input gets a ``grad_fn`` from
     the Functions (never a bare launch), the backward launches the dx/ds,
-    dw and adjoint kernels, a second derivative through them raises
-    (first order only), and the attention ops, in both directions, build
-    their graph through their Functions and launch their backward."""
+    dw and adjoint kernels, a second derivative through ``ModconvCore``
+    raises (first order until G's second order is ported), and the
+    attention ops, in both directions, build their graph through their
+    Functions and launch their backward."""
     x = _t(rng.randn(2, 4, 4, 8), True)
     w = _t(rng.randn(3, 3, 8, 8) * 0.3, True)
     s = _t(rng.randn(2, 8) * 0.3 + 1.0, True)

@@ -574,6 +574,7 @@ def test_train_cli_config_reads_mirror_seed_and_validates(tmp_path,
         return _State()
 
     monkeypatch.setattr(train_cli, "d_step", fake_d_step)
+    monkeypatch.setattr(train_cli, "d_step_r1", fake_d_step)
     monkeypatch.setattr(train_cli, "g_step",
                         lambda state, it, n: {"Loss/G": 0.0})
     monkeypatch.setattr(train_cli, "create_train_state", fake_create)
