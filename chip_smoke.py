@@ -10,7 +10,12 @@ In order:
    ``NO_SPILL`` spills) and fails unless the SASS of the modconv wgmma
    kernels, forward and backward, holds HGMMA and that of the attention
    tensor-core kernels (grid->latent and latent->grid, forward and
-   backward each) HMMA (``cuobjdump -sass``);
+   backward each) HMMA (``cuobjdump -sass``); then ROADMAP C.16: the
+   attention kernels, forward writing lse and backward, in fp32 and bf16
+   at D's b8 shape as the largest logit grows from 1e1 to 1e4, against
+   float64 autograd of the softmax beside the plain pair's error
+   (``logit_scaling``): grid->latent's fp32 dq and dk at 1e3 and 1e4
+   must be within ``LOGIT_FACTOR`` of the plain pair's;
 3. serving.  First the library's tile and shared memory of each modconv
    forward launch against the wrapper's, and its route, tile and shared
    memory of each upfirdn and grid->latent launch, and its route, tile,
@@ -89,7 +94,17 @@ In order:
    re-enters known geometries), finite losses with ``Loss/D/r1``, every
    leaf of D finite and nonzero, and the step's peak device memory; the
    preset's then 3 more iterations of d_step_r1, d_step and g_step by
-   CUDA events and the profiler's breakdown of one d_step_r1; then each
+   CUDA events and the profiler's breakdown of one d_step_r1; then path
+   length: one ``g_step_pl`` of the preset (batch 8, the penalty on 4
+   fresh latents, bf16), any launch shape of it no earlier phase held
+   against its plain version (those of the path-length batch; its second
+   order re-enters the first order's shapes), its counters (launches,
+   lse, routes and the second-order passes: kernels 1, 5 and 6 for the
+   modconv core, kernel 2 for upfirdn, the attention's torch-op passes)
+   held to ``pl_step_calls``' plan, finite losses with ``Loss/G/pl``,
+   every leaf of G finite and nonzero, the step's peak device memory, 3
+   iterations of g_step_pl, g_step and d_step by CUDA events, a run's
+   mean g step, and the profiler's breakdown of one g_step_pl; then each
    other preset (cityscapes256-duplex at L = 32,
    ffhq1024-duplex at 512^2 and 1024^2, clevr64-simplex in fp32; the
    ModelConfig of bedroom256-duplex is ffhq256-duplex's, which the
@@ -114,14 +129,18 @@ In order:
    kernels; each R1 check again with one adjoint launch of the image
    gradient outside its Function (its second order silently lost), which
    the rule must reject where R1 is not a negligible part of the
-   gradient;
+   gradient; then path length: the penalty's gradient (G's second order)
+   and one g_step_pl (G's leaves), the same rule, batch 2 (the penalty on
+   1), each again with the first ``ModconvGradsFunction`` run bare (its
+   second order lost), which the rule must reject;
 9. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
    Every number of a kernel in the JSON line covers that kernel's
    ``span``: the serve run's launches for the forward kernels (and, in a
    second entry with ``"lse": true``, the forward attention launches of
    one d_step + one g_step that write lse), one d_step + one g_step for
-   the backward kernels, and one d_step_r1 (a third entry per kernel it
-   launches: every launch of the step, the second order's included).
+   the backward kernels, one d_step_r1 (a third entry per kernel it
+   launches: every launch of the step, the second order's included) and
+   one g_step_pl (a fourth, likewise).
 
 Exits non-zero, printing no result, on any failure, without CUDA, or
 without the ``gansformer_tpu_torch`` package beside it.
@@ -364,19 +383,82 @@ def r1_step_calls(cfg, batch: int, shrink: int = 1):
 
 def plan_second_order_counts(cfg, batch: int, shrink: int = 1):
     """``ops.second_order_counts`` of one d_step_r1: one pass per upfirdn
-    and per attention launch of D's forward on the R1 slice."""
+    and per attention launch of D's forward on the R1 slice (G runs under
+    no_grad: no modconv second order)."""
     d_r1 = d_forward_calls(cfg, batch // shrink, "r1")
-    return {f"{k}_second_order": sum(c["kernel"] == k for c in d_r1)
-            for k in ("upfirdn",) + ATTENTION_KERNELS}
+    return {"modconv_second_order": 0,
+            **{f"{k}_second_order": sum(c["kernel"] == k for c in d_r1)
+               for k in ("upfirdn",) + ATTENTION_KERNELS}}
+
+
+def _pl_linear_tail(call) -> bool:
+    """A launch of G's forward that path length's penalty reaches only
+    linearly: the tRGB convs and the skip upsampling carry the projection
+    noise to the images unchanged, so their cotangents in the penalty's
+    gradient are constants and no first-backward op saves their
+    outputs."""
+    return call["label"].endswith(("_trgb same1", " skip up"))
+
+
+def pl_step_calls(cfg, batch: int, shrink: int = 2):
+    """Every kernel launch of one g_step_pl at ``cfg``, tagged with its
+    phase: the g_step's (``train_path_calls``), then path length on
+    ``batch // shrink`` fresh latents: G's forward (its attention
+    launches write lse); the gradient of the noise projection wrt ws
+    with its graph kept (every backward launch of that forward: a
+    Function's backward computes the gradient of every input it was
+    built with, so the modconv dw launches too, though ws needs none);
+    the second order through that gradient: per modconv launch kernels
+    1, 5 and 6 (the tRGB's without kernel 1, its cotangent being the
+    projection noise carried linearly) and per blur upfirdn launch
+    kernel 2 as the adjoint's adjoint (the skip upsampling's adjoint
+    takes a constant cotangent: no graph); then the backward of the
+    forward launches whose outputs the gradient's graph saved (all but
+    ``_pl_linear_tail``).  The attention's second order launches
+    nothing (torch ops); ``plan_pl_second_order_counts`` counts it."""
+    g_step = [c for c in train_path_calls(cfg, batch)
+              if c["phase"] == "g_step"]
+    fwd = main_path_calls(cfg, batch // shrink, lse=True)
+    grad = [dict(c, label=c["label"] + " (path-length gradient)")
+            for c in backward_calls(fwd)]
+    second = []
+    for c in fwd:
+        tag = dict(label=c["label"] + " second order")
+        if c["kernel"] == "modconv":
+            if not _pl_linear_tail(c):
+                second.append(dict(c, **tag))
+            second += [dict(c, kernel="modconv_dx", **tag),
+                       dict(c, kernel="modconv_dw", **tag)]
+        elif c["kernel"] == "upfirdn" and not _pl_linear_tail(c):
+            second.append(dict(c, **tag))
+    outer = backward_calls([c for c in fwd if not _pl_linear_tail(c)])
+    return [dict(c, phase="g_step_pl")
+            for c in g_step + fwd + grad + second + outer]
+
+
+def plan_pl_second_order_counts(cfg, batch: int, shrink: int = 2):
+    """``ops.second_order_counts`` of one g_step_pl: the modconv and
+    upfirdn launches ``pl_step_calls`` labels second order, and one
+    torch-op pass per attention launch of the path-length forward."""
+    calls = pl_step_calls(cfg, batch, shrink)
+    second = [c for c in calls if c["label"].endswith(" second order")]
+    fwd = main_path_calls(cfg, batch // shrink, lse=True)
+    return {"modconv_second_order": sum(c["kernel"].startswith("modconv")
+                                        for c in second),
+            "upfirdn_second_order": sum(c["kernel"] == "upfirdn"
+                                        for c in second),
+            **{f"{k}_second_order": sum(c["kernel"] == k for c in fwd)
+               for k in ATTENTION_KERNELS}}
 
 
 def attention_cost(call, itemsize: int):
     """(bytes, operations) of one attention launch in a dtype of
     ``itemsize`` bytes, each input read once and each output written
     once.  Forward: q, k, v read, o written (+ the fp32 lse when written);
-    2 Lq Lk (D + Dv) operations.  Backward: q, k, v, do and the fp32 lse
-    read (latent_to_grid also reads its fp32 delta), dq, dk, dv written;
-    the five products of a flash-attention backward (S recomputed, dV, dP,
+    2 Lq Lk (D + Dv) operations.  Backward: q, k, v, do read
+    (latent_to_grid also reads its fp32 lse and delta; grid_to_latent
+    rebuilds each row's lse from its own logits), dq, dk, dv written; the
+    five products of a flash-attention backward (S recomputed, dV, dP,
     dQ, dK), 2 Lq Lk (3 D + 2 Dv) operations."""
     b, lq, lk, d, dv = call["B"], call["Lq"], call["Lk"], call["D"], \
         call["Dv"]
@@ -384,7 +466,7 @@ def attention_cost(call, itemsize: int):
         nbytes = (b * lq * d + b * lk * d + b * lk * dv + b * lq * dv) \
             * itemsize + (4 * b * lq if call.get("lse") else 0)
         return nbytes, 2.0 * b * lq * lk * (d + dv)
-    stats = 2 if call["kernel"] == "latent_to_grid_bwd" else 1
+    stats = 2 if call["kernel"] == "latent_to_grid_bwd" else 0
     nbytes = (2 * (b * lq * d + b * lk * d + b * lk * dv) + b * lq * dv) \
         * itemsize + 4 * b * lq * stats
     return nbytes, 2.0 * b * lq * lk * (3 * d + 2 * dv)
@@ -908,17 +990,16 @@ def g2l_bwd_row_drops(call, dtype, dev, chunk=None):
 
 def _attention_case(call, dtype, randn, dev, chunk):
     """``build_case`` for the four attention kernels.  Forward: o (and
-    lse when the call writes it).  Backward: dq, dk, dv on the forward's
-    lse (and, for latent_to_grid, delta = rowsum(do * o)) computed by the
-    plain version on the same inputs; on the card grid_to_latent's
-    backward kernel takes the lse its forward kernel wrote."""
+    lse when the call writes it).  Backward: dq, dk, dv; latent_to_grid's
+    on the forward's lse and delta = rowsum(do * o) computed by the plain
+    version on the same inputs, grid_to_latent's with each row's lse
+    from its own logits, in the kernel as in its plain version."""
     import torch
 
     from gansformer_tpu_torch.ops import cuda_attention
-    from gansformer_tpu_torch.ops.attention import (attention_bwd_plain,
-                                                    attention_delta,
-                                                    attention_fwd_stats_plain,
-                                                    attention_plain)
+    from gansformer_tpu_torch.ops.attention import (
+        attention_bwd_own_lse_plain, attention_bwd_plain, attention_delta,
+        attention_fwd_stats_plain, attention_plain)
 
     kname = call["kernel"]
     b, lq, lk, d, dv = call["B"], call["Lq"], call["Lk"], call["D"], \
@@ -974,13 +1055,11 @@ def _attention_case(call, dtype, randn, dev, chunk):
     library, backend = library_attention_bwd(q, k, v, do)
     if kname == "grid_to_latent_bwd":
         args = (q, k, v, lse, do)
-        # on the card the kernel rebuilds P from the lse the forward kernel
-        # wrote, the plain version from its own
-        lse_k = (cuda_attention.grid_to_latent_cuda(q, k, v,
-                                                    with_stats=True)[1]
-                 if dev == "cuda" else lse)
+        # the kernel and its plain version each rebuild P from the lse of
+        # their own logits (ROADMAP C.16)
         kern = lambda: cuda_attention.grid_to_latent_bwd_cuda(  # noqa: E731
-            q, k, v, lse_k, do)
+            q, k, v, do)
+        plain = lambda: attention_bwd_own_lse_plain(q, k, v, do)  # noqa
         def drop(keep, i):
             return lambda: attention_bwd_plain(
                 q[:, keep], k, v, lse[:, keep], do[:, keep])[i]
@@ -999,6 +1078,7 @@ def _attention_case(call, dtype, randn, dev, chunk):
         delta = attention_delta(o, do)
         args = (q, k, v, lse, do, delta)
         kern = lambda: cuda_attention.latent_to_grid_bwd_cuda(*args)  # noqa
+        plain = lambda: attention_bwd_plain(*args)  # noqa: E731
         controls += [dict(desc=desc, out=0,
                           fault=lambda keep=keep: attention_bwd_plain(
                               q, k[:, keep], v[:, keep], lse, do, delta)[0])
@@ -1009,7 +1089,7 @@ def _attention_case(call, dtype, randn, dev, chunk):
                           fault=lambda i=i: attention_bwd_plain(
                               q, k, v, lse, do, zero)[i])
                      for i, name in ((0, "dq"), (1, "dk"))]
-    return dict(kernel=kern, plain=lambda: attention_bwd_plain(*args),
+    return dict(kernel=kern, plain=plain,
                 library=library, library_backend=backend, bytes=nbytes,
                 ops=ops, outputs=("out", "out", "out"), controls=controls)
 
@@ -1182,6 +1262,103 @@ TRAIN_FLAGSHIP = ("b256_conv same3 dx/ds", "b256_conv same3 dw",
 
 
 # --------------------------------------------------------------------------
+# ROADMAP C.16: the attention kernels as the logits grow
+# --------------------------------------------------------------------------
+
+LOGIT_TARGETS = (1e1, 1e2, 1e3, 3e3, 1e4)
+# Where C.16 was measured (kernels 3 + 8 in fp32: dq / dk 4-6x the plain
+# pair's error against float64 at 1e3, ~770x at 1e4): since the repair
+# the kernels' dq and dk errors there are at most LOGIT_FACTOR times the
+# plain pair's on the same inputs.  At 1e4 the plain pair itself misses
+# dq and dk by 4-5x the largest float64 entry, so the gate there admits
+# any error up to ~10x that scale and only catches a C.16-sized fault;
+# 1e3 and 3e3, where the plain pair still resolves dq and dk, are the
+# points that tell a right kernel from a wrong one.
+LOGIT_GATE = (1e3, 3e3, 1e4)
+LOGIT_FACTOR = 2.0
+
+
+def logit_scaling(gate: bool = True):
+    """Kernels 3 + 8 (grid->latent, forward writing lse and backward) and
+    4 + 9 (latent->grid) at D's b8 attention shape (batch 2, 64 grid rows,
+    16 latents, width 512), q and k drawn from N(0, 1) (seed 11) and
+    scaled so the largest logit is each of ``LOGIT_TARGETS``, in fp32 and
+    bf16, against float64 autograd of the softmax form on the same
+    (rounded) inputs: the largest error of o, dq, dk and dv relative to
+    the largest |float64| entry, the kernels' beside the plain pair's
+    (``attention_fwd_stats_plain`` and ``attention_bwd_plain`` on its
+    lse, in the same dtype on the card) and, for grid->latent, beside
+    kernel 8's own plain version (``attention_bwd_own_lse_plain``).
+    ``gate``: fails unless grid->latent's fp32 dq and dk errors at
+    ``LOGIT_GATE`` are within ``LOGIT_FACTOR`` of the plain pair's."""
+    import torch
+
+    from gansformer_tpu_torch.ops import attention as att
+    from gansformer_tpu_torch.ops import cuda_attention as ca
+
+    def rel(got, refs):
+        return [float((g.double().cpu() - r).abs().max())
+                / float(r.abs().max()) for g, r in zip(got, refs)]
+
+    def fmt(errs):
+        return "/".join(f"{e:.2e}" for e in errs)
+
+    gen = torch.Generator().manual_seed(11)
+    n, lat, width = 64, 16, 512
+    for direction, rows, cols in (("grid_to_latent", n, lat),
+                                  ("latent_to_grid", lat, n)):
+        q0 = torch.randn(2, rows, width, generator=gen, dtype=torch.float64)
+        k0 = torch.randn(2, cols, width, generator=gen, dtype=torch.float64)
+        v0 = torch.randn(2, cols, width, generator=gen, dtype=torch.float64)
+        do0 = torch.randn(2, rows, width, generator=gen, dtype=torch.float64)
+        base = float((torch.einsum("bnd,bld->bnl", q0, k0)
+                      / width ** 0.5).abs().max())
+        for target in LOGIT_TARGETS:
+            c = (target / base) ** 0.5
+            for dtype_name in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype_name)
+                q, k, v, do = (t.to(dt).cuda() for t in (q0 * c, k0 * c, v0,
+                                                         do0))
+                ins = [t.double().cpu().requires_grad_() for t in (q, k, v)]
+                o_ref = att.attention_plain(*ins)
+                refs = (o_ref.detach(),) + torch.autograd.grad(
+                    o_ref, ins, do.double().cpu())
+                o, lse = getattr(ca, f"{direction}_cuda")(q, k, v,
+                                                          with_stats=True)
+                o_p, lse_p = att.attention_fwd_stats_plain(q, k, v)
+                if direction == "grid_to_latent":
+                    kern = (o,) + ca.grid_to_latent_bwd_cuda(q, k, v, do)
+                    pair = (o_p,) + att.attention_bwd_plain(q, k, v, lse_p,
+                                                            do)
+                    own = (o_p,) + att.attention_bwd_own_lse_plain(q, k, v,
+                                                                   do)
+                else:
+                    kern = (o,) + ca.latent_to_grid_bwd_cuda(
+                        q, k, v, lse, do, att.attention_delta(o, do))
+                    pair = (o_p,) + att.attention_bwd_plain(
+                        q, k, v, lse_p, do, att.attention_delta(o_p, do))
+                    own = None
+                torch.cuda.synchronize()
+                ek, ep = rel(kern, refs), rel(pair, refs)
+                print(f"  {direction:14s} {dtype_name:8s} max |logit| "
+                      f"{target:.0e}: (o, dq, dk, dv) kernels {fmt(ek)}; "
+                      f"plain pair {fmt(ep)}"
+                      + (f"; kernel 8's plain {fmt(rel(own, refs))}"
+                         if own else ""), flush=True)
+                if not all(math.isfinite(e) for e in ek):
+                    fail(f"{direction} {dtype_name} at {target:.0e}: "
+                         f"non-finite kernel output")
+                if (gate and direction == "grid_to_latent"
+                        and dtype_name == "float32" and target in LOGIT_GATE):
+                    for i, name in ((1, "dq"), (2, "dk")):
+                        if not ek[i] <= LOGIT_FACTOR * ep[i]:
+                            fail(f"C.16: kernels 3 + 8 fp32 {name} at max "
+                                 f"|logit| {target:.0e}: {ek[i]:.3e} > "
+                                 f"{LOGIT_FACTOR} x the plain pair's "
+                                 f"{ep[i]:.3e}")
+
+
+# --------------------------------------------------------------------------
 # Main path: serving ffhq256-duplex
 # --------------------------------------------------------------------------
 
@@ -1274,7 +1451,8 @@ KERNEL_GROUPS = (("grid_to_latent bwd", "g2l_bwd"),
 
 def profile(fn, title):
     """Device time of one call of ``fn`` by kernel group (the profiler's
-    CUDA activity), and the device-busy share of its wall time."""
+    CUDA activity), the device-busy share of its wall time and the number
+    of device activities."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1302,8 +1480,13 @@ def profile(fn, title):
     if device_ms == 0:
         print("  profiler recorded no device time: not measured")
         return
+    # the launches by group mix operator entries with kernel entries; the
+    # device activities (kernels and copies) are counted apart
+    activities = sum(1 for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
     print(f"  {title}: wall {wall_ms:.2f} ms (profiled), device busy "
-          f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f} % of wall)")
+          f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f} % of wall), "
+          f"{activities} device activities")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"    {g:24s} {ms:8.3f} ms  {launches[g]:5d} launches  "
               f"{100 * ms / device_ms:5.1f} % of device time")
@@ -1514,40 +1697,39 @@ def d_attention_run(model, train, calls):
     check_grads(state)
 
 
-def r1_counted_step(state, reals, calls, second, dtype_name, what):
-    """One d_step_r1 with the counters reset just before and read just
-    after, held to the plan: kernel launches, forward attention launches
-    that wrote lse, the routes of the upfirdn and attention launches, and
-    the second-order passes (``second``); finite losses, ``Loss/D/r1``
-    among them.  Returns the launch counts, the lse counts and the
-    losses."""
+def reg_counted_step(run, phase, calls, second, dtype_name, loss_key):
+    """One regularized step (``run``) with the counters reset just before
+    and read just after, held to the plan of ``phase``: kernel launches,
+    forward attention launches that wrote lse, the routes of the upfirdn
+    and attention launches, and the second-order passes (``second``);
+    finite losses, ``loss_key`` among them.  Returns the launch counts,
+    the lse counts and the losses."""
     import torch
 
     from gansformer_tpu_torch import ops
-    from gansformer_tpu_torch.train import d_step_r1
 
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    aux = d_step_r1(state, reals, 0)
+    aux = run()
     torch.cuda.synchronize()
     got, lse = ops.launch_counts(), ops.lse_launch_counts()
     got_second = ops.second_order_counts()
-    check_path_counts(ops.path_launch_counts(), calls, dtype_name, what)
-    want = plan_counts(calls, "d_step_r1")
-    want_lse = plan_lse_counts(calls, "d_step_r1")
-    print(f"  {what}: launches {got}; with lse {lse}; second order "
+    check_path_counts(ops.path_launch_counts(), calls, dtype_name, phase)
+    want = plan_counts(calls, phase)
+    want_lse = plan_lse_counts(calls, phase)
+    print(f"  {phase}: launches {got}; with lse {lse}; second order "
           f"{got_second}", flush=True)
     if got != want:
-        fail(f"{what}: launches {got} != the plan's {want}")
+        fail(f"{phase}: launches {got} != the plan's {want}")
     if lse != want_lse:
-        fail(f"{what}: launches with lse {lse} != the plan's {want_lse}")
+        fail(f"{phase}: launches with lse {lse} != the plan's {want_lse}")
     if got_second != second:
-        fail(f"{what}: second-order passes {got_second} != the plan's "
+        fail(f"{phase}: second-order passes {got_second} != the plan's "
              f"{second}")
     losses = {k: float(v) for k, v in aux.items()}
-    if "Loss/D/r1" not in losses or not all(
+    if loss_key not in losses or not all(
             math.isfinite(v) for v in losses.values()):
-        fail(f"{what}: losses {losses}")
+        fail(f"{phase}: losses {losses}")
     return got, lse, losses
 
 
@@ -1569,8 +1751,9 @@ def r1_run(model, train, calls, second, timed: bool):
     batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counts, _, losses = r1_counted_step(state, batches[0], calls, second,
-                                        model.dtype, "d_step_r1")
+    counts, _, losses = reg_counted_step(
+        lambda: d_step_r1(state, batches[0], 0), "d_step_r1", calls, second,
+        model.dtype, "Loss/D/r1")
     peak = torch.cuda.max_memory_allocated()
     print(f"  losses {losses}; peak device memory of the step "
           f"{peak / 2**30:.2f} GiB", flush=True)
@@ -1594,6 +1777,51 @@ def r1_run(model, train, calls, second, timed: bool):
             f"{k} {v[-1]:.2f} ms" for k, v in ms.items())
             + " (CUDA events)", flush=True)
     profile(lambda: d_step_r1(state, batches[0], 9), "one d_step_r1")
+    return counts, peak, {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def pl_run(model, train, calls, second):
+    """One g_step_pl of ``model`` at the training batch with its counters
+    held to the plan, every gradient leaf of G finite and nonzero, and
+    the peak device memory of that step; then 3 iterations of g_step_pl,
+    g_step and d_step by CUDA events, and the profiler's breakdown of
+    one g_step_pl.  Returns the launch counts, the peak bytes and the
+    mean ms of each step."""
+    import torch
+
+    from gansformer_tpu_torch.data import SyntheticDataset
+    from gansformer_tpu_torch.train import d_step, g_step, g_step_pl
+
+    state = train_state_on_card(model, train)
+    data = SyntheticDataset(model.resolution, model.img_channels).batches(
+        TRAIN_BATCH, seed=4)
+    batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, _, losses = reg_counted_step(
+        lambda: g_step_pl(state, 0, TRAIN_BATCH), "g_step_pl", calls, second,
+        model.dtype, "Loss/G/pl")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {losses}; pl_mean {float(state.pl_mean):.4f}; peak "
+          f"device memory of the step {peak / 2**30:.2f} GiB", flush=True)
+    check_grads(state, ("G",))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ms = {"g_step_pl": [], "g_step": [], "d_step": []}
+    for it in range(1, 4):
+        ev[0].record()
+        g_step_pl(state, it, TRAIN_BATCH)
+        ev[1].record()
+        g_step(state, it, TRAIN_BATCH)
+        ev[2].record()
+        d_step(state, batches[it], it)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(ms):
+            ms[name].append(ev[i].elapsed_time(ev[i + 1]))
+        print(f"  iteration {it}: " + ", ".join(
+            f"{k} {v[-1]:.2f} ms" for k, v in ms.items())
+            + " (CUDA events)", flush=True)
+    profile(lambda: g_step_pl(state, 9, TRAIN_BATCH), "one g_step_pl")
     return counts, peak, {k: sum(v) / len(v) for k, v in ms.items()}
 
 
@@ -1725,34 +1953,49 @@ def perturbed(x, seed: int = REF_SEED):
     return (x.double() * (1.0 + REF_ROUNDOFF * e)).to(x.dtype)
 
 
-def planted_second_order_drop():
-    """A context in which the first adjoint launch of an image gradient
-    runs bare, outside ``UpfirdnAdjointFunction``: its value is right and
-    the second order through it is silently lost, as a ctypes launch in
-    the backward would lose it.  Yields a list that holds one entry once
-    the fault was planted."""
+def _bare_once(cls, bare):
+    """A context in which the first ``cls.apply`` runs ``bare`` instead,
+    outside the Function: its value is right and the second order through
+    it is silently lost, as a ctypes launch in a backward would lose it.
+    Yields a list that holds one entry once the fault was planted."""
     import contextlib
-    import importlib
-
-    ufd = importlib.import_module("gansformer_tpu_torch.ops.upfirdn2d")
 
     @contextlib.contextmanager
     def planted():
-        adj = ufd.UpfirdnAdjointFunction
-        apply, done = adj.apply, []
+        apply, done = cls.apply, []
 
         def bare_once(*a):
             if done:
                 return apply(*a)
             done.append(1)
-            return ufd.upfirdn2d_adjoint(*a)
+            return bare(*a)
 
-        adj.apply = staticmethod(bare_once)
+        cls.apply = staticmethod(bare_once)
         try:
             yield done
         finally:
-            del adj.apply                  # the inherited classmethod again
+            del cls.apply                  # the inherited classmethod again
     return planted()
+
+
+def planted_second_order_drop():
+    """The first adjoint launch of an image gradient runs bare, outside
+    ``UpfirdnAdjointFunction`` (``_bare_once``)."""
+    import importlib
+
+    ufd = importlib.import_module("gansformer_tpu_torch.ops.upfirdn2d")
+    return _bare_once(ufd.UpfirdnAdjointFunction, ufd.upfirdn2d_adjoint)
+
+
+def planted_modconv_second_order_drop():
+    """The first modconv gradient of a backward (in a g_step_pl the last
+    tRGB's, in path length's gradient) runs bare, outside
+    ``ModconvGradsFunction`` (``_bare_once``): kernels 5 and 6 give the
+    right first order, and that layer's second order is lost."""
+    import importlib
+
+    mc = importlib.import_module("gansformer_tpu_torch.ops.modulated_conv")
+    return _bare_once(mc.ModconvGradsFunction, mc.modconv_core_grads)
 
 
 def host_fakes(model, train):
@@ -1878,6 +2121,67 @@ def _reference_grads(model, train, kind, dev, dtype, plant=False,
             if k.split("/")[0] in nets}
 
 
+def pl_reference_inputs(model, train):
+    """z (batch 2), the PL latents (batch 2 // pl_batch_shrink) and the
+    projection noise of the float64-referenced path-length checks, drawn
+    on the host (seed 9), so every side sees the same."""
+    import torch
+
+    gen = torch.Generator().manual_seed(9)
+    pl_batch = max(1, 2 // train.pl_batch_shrink)
+    shape = (model.num_ws, model.latent_dim)
+    return (torch.randn((2,) + shape, generator=gen),
+            torch.randn((pl_batch,) + shape, generator=gen),
+            torch.randn((pl_batch, model.resolution, model.resolution,
+                         model.img_channels), generator=gen))
+
+
+def _pl_grads(model, train, kind, dev, dtype, inputs, plant=False):
+    """G's gradient leaves of one ``kind`` at batch 2, noise and mixing
+    off, the ReZero gates at 0.1, from seed 0, in ``dtype`` on ``dev``, on
+    ``inputs`` (``pl_reference_inputs``): "G loss" (the non-saturating
+    loss alone), "PL" (the path-length penalty alone, unweighted: G's
+    second order), "g_step_pl" (the entry point).  ``plant`` runs the
+    first ``ModconvGradsFunction`` bare
+    (``planted_modconv_second_order_drop``)."""
+    import contextlib
+
+    import torch
+
+    from gansformer_tpu_torch.losses import g_nonsaturating_loss
+    from gansformer_tpu_torch.train import (create_train_state, draw_step,
+                                            g_forward, g_step_pl, pl_term)
+
+    state = create_train_state(dataclasses.replace(model, dtype=dtype),
+                               train, seed=0, device=dev)
+    perturb(state.generator)
+    gen, d = state.generator, state.discriminator
+    z, z_pl, noise = inputs
+    with (planted_modconv_second_order_drop() if plant
+          else contextlib.nullcontext([1])) as done:
+        if kind == "g_step_pl":
+            g_step_pl(state, 0, 2, z=z, z_pl=z_pl, pl_noise=noise,
+                      noise_mode="none")
+            grads = [p.grad for p in gen.parameters()]
+        elif kind in ("PL", "G loss"):
+            if kind == "PL":
+                loss = pl_term(state, 0, 2, z_pl, noise, "none")[0]
+            else:
+                d.requires_grad_(False)
+                fakes, _ = g_forward(gen, draw_step(state, 0, "g", 2, z,
+                                                    "none"), "none")
+                loss = g_nonsaturating_loss(d(fakes))
+            grads = torch.autograd.grad(loss, list(gen.parameters()),
+                                        allow_unused=True)
+        else:
+            fail(f"unknown gradient kind {kind!r}")
+    if not done:
+        fail(f"{kind}: the planted fault found no modconv gradient")
+    return {f"G/{n}": (torch.zeros(p.shape, dtype=torch.float64)
+                       if g is None else g.detach().double().cpu())
+            for (n, p), g in zip(gen.named_parameters(), grads)}
+
+
 def hold_to_reference(title, ref, hosts, card):
     """Each leaf of ``card`` (fp32 on the card) against ``ref`` (float64 on
     the host) by the REF_HOST_FACTOR rule, the largest error of the
@@ -1959,9 +2263,9 @@ def reference_compare(model, train):
             fail(f"{title}: the planted second-order drop passes the rule")
         else:
             print(f"  {title}: the planted second-order drop stays within "
-                  "the rule here: R1 is a small part of this step's "
-                  "gradient at this init (the penalty's own gradient is "
-                  "held above)", flush=True)
+                  "the rule here: the regularizer is a small part of this "
+                  "step's gradient at this init (the penalty's own "
+                  "gradient is held above)", flush=True)
 
     for m, tag in ((model, ""),
                    (dataclasses.replace(model, d_attention=True),
@@ -1985,6 +2289,7 @@ def reference_compare(model, train):
         hold(f"d_step_r1{tag}", step(ref), [step(h) for h in hosts],
              cards["d_step_r1", False], cards["d_step_r1", True],
              bool(tag))
+    pl_reference_compare(model, train, hold)
     kind = "d_step + g_step"
     title = f"{kind}, gates 0.1"
     t0 = time.perf_counter()
@@ -1998,6 +2303,46 @@ def reference_compare(model, train):
           f"samples) {t2 - t1:.1f} s, card {time.perf_counter() - t2:.1f} "
           "s", flush=True)
     hold(title, ref, hosts, card, None, False)
+
+
+def pl_reference_compare(model, train, hold):
+    """Path length against the host's float64 plain path (fp32, batch 2,
+    the PL batch 2 // pl_batch_shrink, noise and mixing off, the gates at
+    0.1): the penalty's own gradient (G's second order) and one g_step_pl
+    (the non-saturating loss plus pl_weight * g_reg_interval times the
+    penalty), every card side through the kernels, the host computing
+    each branch once per side, the host's fp32 error the larger of two
+    samples (on the inputs and on them at another fp32 rounding); each
+    with its planted fault (one ``ModconvGradsFunction`` run bare), which
+    the rule must reject, the penalty being a large part of the step's
+    gradient at this init.  ``hold`` is ``reference_compare``'s."""
+    inputs = pl_reference_inputs(model, train)
+    weight = train.pl_weight * train.g_reg_interval
+
+    def branches(dtype, ins):
+        return {k: _pl_grads(model, train, k, "cpu", dtype, ins)
+                for k in ("G loss", "PL")}
+
+    def step(br):
+        return {n: br["G loss"][n] + weight * br["PL"][n] for n in br["PL"]}
+
+    t0 = time.perf_counter()
+    ref = branches("float64", inputs)
+    t1 = time.perf_counter()
+    hosts = [branches("float32", inputs),
+             branches("float32", tuple(perturbed(t) for t in inputs))]
+    t2 = time.perf_counter()
+    cards = {(kind, plant): _pl_grads(model, train, kind, "cuda", "float32",
+                                      inputs, plant=plant)
+             for kind in ("PL", "g_step_pl") for plant in (False, True)}
+    print(f"  path length (res {model.resolution}, PL batch "
+          f"{inputs[1].shape[0]}): host float64 {t1 - t0:.1f} s, host fp32 "
+          f"(two samples) {t2 - t1:.1f} s, card (four runs) "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    hold("path-length penalty", ref["PL"], [h["PL"] for h in hosts],
+         cards["PL", False], cards["PL", True], True)
+    hold("g_step_pl", step(ref), [step(h) for h in hosts],
+         cards["g_step_pl", False], cards["g_step_pl", True], True)
 
 
 def _demangled_name(mangled: str) -> str:
@@ -2424,6 +2769,16 @@ def main() -> int:
                 fail(f"{kname}: no {opcode} in the SASS ({found})")
             print(f"  sass: {opcode} instructions {found}", flush=True)
 
+    # ---- ROADMAP C.16: the attention kernels at large logits ---------------
+    print("the attention kernels against float64 autograd of the softmax "
+          "as the logits grow (batch 2, 64 grid rows, 16 latents, width "
+          f"512; relative to max |float64|; gate: kernels 3 + 8 fp32 dq, dk "
+          f"<= {LOGIT_FACTOR} x the plain pair's at "
+          f"{', '.join(f'{t:.0e}' for t in LOGIT_GATE)}):", flush=True)
+    t0 = time.perf_counter()
+    logit_scaling()
+    print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- serving ----------------------------------------------------------
     cfg = get_preset("ffhq256-duplex")
     calls = {b: main_path_calls(cfg, b) for b in BUCKETS}
@@ -2610,6 +2965,52 @@ def main() -> int:
           f"events, mean of 3); peak device memory of one d_step_r1 "
           f"{r1_peak / 2**30:.2f} GiB ({card})", flush=True)
 
+    # ---- path length: g_step_pl --------------------------------------------
+    shrink = tcfg.pl_batch_shrink
+    pcalls = pl_step_calls(cfg, TRAIN_BATCH, shrink)
+    psecond = plan_pl_second_order_counts(cfg, TRAIN_BATCH, shrink)
+    print(f"g_step_pl of ffhq256-duplex, batch {TRAIN_BATCH} (path length "
+          f"on {TRAIN_BATCH // shrink}), bf16, pl_weight {tcfg.pl_weight}, "
+          f"pl_decay {tcfg.pl_decay}, g_reg_interval "
+          f"{tcfg.g_reg_interval}; launch plan "
+          f"{plan_counts(pcalls, 'g_step_pl')}; with lse "
+          f"{plan_lse_counts(pcalls, 'g_step_pl')}; second order "
+          f"{psecond}", flush=True)
+    check_fwd_configs(pcalls)
+    check_bwd_configs(pcalls)
+    check_attn_ufd_configs(pcalls)
+    new, seen = [], set()
+    for c in pcalls:
+        key = call_key(c, "bfloat16")
+        if key not in row_of and key not in seen:
+            seen.add(key)
+            new.append(c)
+    print(f"  {len(new)} of its launch shapes no earlier phase held (the "
+          "path-length batch's; the second order's are shapes of the "
+          "first), kernel vs plain, bf16:", flush=True)
+    row_of.update((call_key(c, "bfloat16"), r) for c, r in zip(
+        new, check_kernels(new, "bfloat16", peaks)))
+    torch.cuda.empty_cache()
+    pl_counts, pl_peak, pl_ms = pl_run(cfg, tcfg, pcalls, psecond)
+    pl_kernels = tuple(k for k in REPLACES if pl_counts[k])
+    pl_sums = kernel_sums([row_of[call_key(c, "bfloat16")]
+                           for c in pcalls], pl_kernels)
+    print_sums("  sums over the launches of one g_step_pl (bf16, batch "
+               f"{TRAIN_BATCH}):", pl_sums)
+    for kname, s in pl_sums.items():
+        if s["launches"] != pl_counts[kname]:
+            fail(f"{kname}: the g_step_pl made {pl_counts[kname]} launches, "
+                 f"the sums cover {s['launches']}")
+    every = tcfg.g_reg_interval
+    print(f"  g_step_pl {pl_ms['g_step_pl']:.2f} ms, g_step "
+          f"{pl_ms['g_step']:.2f} ms, d_step {pl_ms['d_step']:.2f} ms (CUDA "
+          f"events, mean of 3); a run's mean g step ({every - 1} g_step + "
+          f"g_step_pl) / {every}: "
+          f"{((every - 1) * pl_ms['g_step'] + pl_ms['g_step_pl']) / every:.2f}"
+          f" ms; peak device memory of one g_step_pl "
+          f"{pl_peak / 2**30:.2f} GiB ({card})", flush=True)
+    torch.cuda.empty_cache()
+
     # ---- the other presets ------------------------------------------------
     if get_preset("bedroom256-duplex") != cfg:
         fail("bedroom256-duplex is no longer ffhq256-duplex's ModelConfig")
@@ -2634,6 +3035,7 @@ def main() -> int:
                     for k in TRAIN_KERNELS}
     span_train = f"one d_step + one g_step at batch {TRAIN_BATCH} (bf16)"
     span_r1 = f"one d_step_r1 at batch {TRAIN_BATCH} (bf16)"
+    span_pl = f"one g_step_pl at batch {TRAIN_BATCH} (bf16)"
     kernels = [{
         "name": kname, "route": "cuda", "source": SOURCES[kname],
         "replaces": REPLACES[kname], "launches": launches,
@@ -2646,7 +3048,8 @@ def main() -> int:
         (lse_sums, lse_counts, span_train + ", forward launches that write "
          "lse", {"lse": True}),
         (train_sums, train_counts, span_train, {}),
-        (r1_sums, r1_counts, span_r1, {}))
+        (r1_sums, r1_counts, span_r1, {}),
+        (pl_sums, pl_counts, span_pl, {}))
         for kname, s in sums.items() for launches in (cnt[kname],)]
     print("kernels over each span's launches (ms, plain_ms, bound_ms and "
           "library_ms are sums over them):", flush=True)

@@ -1,15 +1,15 @@
 """Train with the PyTorch port: alternating D and G steps on the
 procedural dataset, with D's lazy R1 penalty (``d_step_r1``) every
-``d_reg_interval`` iterations from iteration 0, as the JAX loop runs it;
-G's path-length penalty is not ported yet, so every G step is first
-order.
+``d_reg_interval`` iterations and G's lazy path-length penalty
+(``g_step_pl``) every ``g_reg_interval`` iterations, each from iteration
+0, as the JAX loop runs them.
 
     python -m gansformer_tpu_torch.cli.train --preset ffhq256-duplex \\
         --steps 4 --batch-size 8 --seed 0 [--device cpu]
 
 Prints one line per iteration: the losses (``Loss/D/r1`` on the R1
-iterations) and the milliseconds of the d and g steps (host clock around
-synchronized work).  ``--config`` reads
+iterations, ``Loss/G/pl`` on the path-length ones) and the milliseconds
+of the d and g steps (host clock around synchronized work).  ``--config`` reads
 the ``model`` and ``train`` sections and ``data.mirror_augment`` of a
 JAX run's ``config.json`` instead of a preset (the way to
 ``d_attention``, which has no flag, as in the JAX CLI); the flags apply
@@ -39,14 +39,15 @@ from gansformer_tpu_torch.core.config import (PRESETS,
 from gansformer_tpu_torch.core.device import resolve_device
 from gansformer_tpu_torch.data.dataset import SyntheticDataset
 from gansformer_tpu_torch.train.state import create_train_state
-from gansformer_tpu_torch.train.steps import d_step, d_step_r1, g_step
+from gansformer_tpu_torch.train.steps import (d_step, d_step_r1, g_step,
+                                              g_step_pl)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GANsformer training, PyTorch "
                                             "port (R1 every d_reg_interval "
-                                            "iterations; no path length "
-                                            "yet)")
+                                            "iterations, path length every "
+                                            "g_reg_interval)")
     p.add_argument("--preset", default="ffhq256-duplex",
                    choices=sorted(PRESETS))
     p.add_argument("--config", default=None,
@@ -116,15 +117,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         d_aux = step(state, reals, it, mirror_augment=mirror)
         sync()
         t1 = time.perf_counter()
-        g_aux = g_step(state, it, train.batch_size)
+        gstep = g_step_pl if it % train.g_reg_interval == 0 else g_step
+        g_aux = gstep(state, it, train.batch_size)
         sync()
         t2 = time.perf_counter()
         losses = {k: float(v) for k, v in {**d_aux, **g_aux}.items()}
         r1 = (f" Loss/D/r1 {losses['Loss/D/r1']:.4f}"
               if "Loss/D/r1" in losses else "")
+        pl = (f" Loss/G/pl {losses['Loss/G/pl']:.4f}"
+              if "Loss/G/pl" in losses else "")
         print(f"step {it}: kimg {state.step / 1000:.3f} "
               f"Loss/D {losses['Loss/D']:.4f}{r1} Loss/G "
-              f"{losses['Loss/G']:.4f} real "
+              f"{losses['Loss/G']:.4f}{pl} real "
               f"{losses['Loss/scores/real']:.4f} fake "
               f"{losses['Loss/scores/fake']:.4f} d_ms "
               f"{(t1 - t0) * 1e3:.2f} g_ms {(t2 - t1) * 1e3:.2f}",

@@ -147,8 +147,10 @@ class TrainConfig:
     fields of the JAX ``TrainConfig`` that the port's steps read (same
     names and defaults).  R1 (``d_step_r1``) runs every
     ``d_reg_interval`` iterations on the first ``batch_size //
-    r1_batch_shrink`` reals, weighted by ``r1_gamma``; the path-length
-    regularizer comes later."""
+    r1_batch_shrink`` reals, weighted by ``r1_gamma``; path length
+    (``g_step_pl``) every ``g_reg_interval`` iterations on ``batch_size
+    // pl_batch_shrink`` fresh latents, weighted by ``pl_weight``, its
+    mean length an EMA of rate ``pl_decay``."""
 
     batch_size: int = 32
     g_lr: float = 2e-3
@@ -160,6 +162,9 @@ class TrainConfig:
     d_reg_interval: int = 16
     r1_batch_shrink: int = 1
     g_reg_interval: int = 4
+    pl_weight: float = 2.0
+    pl_decay: float = 0.01
+    pl_batch_shrink: int = 2
     style_mixing_prob: float = 0.9
     ema_kimg: float = 10.0
     ema_rampup: Optional[float] = None
@@ -167,12 +172,11 @@ class TrainConfig:
 
 
 # Keys of the JAX ``TrainConfig`` that the port reads and does not use yet
-# (the path-length regularizer, the tick loop, checkpoints, telemetry).
+# (the tick loop, checkpoints, telemetry).
 IGNORED_TRAIN_KEYS = frozenset({
-    "total_kimg", "pl_weight", "pl_decay", "pl_batch_shrink",
-    "fused_cycle", "async_checkpoint", "kimg_per_tick", "snapshot_ticks",
-    "image_snapshot_ticks", "metric_ticks", "metrics", "debug_nans",
-    "profile_dir", "device_time_ticks"})
+    "total_kimg", "fused_cycle", "async_checkpoint", "kimg_per_tick",
+    "snapshot_ticks", "image_snapshot_ticks", "metric_ticks", "metrics",
+    "debug_nans", "profile_dir", "device_time_ticks"})
 
 
 def train_config_from_dict(d: Dict[str, Any]) -> TrainConfig:
@@ -227,6 +231,12 @@ def validate(model: ModelConfig, train: TrainConfig) -> None:
             f"train.batch_size ({t.batch_size}) must be divisible by "
             f"model.mbstd_group_size ({m.mbstd_group_size}) — the "
             f"stddev layer would silently use a smaller group")
+    if t.pl_batch_shrink < 1:
+        errs.append(f"pl_batch_shrink must be ≥ 1, got "
+                    f"{t.pl_batch_shrink} (1 = full-batch probe)")
+    elif t.batch_size % t.pl_batch_shrink:
+        errs.append(f"pl_batch_shrink ({t.pl_batch_shrink}) must divide "
+                    f"batch_size ({t.batch_size})")
     if t.r1_batch_shrink < 1:
         errs.append(f"r1_batch_shrink must be ≥ 1, got "
                     f"{t.r1_batch_shrink}")

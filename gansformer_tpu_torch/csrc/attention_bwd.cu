@@ -1,16 +1,26 @@
 // Backward of the bipartite attention, both directions, over heads folded
 // into the batch: (dq, dk, dv) of out = softmax(q k^T * scale) v at the
-// cotangent do, with P = exp(s - lse) rebuilt from the forward's fp32 row
-// statistic (attention.cu) and every product, sum and exp in fp32 whatever
-// the storage type.
+// cotangent do, with P = exp(s - lse) rebuilt from a fp32 row statistic
+// and every product, sum and exp in fp32 whatever the storage type.
 //
 // grid_to_latent backward (replaces gansformer_tpu/ops/pallas_attention.py
 //   _grid_to_latent_bwd -> pl.pallas_call, body _grid_to_latent_bwd_kernel):
 //   q/do [B, n, D|Dv] grid rows, k/v [B, L, D|Dv] with L <= 64 latents.
-//   Per row: P from lse, dP = do V^T, the row delta rowsum(dP * P) inside
-//   the kernel (as the TPU body does, not from o), dS = P (dP - delta), dq
-//   = dS K * scale written once per row.  dk and dv are sums over all n
-//   rows: the TPU carries them in fp32 scratch across its sequential grid;
+//   Per row: S = q K^T * scale, the row's max and lse = max + log(sum
+//   exp(S - max)) from that S, P = exp(S - lse), dP = do V^T, the row
+//   delta rowsum(dP * P) inside the kernel (as the TPU body does, not
+//   from o), dS = P (dP - delta), dq = dS K * scale written once per row.
+//   The TPU body rebuilds P from the forward's lse; the forward kernel
+//   (attention.cu) sums S in another order than this kernel, and where
+//   the softmax saturates (|logit| >= 1e3 in fp32) one ulp of that
+//   disagreement makes sum P != 1 and dS = P (dP - delta) is no longer
+//   ~0: dq and dk took 4-6x the plain pair's error against float64 at
+//   1e3 and ~770x at 1e4.  A row is L <= 64 values (one warp on the
+//   fp32 route, one quad's fragments on the tensor cores), so its lse
+//   costs two reductions of the kind delta already takes, and P sums to
+//   1 in the kernel's own arithmetic; the forward's lse is not read.
+//   dk and dv are sums over all n rows: the TPU carries them in fp32
+//   scratch across its sequential grid;
 //   Hopper blocks run in no order, so each block writes fp32 partials [B,
 //   blocks, L, D|Dv] and g2l_bwd_reduce_kernel sums them in block order
 //   (deterministic), one launch for dk and dv.  Rows past n add nothing.
@@ -32,8 +42,7 @@
 //     eight warps: S and dP split their depth over the warps of a row
 //     group (fp32 parts summed in fixed order), and dq is not kept in the
 //     row group's warp but read back from the staged dS in items spread
-//     over all warps beside the dK/dV chunks.  The rows' lse rides in the
-//     ring with q and do.
+//     over all warps beside the dK/dV chunks.
 //   * g2l_bwd_kernel (fp32, other shapes): one block per 64-row chunk
 //     (kRows) on the CUDA cores, one row a warp with warp reductions; past
 //     32 latents a thread's column sums run in two 32-latent halves, so
@@ -66,7 +75,8 @@
 //     block per 64-key chunk (kRows) on the CUDA cores, each warp walking
 //     keys, dq through per-chunk partials.
 //
-// Bound: bytes.  q, k, v, do are read once and dq, dk, dv written once; the
+// Bound: bytes.  q, k, v, do (and kernel 9's lse and delta) are read once
+// and dq, dk, dv written once; the
 // five products of the flash backward are 2 Lq Lk (3 D + 2 Dv) flops, a
 // few dozen per byte at L = 16, far under Hopper's ridge (~295): mma.sync
 // serves both directions where wgmma would buy nothing.
@@ -134,8 +144,8 @@ __global__ void __launch_bounds__(256)
 template <typename T, int LMAX>
 __global__ void __launch_bounds__(256)
     g2l_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ lse,
-                   const T* __restrict__ dout, T* __restrict__ dq,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   T* __restrict__ dq,
                    float* __restrict__ dk_part, float* __restrict__ dv_part,
                    int n, int L, int D, int Dv, float scale) {
   extern __shared__ float sm[];
@@ -161,8 +171,7 @@ __global__ void __launch_bounds__(256)
     for (int d = lane; d < D; d += 32) qs[d] = to_f(q[row * D + d]);
     for (int d = lane; d < Dv; d += 32) dos[d] = to_f(dout[row * Dv + d]);
     __syncwarp();
-    const float lr = lse[row];
-    // lane l keeps P and dP of latent l, and of latent l + 32
+    // lane l keeps S (then P) and dP of latent l, and of latent l + 32
     float p0 = 0.f, p1 = 0.f, dp0 = 0.f, dp1 = 0.f;
     for (int l = 0; l < L; ++l) {
       float s = 0.f, t = 0.f;
@@ -171,16 +180,23 @@ __global__ void __launch_bounds__(256)
       s = warp_sum(s);
       t = warp_sum(t);
       if (lane == (l & 31)) {
-        const float p = expf(s * scale - lr);
         if (l < 32) {
-          p0 = p;
+          p0 = s * scale;
           dp0 = t;
         } else {
-          p1 = p;
+          p1 = s * scale;
           dp1 = t;
         }
       }
     }
+    // the row's lse from its own S, then P = exp(S - lse)
+    const bool in0 = lane < L, in1 = lane + 32 < L;
+    const float mx = warp_max(fmaxf(in0 ? p0 : -INFINITY,
+                                    in1 ? p1 : -INFINITY));
+    const float lr = mx + logf(warp_sum((in0 ? expf(p0 - mx) : 0.f) +
+                                        (in1 ? expf(p1 - mx) : 0.f)));
+    p0 = in0 ? expf(p0 - lr) : 0.f;
+    p1 = in1 ? expf(p1 - lr) : 0.f;
     const float delta = warp_sum(p0 * dp0 + p1 * dp1);
     if (lane < L) {
       Pc[rr * L + lane] = p0;
@@ -235,8 +251,8 @@ __global__ void __launch_bounds__(256)
 // grid_to_latent backward on the tensor cores (bf16; key_shape_ok).  One
 // block of kKeyWarps warps per (span of tiles, batch entry); K [LP, D] and
 // V [LP, Dv] resident (swizzled, rows past L zero); each tile's q and do
-// rows and their lse landed whole in one slot of a `stages`-slot cp.async
-// ring (load_key_tile), so q and do are read once.  Per tile, three
+// rows landed whole in one slot of a `stages`-slot cp.async ring
+// (load_key_tile), so q and do are read once.  Per tile, three
 // phases between barriers (they set a tile's time, with the issue of the
 // next tile's 16-byte cp.async copies sharing their memory pipe, not the
 // bytes; PERF.md section 6):
@@ -246,7 +262,8 @@ __global__ void __launch_bounds__(256)
 //       partial sums to shared memory (a 16-row tile at D = Dv = 512
 //       would leave one warp walking 64 steps while seven wait);
 //   1b. one warp a row group sums the parts in step order, then in
-//       registers P = exp(S scale - lse) (0 past n and past L), the row's
+//       registers the row's max and lse of S scale over the quad's lanes,
+//       P = exp(S scale - lse) (0 past n and past L), the row's
 //       delta = rowsum(P dP) over the quad's lanes and dS = P (dP -
 //       delta), P and dS written as hi + lo bf16 (split_bf16) in the
 //       [row, latent] layout; meanwhile the other warps issue the loads
@@ -267,7 +284,6 @@ __global__ void __launch_bounds__(kKeyWarps * 32, 1)
     g2l_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       const float* __restrict__ lse,
                        const __nv_bfloat16* __restrict__ dout,
                        __nv_bfloat16* __restrict__ dq,
                        float* __restrict__ dk_part,
@@ -280,7 +296,7 @@ __global__ void __launch_bounds__(kKeyWarps * 32, 1)
   // dK/dV chunks a warp: [LP, Dv + D] in 64-column chunks over the warps
   constexpr int CW = 2 * kKeyMaxCols / 64 / kKeyWarps;
   extern __shared__ __align__(128) unsigned char g2l_bwd_smem_raw[];
-  const int tile_bytes = kt * ((D + Dv) * 2 + 4);          // q, do, lse
+  const int tile_bytes = kt * (D + Dv) * 2;                // q, do
   unsigned char* ring = g2l_bwd_smem_raw;
   unsigned char* Ks = ring + stages * tile_bytes;            // [LP, D]
   unsigned char* Vs = Ks + LP * D * 2;                       // [LP, Dv]
@@ -313,11 +329,6 @@ __global__ void __launch_bounds__(kKeyWarps * 32, 1)
       const int r0 = (tile0 + j) * kt;
       load_key_tile(slot, slot + kt * D * 2, q, dout, b, n, r0, kt, D, Dv,
                     ltid, lthreads);
-      if (ltid < kt) {                 // the rows' lse, 0 past n
-        const bool in = r0 + ltid < n;
-        cp_async4(slot + kt * (D + Dv) * 2 + ltid * 4,
-                  lse + (size_t)b * n + (in ? r0 + ltid : 0), in ? 4 : 0);
-      }
     }
     cp_async_commit();
   };
@@ -342,7 +353,6 @@ __global__ void __launch_bounds__(kKeyWarps * 32, 1)
     __syncthreads();                   // ... for all, and slot j - 1 is free
     const unsigned char* slot = ring + (j % stages) * tile_bytes;
     const unsigned char* dslot = slot + kt * D * 2;
-    const float* lse_t = reinterpret_cast<const float*>(dslot + kt * Dv * 2);
     const int row0 = (tile0 + j) * kt;
 
     // 1a. S and dP parts: row group w % rgs, steps w / rgs + i nsl
@@ -399,15 +409,44 @@ __global__ void __launch_bounds__(kKeyWarps * 32, 1)
           dp[t][0] += y.x; dp[t][1] += y.y; dp[t][2] += y.z; dp[t][3] += y.w;
         }
       }
+      // rows g and g + 8 (h = 0, 1); a row's latents over the quad's lanes
+      float mx[2] = {-INFINITY, -INFINITY}, den[2] = {0.f, 0.f};
       float delta[2] = {0.f, 0.f};
 #pragma unroll
       for (int t = 0; t < 2 * MT; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1, lat = t * 8 + 2 * tq + (e & 1);
-          const int r = rg * 16 + g + 8 * h;
-          const bool live = row0 + r < n && lat < L;
-          s[t][e] = live ? expf(s[t][e] * scale - lse_t[r]) : 0.f;
+          s[t][e] *= scale;
+          if (row0 + rg * 16 + g + 8 * h < n && lat < L)
+            mx[h] = fmaxf(mx[h], s[t][e]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      }
+#pragma unroll
+      for (int t = 0; t < 2 * MT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, lat = t * 8 + 2 * tq + (e & 1);
+          if (row0 + rg * 16 + g + 8 * h < n && lat < L)
+            den[h] += expf(s[t][e] - mx[h]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+        den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+        mx[h] += logf(den[h]);                   // the row's lse
+      }
+#pragma unroll
+      for (int t = 0; t < 2 * MT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, lat = t * 8 + 2 * tq + (e & 1);
+          const bool live = row0 + rg * 16 + g + 8 * h < n && lat < L;
+          s[t][e] = live ? expf(s[t][e] - mx[h]) : 0.f;
           delta[h] += s[t][e] * dp[t][e];
         }
 #pragma unroll
@@ -940,7 +979,7 @@ KeyTiling g2l_bwd_tiling(int B, int n, int L, int D, int Dv) {
   const int lp = key_lp(L);
   return key_tiling(
       [&](int kt) { return g2l_bwd_mma_fixed(lp, kt, D, Dv); },
-      (D + Dv) * 2 + 4, B, n);
+      (D + Dv) * 2, B, n);
 }
 
 int g2l_bwd_path(int dtype, int L, int D, int Dv) {
@@ -989,9 +1028,9 @@ int launch_g2l_reduce(const float* dk_part, const float* dv_part, void* dk,
 
 template <typename T, int LMAX>
 int g2l_bwd_launch(const void* q, const void* k, const void* v,
-                   const float* lse, const void* dout, void* dq, void* dk,
-                   void* dv, float* dk_part, float* dv_part, int B, int n,
-                   int L, int D, int Dv, float scale, cudaStream_t st) {
+                   const void* dout, void* dq, void* dk, void* dv,
+                   float* dk_part, float* dv_part, int B, int n, int L, int D,
+                   int Dv, float scale, cudaStream_t st) {
   const int nchunks = (n + kRows - 1) / kRows;
   const size_t smem = g2l_bwd_smem(L, D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
@@ -999,7 +1038,7 @@ int g2l_bwd_launch(const void* q, const void* k, const void* v,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   g2l_bwd_kernel<T, LMAX><<<dim3(nchunks, B), 32 * kWarps, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, lse, (const T*)dout, (T*)dq,
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (T*)dq,
       dk_part, dv_part, n, L, D, Dv, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1029,24 +1068,24 @@ int l2g_bwd_launch(const void* q, const void* k, const void* v,
 
 template <typename T>
 int g2l_bwd_dispatch(const void* q, const void* k, const void* v,
-                     const float* lse, const void* dout, void* dq, void* dk,
-                     void* dv, float* dk_part, float* dv_part, int B, int n,
-                     int L, int D, int Dv, float scale, cudaStream_t st) {
+                     const void* dout, void* dq, void* dk, void* dv,
+                     float* dk_part, float* dv_part, int B, int n, int L,
+                     int D, int Dv, float scale, cudaStream_t st) {
   if (L <= 16)
-    return g2l_bwd_launch<T, 16>(q, k, v, lse, dout, dq, dk, dv, dk_part,
+    return g2l_bwd_launch<T, 16>(q, k, v, dout, dq, dk, dv, dk_part,
                                  dv_part, B, n, L, D, Dv, scale, st);
   if (L <= 32)
-    return g2l_bwd_launch<T, 32>(q, k, v, lse, dout, dq, dk, dv, dk_part,
+    return g2l_bwd_launch<T, 32>(q, k, v, dout, dq, dk, dv, dk_part,
                                  dv_part, B, n, L, D, Dv, scale, st);
-  return g2l_bwd_launch<T, 64>(q, k, v, lse, dout, dq, dk, dv, dk_part,
-                               dv_part, B, n, L, D, Dv, scale, st);
+  return g2l_bwd_launch<T, 64>(q, k, v, dout, dq, dk, dv, dk_part, dv_part,
+                               B, n, L, D, Dv, scale, st);
 }
 
 template <int LP>
 int g2l_bwd_mma_launch(const void* q, const void* k, const void* v,
-                       const float* lse, const void* dout, void* dq, void* dk,
-                       void* dv, float* dk_part, float* dv_part, int B, int n,
-                       int L, int D, int Dv, float scale, cudaStream_t st) {
+                       const void* dout, void* dq, void* dk, void* dv,
+                       float* dk_part, float* dv_part, int B, int n, int L,
+                       int D, int Dv, float scale, cudaStream_t st) {
   const KeyTiling t = g2l_bwd_tiling(B, n, L, D, Dv);
   if (t.spans > 1 && (dk_part == nullptr || dv_part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1054,7 +1093,7 @@ int g2l_bwd_mma_launch(const void* q, const void* k, const void* v,
   if (err != 0) return err;
   using bf16 = __nv_bfloat16;
   g2l_bwd_mma_kernel<LP><<<dim3(t.spans, B), kKeyWarps * 32, t.smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, lse, (const bf16*)dout,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (bf16*)dq, dk_part, dv_part, (bf16*)dk, (bf16*)dv, n, L, D, Dv, scale,
       t.kt, t.stages, t.tps);
   const cudaError_t e = cudaGetLastError();
@@ -1144,26 +1183,26 @@ extern "C" void gt_l2g_bwd_plan(int dtype, int B, int n, int L, int D,
 // route), null where the tensor-core plan has one span.
 extern "C" int gt_grid_to_latent_bwd(int path, int dtype, const void* q,
                                      const void* k, const void* v,
-                                     const float* lse, const void* dout,
-                                     void* dq, void* dk, void* dv,
-                                     float* dk_part, float* dv_part, int B,
-                                     int n, int L, int D, int Dv, float scale,
+                                     const void* dout, void* dq, void* dk,
+                                     void* dv, float* dk_part,
+                                     float* dv_part, int B, int n, int L,
+                                     int D, int Dv, float scale,
                                      void* stream) {
   if (L < 1 || L > kMaxL || n < 1 || path != g2l_bwd_path(dtype, L, D, Dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (path == kBwdMma) {
     if (L <= 16)
-      return g2l_bwd_mma_launch<16>(q, k, v, lse, dout, dq, dk, dv, dk_part,
+      return g2l_bwd_mma_launch<16>(q, k, v, dout, dq, dk, dv, dk_part,
                                     dv_part, B, n, L, D, Dv, scale, st);
-    return g2l_bwd_mma_launch<32>(q, k, v, lse, dout, dq, dk, dv, dk_part,
+    return g2l_bwd_mma_launch<32>(q, k, v, dout, dq, dk, dv, dk_part,
                                   dv_part, B, n, L, D, Dv, scale, st);
   }
   if (dtype == GT_DTYPE_F32)
-    return g2l_bwd_dispatch<float>(q, k, v, lse, dout, dq, dk, dv, dk_part,
+    return g2l_bwd_dispatch<float>(q, k, v, dout, dq, dk, dv, dk_part,
                                    dv_part, B, n, L, D, Dv, scale, st);
   if (dtype == GT_DTYPE_BF16)
-    return g2l_bwd_dispatch<__nv_bfloat16>(q, k, v, lse, dout, dq, dk, dv,
+    return g2l_bwd_dispatch<__nv_bfloat16>(q, k, v, dout, dq, dk, dv,
                                            dk_part, dv_part, B, n, L, D, Dv,
                                            scale, st);
   return (int)cudaErrorInvalidValue;

@@ -43,10 +43,12 @@ def lse_launch_counts() -> Dict[str, int]:
 
 def second_order_counts() -> Dict[str, int]:
     """Second-order passes since the last reset: the launches of the
-    upfirdn kernel made as the adjoint's adjoint (also counted among the
-    ``upfirdn`` launches), and the torch-op second-order passes of each
-    attention direction, which launch no kernel."""
-    return {"upfirdn_second_order": cuda_upfirdn.launches_second_order,
+    modconv kernels (forward, dx/ds, dw) made for the core's second order
+    and of the upfirdn kernel made as the adjoint's adjoint (each also
+    counted among its kernel's launches), and the torch-op second-order
+    passes of each attention direction, which launch no kernel."""
+    return {"modconv_second_order": cuda_modconv.launches_second_order,
+            "upfirdn_second_order": cuda_upfirdn.launches_second_order,
             "grid_to_latent_second_order": cuda_attention.second_order_g2l,
             "latent_to_grid_second_order": cuda_attention.second_order_l2g}
 
@@ -73,6 +75,7 @@ def reset_launch_counts() -> None:
     cuda_modconv.launches = 0
     cuda_modconv.launches_dx = 0
     cuda_modconv.launches_dw = 0
+    cuda_modconv.launches_second_order = 0
     cuda_upfirdn.launches = 0
     cuda_upfirdn.launches_adjoint = 0
     cuda_upfirdn.launches_second_order = 0

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "gt_latent_to_grid": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _F, _P]),
     "gt_l2g_plan": (None, [_I] * 6 + [_P]),
-    "gt_grid_to_latent_bwd": (_I, [_I, _I] + [_P] * 10 + [_I] * 5
+    "gt_grid_to_latent_bwd": (_I, [_I, _I] + [_P] * 9 + [_I] * 5
                               + [_F, _P]),
     "gt_g2l_bwd_plan": (None, [_I] * 6 + [_P]),
     "gt_latent_to_grid_bwd": (_I, [_I, _I] + [_P] * 10 + [_I] * 5

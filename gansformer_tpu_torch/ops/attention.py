@@ -10,8 +10,9 @@ The plain versions of the kernels' training outputs follow the JAX
 package's oracles in ``gansformer_tpu/ops/pallas_attention.py``:
 ``attention_fwd_stats_plain`` (``_ref_fwd_stats``: the output and the
 per-row ``lse``), ``attention_bwd_plain`` (``_ref_bwd``: dq, dk, dv with
-P rebuilt from ``lse`` and the row delta ``rowsum(dP * P)``, the
-grid->latent backward kernel's form) and ``attention_bwd_with_o_plain``
+P rebuilt from ``lse`` and the row delta ``rowsum(dP * P)``; with the
+lse of its own logits, ``attention_bwd_own_lse_plain``, the grid->latent
+backward kernel's form) and ``attention_bwd_with_o_plain``
 (delta ``rowsum(do * o)``, the latent->grid backward kernel's form).  On
 the card they are the kernels' oracles; on the CPU autograd of
 ``attention_plain`` is the route.
@@ -48,17 +49,20 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bnl,bld->bnd", widen(p), widen(v)).to(v.dtype)
 
 
+def _lse(s: torch.Tensor) -> torch.Tensor:
+    m = s.amax(dim=-1, keepdim=True)
+    return (m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True)))[..., 0]
+
+
 def attention_fwd_stats_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): ``attention_plain``'s output, bit for bit, and the fp32
     row statistic lse = max + log(sum exp(s - max)) [B, Lq]."""
     s = _logits(q, k)
-    m = s.amax(dim=-1, keepdim=True)
-    den = torch.exp(s - m).sum(dim=-1, keepdim=True)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bnl,bld->bnd", widen(p), widen(v)).to(v.dtype)
-    return o, (m + torch.log(den))[..., 0]
+    return o, _lse(s)
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,6 +85,16 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bnl,bld->bnd", ds, k32) * scale
     dk = torch.einsum("bnl,bnd->bld", ds, q32) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_own_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, do: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """``attention_bwd_plain`` with each row's lse taken from the same
+    logits P is rebuilt from: the grid->latent backward kernel's form
+    (its P sums to 1 in its own arithmetic, ROADMAP C.16)."""
+    return attention_bwd_plain(q, k, v, _lse(_logits(q, k)), do)
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

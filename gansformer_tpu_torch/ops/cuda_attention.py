@@ -21,10 +21,12 @@ Replaces ``gansformer_tpu/ops/pallas_attention.py``:
   softmax per block in fp32); else the CUDA-core kernels on 256-key
   chunks.
 * ``grid_to_latent_bwd_cuda`` <- ``_grid_to_latent_bwd`` ->
-  ``pl.pallas_call`` (body ``_grid_to_latent_bwd_kernel``): P rebuilt from
-  ``lse``, delta = rowsum(dP * P) inside the kernel, dq per row, dk/dv
-  summed over n.  In bf16 with L <= 32 and D, Dv multiples of 64 up to
-  512 (every preset launch) a tensor-core kernel (``g2l_bwd_plan``: K and
+  ``pl.pallas_call`` (body ``_grid_to_latent_bwd_kernel``): P rebuilt
+  from each row's lse, which the kernel takes from its own logits (the
+  TPU body reads the forward's: ROADMAP C.16), delta = rowsum(dP * P)
+  inside the kernel, dq per row, dk/dv summed over n.  In bf16 with L <=
+  32 and D, Dv multiples of 64 up to 512 (every preset launch) a
+  tensor-core kernel (``g2l_bwd_plan``: K and
   V resident, q and do tiles through a cp.async ring, read once; dK and
   dV in registers across a span of tiles, fp32 partials and a
   fixed-order reduce only where n splits into spans); else the CUDA-core
@@ -292,7 +294,7 @@ def g2l_bwd_plan(dtype: torch.dtype, b: int, n: int, l: int, d: int,
     if key_shape_ok(dtype, l, d, dv):
         lp = key_lp(l)
         t = key_tiling(lambda kt: _g2l_bwd_mma_fixed(lp, kt, d, dv),
-                       (d + dv) * 2 + 4, b, n)
+                       (d + dv) * 2, b, n)
         if t is not None:
             return (G2L_MMA, lp) + t
     rows = L2G_BWD_SIMT_ROWS
@@ -419,25 +421,31 @@ def latent_to_grid_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-def _check_bwd(q, k, v, lse, do, rows_q):
+def _check_do(q, k, v, do):
     q, k, v = _check(q, k, v)
     if do.dtype != q.dtype or not do.is_cuda:
         raise TypeError(f"the cotangent must be a CUDA {q.dtype} tensor, "
                         f"got {do.dtype} on {do.device}")
+    if tuple(do.shape) != (q.shape[0], q.shape[1], v.shape[2]):
+        raise ValueError(f"cotangent {tuple(do.shape)} does not fit")
+    return q, k, v, do.contiguous()
+
+
+def _check_bwd(q, k, v, lse, do, rows_q):
+    q, k, v, do = _check_do(q, k, v, do)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (q.shape[0],
                                                           rows_q):
         raise ValueError(f"lse must be fp32 {(q.shape[0], rows_q)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    if tuple(do.shape) != (q.shape[0], q.shape[1], v.shape[2]):
-        raise ValueError(f"cotangent {tuple(do.shape)} does not fit")
-    return q, k, v, lse.contiguous(), do.contiguous()
+    return q, k, v, lse.contiguous(), do
 
 
-def grid_to_latent_bwd_cuda(q, k, v, lse, do):
+def grid_to_latent_bwd_cuda(q, k, v, do):
     """(dq, dk, dv) of grid_to_latent at the cotangent ``do`` [B, n, Dv],
-    P rebuilt from the forward's ``lse`` [B, n]; in q's dtype."""
+    P rebuilt from each row's lse, which the kernel takes from its own
+    logits; in q's dtype."""
     global launches_g2l_bwd
-    q, k, v, lse, do = _check_bwd(q, k, v, lse, do, q.shape[1])
+    q, k, v, do = _check_do(q, k, v, do)
     b, n, d = q.shape
     l, dv = v.shape[1], v.shape[2]
     _check_latents(l, "grid_to_latent backward")
@@ -454,7 +462,7 @@ def grid_to_latent_bwd_cuda(q, k, v, lse, do):
                    torch.empty_like(v))
     rc = lib.gt_grid_to_latent_bwd(
         path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dvv.data_ptr(), _ptr(dk_part), _ptr(dv_part), b, n, l, d, dv,
         1.0 / math.sqrt(d), _build.stream_ptr(q))
     if rc:
@@ -501,30 +509,31 @@ def latent_to_grid_bwd_cuda(q, k, v, lse, do, delta):
 
 
 class GridToLatentFunction(torch.autograd.Function):
-    """grid_to_latent with its backward kernel: the forward writes ``lse``
-    and saves (q, k, v, lse), as ``_g2l_attend_fwd`` does."""
+    """grid_to_latent with its backward kernel, saving (q, k, v).  The
+    forward writes ``lse`` as ``_g2l_attend_fwd`` does (the launch plans
+    and lse counters hold it); kernel 8 rebuilds each row's lse from its
+    own logits instead of reading it (ROADMAP C.16)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        o, lse = grid_to_latent_cuda(q, k, v, with_stats=True)
-        ctx.save_for_backward(q, k, v, lse)
+        o, _ = grid_to_latent_cuda(q, k, v, with_stats=True)
+        ctx.save_for_backward(q, k, v)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, lse = ctx.saved_tensors
-        return GridToLatentGradsFunction.apply(q, k, v, do, lse)
+        return GridToLatentGradsFunction.apply(*ctx.saved_tensors, do)
 
 
 class GridToLatentGradsFunction(torch.autograd.Function):
     """(dq, dk, dv) of grid_to_latent by kernel 8, differentiable in (q,
     k, v, do): the backward is the plain second order, lse rebuilt from q
-    and k (the saved ``lse`` enters the launch only)."""
+    and k."""
 
     @staticmethod
-    def forward(ctx, q, k, v, do, lse):
+    def forward(ctx, q, k, v, do):
         ctx.save_for_backward(q, k, v, do)
-        return grid_to_latent_bwd_cuda(q, k, v, lse, do)
+        return grid_to_latent_bwd_cuda(q, k, v, do)
 
     @staticmethod
     @once_differentiable
@@ -532,7 +541,7 @@ class GridToLatentGradsFunction(torch.autograd.Function):
         global second_order_g2l
         second_order_g2l += 1
         return attention_bwd_vjp_plain(*ctx.saved_tensors, gdq, gdk, gdv,
-                                       delta_from_o=False) + (None,)
+                                       delta_from_o=False)
 
 
 class LatentToGridFunction(torch.autograd.Function):

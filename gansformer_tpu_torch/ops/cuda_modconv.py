@@ -53,10 +53,12 @@ import torch
 
 from gansformer_tpu_torch.ops import _build
 
-# Launches since the last reset: forward, dx/ds and dw calls.
+# Launches since the last reset: forward, dx/ds and dw calls, and of
+# them those made for the core's second order (``second_order``).
 launches = 0
 launches_dx = 0
 launches_dw = 0
+launches_second_order = 0
 
 # The backward kernels' tiles (csrc/modconv_bwd.cu): pixels per dx tile
 # and per ds partial on the wgmma path and the cotangent channels of one
@@ -212,11 +214,13 @@ def _fwd_plan(dtype: torch.dtype, n: int, h: int, w: int, ci: int,
 def modconv_cuda(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
                  post: torch.Tensor, bias: Optional[torch.Tensor],
                  kind: str, act: Optional[str], alpha: float,
-                 gain: float) -> torch.Tensor:
+                 gain: float, second_order: bool = False) -> torch.Tensor:
     """Launch the kernel: ``post * conv(x * s, w)`` (+ epilogue) on CUDA
     NHWC ``x`` (fp32 or bf16) with stacked weights ``wstack`` [T, Ci, CoK],
-    styles ``s`` [N, Ci] and per-column scales ``post`` [N, CoK] (fp32)."""
-    global launches
+    styles ``s`` [N, Ci] and per-column scales ``post`` [N, CoK] (fp32).
+    ``second_order``: a launch of the core's second order (counted apart
+    too)."""
+    global launches, launches_second_order
     if not x.is_cuda:
         raise ValueError("modconv_cuda takes a CUDA tensor")
     if kind not in TAPS or act not in _ACT_CODES:
@@ -257,6 +261,7 @@ def modconv_cuda(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
         _ACT_CODES[act], float(alpha), float(gain), _build.stream_ptr(x))
     _build.check(rc, f"modconv kernel ({kind})")
     launches += 1
+    launches_second_order += second_order
     return y
 
 
@@ -381,12 +386,14 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def modconv_dx_cuda(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
-                    post: torch.Tensor, x: torch.Tensor, taps):
+                    post: torch.Tensor, x: torch.Tensor, taps,
+                    second_order: bool = False):
     """Launch the dx/ds kernel: cotangent ``du4`` [N,H,W,CoK], adjoint
     weights ``wT`` [T,CoK,Ci], ``pre`` = d [N,CoK] and ``post`` = s
     [N,Ci] (fp32), ``x`` [N,H,W,Ci]; ``taps`` are the adjoint's offsets
-    relative to the output pixel.  Returns (dx in x's dtype, ds fp32)."""
-    global launches_dx
+    relative to the output pixel.  Returns (dx in x's dtype, ds fp32).
+    ``second_order``: a launch of the core's second order."""
+    global launches_dx, launches_second_order
     if not (du4.is_cuda and x.is_cuda):
         raise ValueError("modconv_dx_cuda takes CUDA tensors")
     du4, x = _aligned(du4.contiguous()), _aligned(x.contiguous())
@@ -421,6 +428,7 @@ def modconv_dx_cuda(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
         ox.ctypes.data, _build.stream_ptr(x))
     _build.check(rc, "modconv dx/ds kernel")
     launches_dx += 1
+    launches_second_order += second_order
     return dx, ds
 
 
@@ -462,11 +470,13 @@ def dw_split(n: int, h: int, w: int, ci: int, cok: int, ntaps: int,
 
 
 def modconv_dw_cuda(x: torch.Tensor, du4: torch.Tensor, s: torch.Tensor,
-                    pre: torch.Tensor, taps) -> torch.Tensor:
+                    pre: torch.Tensor, taps,
+                    second_order: bool = False) -> torch.Tensor:
     """Launch the dw kernel: ``x`` [N,H,W,Ci], cotangent ``du4``
     [N,H,W,CoK], ``s`` [N,Ci] and ``pre`` = d [N,CoK] (fp32); ``taps``
-    are the forward's offsets.  Returns dw [T, Ci, CoK] in fp32."""
-    global launches_dw
+    are the forward's offsets.  Returns dw [T, Ci, CoK] in fp32.
+    ``second_order``: a launch of the core's second order."""
+    global launches_dw, launches_second_order
     if not (du4.is_cuda and x.is_cuda):
         raise ValueError("modconv_dw_cuda takes CUDA tensors")
     du4, x = _aligned(du4.contiguous()), _aligned(x.contiguous())
@@ -495,4 +505,5 @@ def modconv_dw_cuda(x: torch.Tensor, du4: torch.Tensor, s: torch.Tensor,
         _build.stream_ptr(x))
     _build.check(rc, "modconv dw kernel")
     launches_dw += 1
+    launches_second_order += second_order
     return out

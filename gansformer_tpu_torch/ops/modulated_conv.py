@@ -16,10 +16,38 @@ A CUDA tensor launches the kernels; a CPU tensor runs ``modconv_plain``,
 which takes the same stacked weights as the kernel and which autograd
 differentiates.  On the card, when autograd records, the core is
 ``ModconvCore`` (the counterpart of ``_mc_core``'s custom VJP): its
-backward recovers ``act'``, ``db`` and ``dd`` from the saved output and
-launches the dx/ds kernel (``_bwd_call``) and the dw kernel
-(``_dw_call``); ``modconv_dx_plain`` and ``modconv_dw_plain`` are their
-plain versions.  It is first-order only.
+backward recovers ``act'``, ``db`` and ``dd`` from the saved output in
+differentiable torch glue (``_mc_core_bwd``) and hands the cotangent of
+the bare core to ``ModconvGradsFunction`` (``_mc_grads``), which launches
+the dx/ds kernel (``_bwd_call``) and the dw kernel (``_dw_call``);
+``modconv_dx_plain`` and ``modconv_dw_plain`` are their plain versions.
+
+The second order (path length differentiates G's gradient once more) is
+``ModconvGradsFunction.backward``.  The JAX package takes it through
+``jax.jvp`` of its jnp references (``_mc_grads_jvp``, ``_ref_core_grads``),
+outside Pallas.  The port re-enters its kernels instead, because the
+core is multilinear: with u = d * du (per output channel),
+
+    dx = s * convT(u, w),   ds = sum_hw x * convT(u, w),
+    dw = sum_{n,hw} (s * x) (*) u,
+
+so for cotangents (gdx, gds, gdw), with a = s * gdx + gds * x and
+q = conv(a, w) + conv(s * x, gdw):
+
+    g_du = d * q,    g_d = sum_hw du * q
+          (kernel 1 with post = d gives d * q; g_d divides it by d, as
+          dd divides the saved output),
+    g_x = gds * convT(u, w) + s * convT(u, gdw),
+    g_s = sum_hw gdx * convT(u, w) + sum_hw x * convT(u, gdw)
+          (kernel 5: post = gds on x = gdx; post = s with gdw's taps),
+    g_w = sum a (*) u (kernel 6 with unit styles, folded by
+          ``_poly_dw_fold`` for ``poly``).
+
+A term whose cotangent is None is skipped; in path length gdw is None,
+so a layer takes one launch of each kernel.  These launches count as
+``modconv_second_order`` too.  With no graph wanted (a first-order
+step), ``ModconvGradsFunction`` runs its forward alone: the same
+launches as before.
 
 ``conv2d`` is the plain conv with the up path (``_conv_transpose_poly``,
 the phase-major XLA formulation, kept as an independent oracle) and the
@@ -311,24 +339,27 @@ def _act_inv(y32: torch.Tensor, act: str, alpha: float,
 # --------------------------------------------------------------------------
 
 
-def _core_launch(x, wstack, s, post, bias, kind, act, alpha, gain):
+def _core_launch(x, wstack, s, post, bias, kind, act, alpha, gain,
+                 second_order=False):
     if kernel_route(x):
         return cuda_modconv.modconv_cuda(x, wstack, s, post, bias, kind, act,
-                                         alpha, gain)
+                                         alpha, gain, second_order)
     return modconv_plain(x, wstack, s, post, bias, kind, act, alpha, gain)
 
 
-def modconv_dx(du4, wT, pre, post, x, taps):
+def modconv_dx(du4, wT, pre, post, x, taps, second_order=False):
     """dx/ds: the kernel for CUDA tensors, the plain version on the CPU."""
     if kernel_route(du4):
-        return cuda_modconv.modconv_dx_cuda(du4, wT, pre, post, x, taps)
+        return cuda_modconv.modconv_dx_cuda(du4, wT, pre, post, x, taps,
+                                            second_order)
     return modconv_dx_plain(du4, wT, pre, post, x, taps)
 
 
-def modconv_dw(x, du4, s, pre, taps):
+def modconv_dw(x, du4, s, pre, taps, second_order=False):
     """dw: the kernel for CUDA tensors, the plain version on the CPU."""
     if kernel_route(du4):
-        return cuda_modconv.modconv_dw_cuda(x, du4, s, pre, taps)
+        return cuda_modconv.modconv_dw_cuda(x, du4, s, pre, taps,
+                                            second_order)
     return modconv_dw_plain(x, du4, s, pre, taps)
 
 
@@ -336,10 +367,115 @@ def _post(kind: str, d: torch.Tensor) -> torch.Tensor:
     return d.repeat_interleave(4, dim=1) if kind == "poly" else d
 
 
+def _du4(kind: str, du: torch.Tensor) -> torch.Tensor:
+    return (_space_to_depth(du) if kind == "poly" else du).contiguous()
+
+
+def _fold_dw(kind: str, dwt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The dw kernel's [T, Ci, CoK] as w's [kh, kw, Ci, Co], in w's
+    dtype."""
+    return (_poly_dw_fold(dwt, w.shape[2], w.shape[3]) if kind == "poly"
+            else dwt.reshape(w.shape)).to(w.dtype)
+
+
+def _sum(a: Optional[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
+    return b if a is None else (widen(a) + widen(b)).to(a.dtype)
+
+
+def modconv_core_grads(x, w, s, d, du, kind, want_xs=True, want_w=True):
+    """(dx, ds, dw) of the core ``d * conv(s * x, w)`` at its cotangent
+    ``du`` (the output's layout): the dx/ds kernel where ``want_xs``, the
+    dw kernel where ``want_w``, None for the others."""
+    du4, pre = _du4(kind, du), _post(kind, d)
+    dx = ds = dw = None
+    if want_xs:
+        _, _, wT = _prep_adjoint(kind, w)
+        dx, ds = modconv_dx(du4, wT, pre, s, x, adjoint_taps(kind))
+        ds = ds.to(s.dtype)
+    if want_w:
+        dw = _fold_dw(kind, modconv_dw(x, du4, s, pre, TAPS[kind]), w)
+    return dx, ds, dw
+
+
+def modconv_second_order(x, w, s, d, du, gdx, gds, gdw, kind, need):
+    """The gradients wrt (x, w, s, d, du) of <(gdx, gds, gdw), (dx, ds,
+    dw)> with (dx, ds, dw) = ``modconv_core_grads``: the formulas of the
+    module's docstring, each term on its kernel.  ``need`` flags the
+    inputs wanted; a cotangent may be None.  Returns None where an input
+    is not wanted or no cotangent reaches it."""
+    need_x, need_w, need_s, need_d, need_du = need
+    du4, pre = _du4(kind, du), _post(kind, d)
+    # a = s * gdx + gds * x, as one input of unit styles where both exist
+    if gdx is None and gds is None:
+        a = sa = None
+    elif gds is None:
+        a, sa = gdx, s
+    elif gdx is None:
+        a, sa = x, gds
+    else:
+        a = (widen(gdx) * widen(s)[:, None, None, :]
+             + widen(x) * widen(gds)[:, None, None, :]).to(x.dtype)
+        sa = torch.ones_like(s)
+    g_x = g_w = g_s = g_d = g_du = None
+    if need_du or need_d:
+        q = None                    # d * (conv(a, w) + conv(s * x, gdw))
+        if a is not None:
+            q = _core_launch(a, stack_weights(kind, w), sa, pre, None, kind,
+                             None, 0.2, 1.0, True)
+        if gdw is not None:
+            q = _sum(q, _core_launch(x, stack_weights(kind, gdw.to(x.dtype)),
+                                     s, pre, None, kind, None, 0.2, 1.0,
+                                     True))
+        if q is not None:
+            g_du = q.to(du.dtype) if need_du else None
+            g_d = ((widen(du) * widen(q)).sum(dim=(1, 2))
+                   / widen(d)).to(d.dtype) if need_d else None
+    want_x, want_s = need_x and gds is not None, need_s and gdx is not None
+    taps = adjoint_taps(kind)
+    if want_x or want_s:
+        _, _, wT = _prep_adjoint(kind, w)
+        ux, us = modconv_dx(du4, wT, pre, gds if want_x else s,
+                            gdx if want_s else x, taps, True)
+        g_x = ux if want_x else None
+        g_s = us if want_s else None
+    if gdw is not None and (need_x or need_s):
+        _, _, wT = _prep_adjoint(kind, gdw.to(x.dtype))
+        vx, vs = modconv_dx(du4, wT, pre, s, x, taps, True)
+        g_x = _sum(g_x, vx) if need_x else None
+        g_s = _sum(g_s, vs) if need_s else None
+    if need_w and a is not None:
+        g_w = _fold_dw(kind, modconv_dw(a, du4, sa, pre, TAPS[kind], True),
+                       w)
+    return (g_x, g_w, None if g_s is None else g_s.to(s.dtype), g_d, g_du)
+
+
+class ModconvGradsFunction(torch.autograd.Function):
+    """x, w, s, d, du -> (dx, ds, dw) of the bare core at its cotangent du
+    (``modconv_core_grads``; ``_mc_grads``).  Its backward is the second
+    order on the kernels (``modconv_second_order``); a third derivative
+    raises."""
+
+    @staticmethod
+    def forward(ctx, x, w, s, d, du, kind, want_xs, want_w):
+        ctx.set_materialize_grads(False)
+        ctx.kind = kind
+        ctx.save_for_backward(x, w, s, d, du)
+        return modconv_core_grads(x, w, s, d, du, kind, want_xs, want_w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gdx, gds, gdw):
+        x, w, s, d, du = ctx.saved_tensors
+        return modconv_second_order(x, w, s, d, du, gdx, gds, gdw, ctx.kind,
+                                    ctx.needs_input_grad[:5]) + (None,) * 3
+
+
 class ModconvCore(torch.autograd.Function):
     """x, w, s, d, b -> y = act(d * conv(x * s, w) + b) * gain (or the
     bare core when ``act`` is None), with w the [kh,kw,Ci,Co] weight in
-    x's dtype and s, d fp32.  The backward follows ``_mc_core_bwd``."""
+    x's dtype and s, d fp32.  The backward follows ``_mc_core_bwd``: the
+    glue in torch ops, the core's gradients through
+    ``ModconvGradsFunction``, so it differentiates again."""
 
     @staticmethod
     def forward(ctx, x, w, s, d, bias, kind, act, alpha, gain):
@@ -350,7 +486,6 @@ class ModconvCore(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         kind, act, alpha, gain = ctx.spec
         x, w, s, d, bias, y = ctx.saved_tensors
@@ -368,18 +503,8 @@ class ModconvCore(torch.autograd.Function):
         # the saved output (c = d * conv), so no recompute pass
         dd = ((du32 * c).sum(dim=(1, 2)) / widen(d)).to(d.dtype) \
             if need_d else None
-        du = du32.to(ct.dtype)
-        du4 = (_space_to_depth(du) if kind == "poly" else du).contiguous()
-        pre = _post(kind, d)
-        dx = ds = dw = None
-        if need_x or need_s:
-            _, _, wT = _prep_adjoint(kind, w)
-            dx, ds = modconv_dx(du4, wT, pre, s, x, adjoint_taps(kind))
-            ds = ds.to(s.dtype)
-        if need_w:
-            dwt = modconv_dw(x, du4, s, pre, TAPS[kind])
-            dw = (_poly_dw_fold(dwt, w.shape[2], w.shape[3])
-                  if kind == "poly" else dwt.reshape(w.shape)).to(w.dtype)
+        dx, ds, dw = ModconvGradsFunction.apply(
+            x, w, s, d, du32.to(ct.dtype), kind, need_x or need_s, need_w)
         return (dx if need_x else None, dw, ds if need_s else None, dd, db,
                 None, None, None, None)
 

@@ -12,21 +12,32 @@ at ``do_pl=False`` in ``gansformer_tpu/train/steps.py``), run eagerly.
   the non-saturating loss, one lazy-Adam update of G, then the EMA
   (``ema_beta_at`` of the step before the update) and ``w_avg`` (beta
   0.995 over the mixed ``ws``); ``step`` grows by the batch.
+* ``g_step_pl``: ``g_step`` with the lazy path-length penalty
+  (``do_pl``): fresh latents for ``N // pl_batch_shrink`` samples through
+  the mapping (with its graph, no mixing) and the synthesis with its own
+  conv noise, the penalty (``losses.path_length_penalty``: the gradient
+  of a noise projection wrt ``ws`` with its graph) and ``pl_weight * pl
+  * g_reg_interval`` added to the loss; ``Loss/G/pl`` is the penalty and
+  ``pl_mean`` takes its new EMA after the update.
 
 Randomness is the port's own (``jax.random`` streams cannot be
 reproduced): every draw of iteration ``it`` comes from generators seeded
 by ``derive_seed(state.seed, it, phase, ...)``.  z, the mixing draws and
 the mirror flips come from one CPU ``torch.Generator`` (so they are the
 same on every device); each row's conv noise comes from its own generator
-on the device.  Callers may pass ``z`` to use their own latents.
+on the device.  Callers may pass ``z`` to use their own latents.  The
+path-length draws are tagged ``"pl"``: its latents from a CPU generator,
+its projection noise and conv noise from the device's; ``z_pl`` and
+``pl_noise`` stand in for them.
 
 On the card the ops build their graphs through the kernels'
 ``autograd.Function``s (the conv family's and both attention
 directions'), so every forward launch that autograd records has its
 backward kernel; G's forward under ``no_grad`` in ``d_step`` launches the
 forward kernels alone.  In ``d_step_r1`` D's backward is differentiated
-once more: the upfirdn and attention Functions build that graph too
-(``ops/upfirdn2d.py``, ``ops/cuda_attention.py``).
+once more, in ``g_step_pl`` G's: the modconv, upfirdn and attention
+Functions build that graph too (``ops/modulated_conv.py``,
+``ops/upfirdn2d.py``, ``ops/cuda_attention.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from gansformer_tpu_torch.core.precision import input_dtype, widen
 from gansformer_tpu_torch.data.dataset import normalize_images
 from gansformer_tpu_torch.losses.gan import (d_logistic_loss,
                                              g_nonsaturating_loss,
+                                             path_length_penalty,
                                              r1_penalty, r1_slice)
 from gansformer_tpu_torch.train.state import TrainState, derive_seed
 
@@ -161,17 +173,71 @@ def d_step_r1(state: TrainState, images: torch.Tensor, it: int,
     return d_step(state, images, it, do_r1=True, **kwargs)
 
 
+def pl_draws(state: TrainState, it: int, batch: int,
+             z_pl: Optional[torch.Tensor] = None,
+             noise_mode: str = "random"):
+    """The path-length draws of iteration ``it``: (latents for ``batch //
+    pl_batch_shrink`` samples, their conv noise generators or None)."""
+    pl_batch = max(1, batch // max(1, state.train.pl_batch_shrink))
+    m, dev = state.model, state.device
+    gen = torch.Generator().manual_seed(derive_seed(state.seed, it, "g",
+                                                    "pl"))
+    drawn = torch.randn((pl_batch, m.num_ws, m.latent_dim), generator=gen)
+    z_pl = drawn if z_pl is None else z_pl
+    gens = None
+    if noise_mode == "random":
+        gens = [torch.Generator(device=dev).manual_seed(
+            derive_seed(state.seed, it, "g", "pl", "noise", row))
+            for row in range(pl_batch)]
+    return z_pl.to(dev, input_dtype(m.dtype)), gens
+
+
+def pl_term(state: TrainState, it: int, batch: int,
+            z_pl: Optional[torch.Tensor] = None,
+            pl_noise: Optional[torch.Tensor] = None,
+            noise_mode: str = "random",
+            label: Optional[torch.Tensor] = None):
+    """(penalty, new pl_mean) of iteration ``it`` of a step at ``batch``;
+    ``pl_noise`` (a standard normal draw of the PL images' shape) stands
+    in for the projection noise."""
+    m, dev, gen = state.model, state.device, state.generator
+    z_pl, noise_gens = pl_draws(state, it, batch, z_pl, noise_mode)
+    pl_batch = z_pl.shape[0]
+    shape = (pl_batch, m.resolution, m.resolution, m.img_channels)
+    if pl_noise is None:
+        pl_noise = torch.randn(shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(derive_seed(state.seed, it, "g", "pl",
+                                                "projection")))
+    ws = gen.map(z_pl, None if label is None else label[:pl_batch])
+    return path_length_penalty(
+        lambda w: gen.synthesize(w, noise_mode=noise_mode,
+                                 noise_gens=noise_gens),
+        ws, state.pl_mean, pl_noise.to(dev), state.train.pl_decay)
+
+
 def g_step(state: TrainState, it: int, batch: int, *,
            z: Optional[torch.Tensor] = None, noise_mode: str = "random",
-           label: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """One G update, then the EMA and ``w_avg``.  Leaves G's gradients in
-    ``.grad``; D's parameters take no gradient."""
+           label: Optional[torch.Tensor] = None, do_pl: bool = False,
+           z_pl: Optional[torch.Tensor] = None,
+           pl_noise: Optional[torch.Tensor] = None
+           ) -> Dict[str, torch.Tensor]:
+    """One G update, then the EMA and ``w_avg``, with the path-length
+    penalty when ``do_pl`` (then ``pl_mean`` takes its new EMA too).
+    Leaves G's gradients in ``.grad``; D's parameters take no
+    gradient."""
     draws = draw_step(state, it, "g", batch, z, noise_mode)
     d = state.discriminator
     d.requires_grad_(False)
     try:
         fakes, ws = g_forward(state.generator, draws, noise_mode, label)
         loss = g_nonsaturating_loss(d(fakes, label))
+        aux = {"Loss/G": loss.detach()}
+        if do_pl:
+            t = state.train
+            pl, new_pl_mean = pl_term(state, it, batch, z_pl, pl_noise,
+                                      noise_mode, label)
+            aux["Loss/G/pl"] = pl.detach()
+            loss = loss + t.pl_weight * pl * t.g_reg_interval
         state.g_opt.zero_grad(set_to_none=True)
         _backward(loss, state.generator)
     finally:
@@ -185,5 +251,14 @@ def g_step(state: TrainState, it: int, batch: int, *,
         w_batch_avg = widen(ws.detach()).mean(dim=(0, 1))
         state.w_avg.copy_(state.w_avg * W_AVG_BETA
                           + w_batch_avg * (1.0 - W_AVG_BETA))
+        if do_pl:
+            state.pl_mean.copy_(new_pl_mean)
     state.step += batch
-    return {"Loss/G": loss.detach()}
+    return aux
+
+
+def g_step_pl(state: TrainState, it: int, batch: int,
+              **kwargs) -> Dict[str, torch.Tensor]:
+    """``g_step`` with the path-length penalty, the step the training loop
+    runs every ``g_reg_interval`` iterations."""
+    return g_step(state, it, batch, do_pl=True, **kwargs)

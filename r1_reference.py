@@ -36,8 +36,9 @@ Run from the repository root on a machine with one CUDA card:
     python3 r1_reference.py            # all of it (about 5 minutes)
     python3 r1_reference.py --kernels  # 3 alone
 
-3. (on the card, printed first) ``kernel_logit_scaling``: the attention
-   kernels' fp32 error against float64 as the logits grow.
+3. (on the card, printed first) ``chip_smoke.logit_scaling``: the
+   attention kernels' error against float64 as the logits grow, in fp32
+   and bf16.
 """
 
 import argparse
@@ -146,9 +147,13 @@ def route(name):
         with torch.no_grad():
             return att.attention_bwd_plain(q, k, v, lse, do, delta)
 
+    def g2l_bwd(q, k, v, do):
+        with torch.no_grad():
+            return att.attention_bwd_own_lse_plain(q, k, v, do)
+
     if name == "flash plain":
         ca.grid_to_latent_cuda = ca.latent_to_grid_cuda = fwd
-        ca.grid_to_latent_bwd_cuda = ca.latent_to_grid_bwd_cuda = bwd
+        ca.grid_to_latent_bwd_cuda, ca.latent_to_grid_bwd_cuda = g2l_bwd, bwd
     elif name == "softmax 2nd":
         ca.attention_bwd_vjp_plain = softmax_second_order
     elif name == "attention plain":
@@ -212,53 +217,6 @@ def misses(ref, card, hosts):
     return out
 
 
-def kernel_logit_scaling():
-    """Kernels 3/4 (forward, writing lse) and 8/9 (backward from that lse)
-    in fp32 at D's b8 attention shapes (batch 2, 16 latents, 64 grid
-    rows, width 512), q and k drawn from N(0, 1) and scaled so the
-    largest logit grows tenfold a step, against float64 autograd of the
-    softmax form: the largest error of o, dq, dk and dv relative to the
-    largest |float64| entry, the kernels' beside their plain versions'
-    (flash form, fp32, on the card)."""
-    from gansformer_tpu_torch.ops import attention as att
-    from gansformer_tpu_torch.ops import cuda_attention as ca
-
-    gen = torch.Generator().manual_seed(11)
-    n, lat, width = 64, 16, 512
-    for direction, rows, cols in (("grid_to_latent", n, lat),
-                                  ("latent_to_grid", lat, n)):
-        q0 = torch.randn(2, rows, width, generator=gen, dtype=torch.float64)
-        k0 = torch.randn(2, cols, width, generator=gen, dtype=torch.float64)
-        v = torch.randn(2, cols, width, generator=gen, dtype=torch.float64)
-        do = torch.randn(2, rows, width, generator=gen, dtype=torch.float64)
-        base = float((torch.einsum("bnd,bld->bnl", q0, k0)
-                      / width ** 0.5).abs().max())
-        for target in (1e1, 1e2, 1e3, 1e4, 3e4):
-            c = (target / base) ** 0.5
-            q, k = q0 * c, k0 * c
-            ins = [t.clone().requires_grad_() for t in (q, k, v)]
-            o_ref = att.attention_plain(*ins)
-            refs = (o_ref.detach(),) + torch.autograd.grad(o_ref, ins, do)
-            q32, k32, v32, do32 = (t.float().cuda() for t in (q, k, v, do))
-            fwd = getattr(ca, f"{direction}_cuda")
-            bwd = getattr(ca, f"{direction}_bwd_cuda")
-            o, lse = fwd(q32, k32, v32, with_stats=True)
-            extra = (() if direction == "grid_to_latent"
-                     else (att.attention_delta(o, do32),))
-            kern = (o,) + tuple(bwd(q32, k32, v32, lse, do32, *extra))
-            o_p, lse_p = att.attention_fwd_stats_plain(q32, k32, v32)
-            plain = (o_p,) + tuple(att.attention_bwd_plain(
-                q32, k32, v32, lse_p, do32,
-                *(() if direction == "grid_to_latent"
-                  else (att.attention_delta(o_p, do32),))))
-
-            def rel(got):
-                return ", ".join(f"{_rel(g.double().cpu(), r):.2e}"
-                                 for g, r in zip(got, refs))
-            print(f"  {direction} max |logit| {target:.0e}: kernels (o, dq, "
-                  f"dk, dv) {rel(kern)}; plain {rel(plain)}", flush=True)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", action="store_true",
@@ -274,9 +232,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), flush=True)
-    print("3. the attention kernels' fp32 error as the logits grow:",
+    print("3. the attention kernels' error as the logits grow:",
           flush=True)
-    kernel_logit_scaling()
+    cs.logit_scaling(gate=False)
     if args.kernels:
         return 0
     model = dataclasses.replace(get_preset("ffhq256-duplex"),

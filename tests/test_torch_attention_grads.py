@@ -294,5 +294,5 @@ def test_cards_route_r1_double_backward_matches_pallas(rng, card_route,
     assert (counts[direction], counts[direction + "_bwd"]) == (1, 2)
     assert counts[other] == counts[other + "_bwd"] == 0
     assert ops.second_order_counts() == {
-        "upfirdn_second_order": 0, f"{direction}_second_order": 1,
-        f"{other}_second_order": 0}
+        "modconv_second_order": 0, "upfirdn_second_order": 0,
+        f"{direction}_second_order": 1, f"{other}_second_order": 0}

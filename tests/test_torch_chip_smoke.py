@@ -403,12 +403,13 @@ def test_library_attention_bwd_computes_the_backward(rng, direction):
 
 
 def test_attention_backward_bound_counts_bytes_and_operations():
-    """Backward: q, k, v, do and the fp32 lse read (latent_to_grid also
-    its fp32 delta), dq, dk, dv written; five products.  At ffhq256-duplex
-    one g_step makes 7 grid->latent and 5 latent->grid backward
-    launches, both bound by bytes."""
+    """Backward: q, k, v, do read (latent_to_grid also its fp32 lse and
+    delta; grid_to_latent takes each row's lse from its own logits), dq,
+    dk, dv written; five products.  At ffhq256-duplex one g_step makes 7
+    grid->latent and 5 latent->grid backward launches, both bound by
+    bytes."""
     b, lq, lk, d, dv = 2, 16, 4, 8, 6
-    for kname, stats in (("grid_to_latent_bwd", 1),
+    for kname, stats in (("grid_to_latent_bwd", 0),
                          ("latent_to_grid_bwd", 2)):
         nbytes, ops = chip_smoke.attention_cost(
             dict(kernel=kname, B=b, Lq=lq, Lk=lk, D=d, Dv=dv), 2)
@@ -668,6 +669,93 @@ def test_host_branches_sum_to_the_d_step_r1(d_attention):
             step[w].abs().max()), name
         assert float((br["R1"][name] - r1[name]).abs().max()) <= 1e-6 * (
             float(r1[w].abs().max()) or 1.0), name
+
+
+def _pl_micro(attention):
+    return port_config.ModelConfig(
+        resolution=32, latent_dim=16, w_dim=16, mapping_dim=16,
+        mapping_layers=2, fmap_base=128, fmap_max=32, mbstd_group_size=4,
+        components=2, attention=attention, style_mode="attention",
+        dtype="float32")
+
+
+def test_pl_step_plan_of_ffhq256_duplex():
+    """One g_step_pl at batch 8 (path length on 4): the g_step's launches,
+    then G's forward at 4, its gradient wrt ws (every backward launch),
+    the second order (kernels 1, 5, 6 for each of the 13 modconv launches
+    that are not a tRGB, kernels 5 and 6 for the 7 tRGBs; kernel 2 for
+    the 6 blurs) and the backward of the forward launches the gradient's
+    graph saved (all but the tRGBs and the skip upsamplings)."""
+    cfg = port_config.get_preset("ffhq256-duplex")
+    plan = chip_smoke.pl_step_calls(cfg, 8, 2)
+    g_step = chip_smoke.plan_counts(chip_smoke.train_path_calls(cfg, 8),
+                                    "g_step")
+    got = chip_smoke.plan_counts(plan, "g_step_pl")
+    pl = {k: got[k] - g_step[k] for k in got}
+    assert pl == {"modconv": 20 + 13, "upfirdn": 12 + 6,
+                  "grid_to_latent": 7, "latent_to_grid": 5,
+                  "modconv_dx": 20 + 20 + 13, "modconv_dw": 20 + 20 + 13,
+                  "upfirdn_adjoint": 12 + 6, "grid_to_latent_bwd": 7 + 7,
+                  "latent_to_grid_bwd": 5 + 5}
+    assert chip_smoke.plan_pl_second_order_counts(cfg, 8, 2) == {
+        "modconv_second_order": 13 * 3 + 7 * 2, "upfirdn_second_order": 6,
+        "grid_to_latent_second_order": 7, "latent_to_grid_second_order": 5}
+    assert {c["B"] for c in plan if c["label"].endswith("second order")} \
+        == {4}
+
+
+@pytest.mark.parametrize("attention", ["none", "duplex"])
+def test_pl_branches_sum_to_the_g_step_pl(attention):
+    """The smoke's path-length reference is built by branch: the
+    non-saturating loss and the penalty, weighted by ``pl_weight *
+    g_reg_interval``.  In float64 on a micro configuration their sum is
+    G's gradient of one g_step_pl through the entry point, to the fp32
+    rounding of its ``.grad`` (1e-6 of a leaf's scale; a key bias at its
+    weight's scale)."""
+    model = _pl_micro(attention)
+    train = port_config.TrainConfig(batch_size=2, style_mixing_prob=0.0)
+    ins = chip_smoke.pl_reference_inputs(model, train)
+    assert ins[1].shape[0] == 1 and ins[2].shape == (1, 32, 32, 3)
+    br = {k: chip_smoke._pl_grads(model, train, k, "cpu", "float64", ins)
+          for k in ("G loss", "PL", "g_step_pl")}
+    weight = train.pl_weight * train.g_reg_interval
+    for name, g in br["g_step_pl"].items():
+        total = br["G loss"][name] + weight * br["PL"][name]
+        w = name[:-1] + "w" if chip_smoke._key_bias(name) else name
+        assert float((total - g).abs().max()) <= 1e-6 * (
+            float(br["g_step_pl"][w].abs().max()) or 1.0), name
+
+
+@pytest.mark.parametrize("attention", ["none", "duplex"])
+def test_pl_reference_rule_passes_the_route_and_rejects_the_planted_drop(
+        attention):
+    """The smoke's float64-referenced path-length check on a micro
+    configuration: the penalty's gradient on the card's route (launches
+    stubbed) passes ``hold_to_reference`` against the plain path's
+    float64 run (its fp32 run giving each leaf's own error), and the
+    same with the first ``ModconvGradsFunction`` run bare (the planted
+    second-order drop) fails it."""
+    from gansformer_tpu_torch import ops
+    from tests.test_torch_grads import patch_card_route
+
+    model = _pl_micro(attention)
+    train = port_config.TrainConfig(batch_size=2, style_mixing_prob=0.0)
+    ins = chip_smoke.pl_reference_inputs(model, train)
+    ref, host = (chip_smoke._pl_grads(model, train, "PL", "cpu", dtype, ins)
+                 for dtype in ("float64", "float32"))
+    with pytest.MonkeyPatch.context() as mp:
+        patch_card_route(mp)
+        ops.reset_launch_counts()
+        route, planted = (chip_smoke._pl_grads(
+            model, train, "PL", "cpu", "float32", ins, plant=plant)
+            for plant in (False, True))
+        second = ops.second_order_counts()["modconv_second_order"]
+        ops.reset_launch_counts()
+    # 4 blocks: 7 modconv launches that are not a tRGB (3 launches each)
+    # and 4 tRGBs (2 each), twice, less the planted tRGB's 2
+    assert second == 2 * (7 * 3 + 4 * 2) - 2
+    assert chip_smoke.hold_to_reference("route", ref, [host], route) == []
+    assert chip_smoke.hold_to_reference("planted", ref, [host], planted)
 
 
 def test_perturbed_is_another_fp32_rounding():

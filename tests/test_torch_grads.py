@@ -35,7 +35,8 @@ from gansformer_tpu_torch import ops
 from gansformer_tpu_torch.ops import cuda_attention, cuda_modconv, \
     cuda_upfirdn
 from gansformer_tpu_torch.ops import modulated_conv as port_mc
-from gansformer_tpu_torch.ops.attention import (attention_bwd_plain,
+from gansformer_tpu_torch.ops.attention import (attention_bwd_own_lse_plain,
+                                                attention_bwd_plain,
                                                 attention_fwd_stats_plain,
                                                 attention_plain)
 from tests.tolerances import GRAD
@@ -121,21 +122,26 @@ class _Stubs:
 
     @staticmethod
     @_opaque
-    def modconv(*a):
+    def modconv(x, ws, s, post, bias, kind, act, alpha, gain,
+                second_order=False):
         cuda_modconv.launches += 1
-        return port_mc.modconv_plain(*a)
+        cuda_modconv.launches_second_order += second_order
+        return port_mc.modconv_plain(x, ws, s, post, bias, kind, act, alpha,
+                                     gain)
 
     @staticmethod
     @_opaque
-    def dx(*a):
+    def dx(du4, wT, pre, post, x, taps, second_order=False):
         cuda_modconv.launches_dx += 1
-        return port_mc.modconv_dx_plain(*a)
+        cuda_modconv.launches_second_order += second_order
+        return port_mc.modconv_dx_plain(du4, wT, pre, post, x, taps)
 
     @staticmethod
     @_opaque
-    def dw(*a):
+    def dw(x, du4, s, pre, taps, second_order=False):
         cuda_modconv.launches_dw += 1
-        return port_mc.modconv_dw_plain(*a)
+        cuda_modconv.launches_second_order += second_order
+        return port_mc.modconv_dw_plain(x, du4, s, pre, taps)
 
     @staticmethod
     @_opaque
@@ -173,9 +179,9 @@ class _Stubs:
 
     @staticmethod
     @_opaque
-    def g2l_bwd(q, k, v, lse, do):
+    def g2l_bwd(q, k, v, do):
         cuda_attention.launches_g2l_bwd += 1
-        return attention_bwd_plain(q, k, v, lse, do)
+        return attention_bwd_own_lse_plain(q, k, v, do)
 
     @staticmethod
     @_opaque
@@ -373,9 +379,9 @@ def test_graph_repair_kernel_ops_build_their_graph(rng, card_route):
     """On the card's route a grad-requiring input gets a ``grad_fn`` from
     the Functions (never a bare launch), the backward launches the dx/ds,
     dw and adjoint kernels, a second derivative through ``ModconvCore``
-    raises (first order until G's second order is ported), and the
-    attention ops, in both directions, build their graph through their
-    Functions and launch their backward."""
+    launches kernels 1, 5 and 6 as its second order, and the attention
+    ops, in both directions, build their graph through their Functions
+    and launch their backward."""
     x = _t(rng.randn(2, 4, 4, 8), True)
     w = _t(rng.randn(3, 3, 8, 8) * 0.3, True)
     s = _t(rng.randn(2, 8) * 0.3 + 1.0, True)
@@ -392,8 +398,16 @@ def test_graph_repair_kernel_ops_build_their_graph(rng, card_route):
         "latent_to_grid_bwd": 0}
     z = ops.modulated_conv2d(x, w, s)
     (gx,) = torch.autograd.grad(z.square().sum(), [x], create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        gx.sum().backward()
+    assert _finds(gx.grad_fn, "ModconvGradsFunctionBackward")
+    ops.reset_launch_counts()
+    gx.sum().backward()
+    counts = ops.launch_counts()
+    # the second order (gdx alone reaches it): kernel 1 for du and d,
+    # kernel 5 for s, kernel 6 for w; then the forward graph's backward
+    # (kernels 5 and 6 once each)
+    assert ops.second_order_counts()["modconv_second_order"] == 3
+    assert (counts["modconv"], counts["modconv_dx"],
+            counts["modconv_dw"]) == (1, 2, 2)
     with torch.no_grad():                    # no graph wanted: bare launch
         assert ops.modulated_conv2d(x, w, s).grad_fn is None
     q = _t(rng.randn(2, 16, 8), True)

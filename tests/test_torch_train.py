@@ -577,6 +577,9 @@ def test_train_cli_config_reads_mirror_seed_and_validates(tmp_path,
     monkeypatch.setattr(train_cli, "d_step_r1", fake_d_step)
     monkeypatch.setattr(train_cli, "g_step",
                         lambda state, it, n: {"Loss/G": 0.0})
+    monkeypatch.setattr(train_cli, "g_step_pl",
+                        lambda state, it, n: {"Loss/G": 0.0,
+                                              "Loss/G/pl": 0.0})
     monkeypatch.setattr(train_cli, "create_train_state", fake_create)
     assert train_cli.main(["--config", str(path), "--steps", "1",
                            "--device", "cpu"]) == 0
