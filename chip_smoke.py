@@ -133,7 +133,28 @@ In order:
    and one g_step_pl (G's leaves), the same rule, batch 2 (the penalty on
    1), each again with the first ``ModconvGradsFunction`` run bare (its
    second order lost), which the rule must reject;
-9. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+9. the tick loop (``loop_phase``): it requires the port's native host
+   ops to load (CRC32C, the TFRecord scan and parse, built by g++) and
+   prints their build, writes 256 procedural 256^2 images as TFRecords
+   with the port's writer, then runs ffhq256-duplex as the preset has it
+   (batch 32, bf16, R1 gamma 10 every 16 iterations, path length every
+   4) from those records with 1-kimg ticks and a snapshot and a
+   checkpoint every tick: run B, a process of the train CLI armed with
+   ``GANSFORMER_TPU_FAULTS=sigterm@tick:tick=0``, must exit with
+   EXIT_PREEMPTED after its tick-0 checkpoint; that checkpoint restores
+   on the card bit-equal to the file and a synchronous save of it writes
+   the same leaves; run C, the CLI's ``--resume`` in this process with
+   the counters reset just before and read just after, must resume at
+   B's step and data position and run to 2 kimg, its launches (with lse,
+   second order, by route) equal to the plans' counts times its
+   iterations of each step kind plus its snapshots, every stat of every
+   tick finite, its phases summing to the tick, and every
+   ``fakes*.png`` decoding (zlib) to the grid's shape.  It prints
+   sec_per_tick, img_per_sec, data_wait_frac, the phases' self times,
+   the checkpoints' times and size, C's peak device memory, and the host
+   syncs (``torch.cuda.set_sync_debug_mode``) by the loop's span of run
+   D, 4 more iterations resumed from C (with R1 and path length);
+10. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
    Every number of a kernel in the JSON line covers that kernel's
    ``span``: the serve run's launches for the forward kernels (and, in a
    second entry with ``"lse": true``, the forward attention launches of
@@ -449,6 +470,67 @@ def plan_pl_second_order_counts(cfg, batch: int, shrink: int = 2):
                                         for c in second),
             **{f"{k}_second_order": sum(c["kernel"] == k for c in fwd)
                for k in ATTENTION_KERNELS}}
+
+
+def loop_step_kinds(train, first_it: int, iterations: int):
+    """How many of each step the tick loop runs over ``iterations``
+    iterations from ``first_it``: ``d_step_r1`` where ``it %
+    d_reg_interval == 0``, else ``d_step``; ``g_step_pl`` where ``it %
+    g_reg_interval == 0``, else ``g_step``."""
+    kinds = dict.fromkeys(("d_step", "d_step_r1", "g_step", "g_step_pl"), 0)
+    for it in range(first_it, first_it + iterations):
+        kinds["d_step_r1" if it % train.d_reg_interval == 0
+              else "d_step"] += 1
+        kinds["g_step_pl" if it % train.g_reg_interval == 0
+              else "g_step"] += 1
+    return kinds
+
+
+def loop_parts(cfg, train, grid_n: int):
+    """{phase: its launches} of the steps the loop runs and of one image
+    snapshot (the EMA generator's forward at the grid's batch under
+    no_grad: ``main_path_calls``)."""
+    batch = train.batch_size
+    tcalls = train_path_calls(cfg, batch)
+    return {
+        "d_step": [c for c in tcalls if c["phase"] == "d_step"],
+        "g_step": [c for c in tcalls if c["phase"] == "g_step"],
+        "d_step_r1": r1_step_calls(cfg, batch, train.r1_batch_shrink),
+        "g_step_pl": pl_step_calls(cfg, batch, train.pl_batch_shrink),
+        "snapshot": [dict(c, phase="snapshot")
+                     for c in main_path_calls(cfg, grid_n)]}
+
+
+def loop_plan(cfg, train, kinds, snapshots: int, grid_n: int,
+              dtype_name=None):
+    """The counters of a loop run of ``kinds`` steps (``loop_step_kinds``)
+    and ``snapshots`` image snapshots: (launches, launches with lse,
+    second-order passes, launches by route in ``dtype_name`` or None)."""
+    parts = loop_parts(cfg, train, grid_n)
+    times = dict(kinds, snapshot=snapshots)
+    launches = dict.fromkeys(REPLACES, 0)
+    lse = dict.fromkeys(ATTENTION_KERNELS, 0)
+    second = {f"{k}_second_order": 0
+              for k in ("modconv", "upfirdn") + ATTENTION_KERNELS}
+    paths = None
+    per_second = {
+        "d_step_r1": plan_second_order_counts(cfg, train.batch_size,
+                                              train.r1_batch_shrink),
+        "g_step_pl": plan_pl_second_order_counts(cfg, train.batch_size,
+                                                 train.pl_batch_shrink)}
+    for phase, calls in parts.items():
+        n = times[phase]
+        for k, v in plan_counts(calls, phase).items():
+            launches[k] += n * v
+        for k, v in plan_lse_counts(calls, phase).items():
+            lse[k] += n * v
+        for k, v in per_second.get(phase, {}).items():
+            second[k] += n * v
+        if dtype_name is not None:
+            got = plan_path_counts(calls, dtype_name)
+            paths = {k: (paths or {}).get(k, 0) + n * v
+                     for k, v in got.items()}
+    return launches, lse, second, paths
 
 
 def attention_cost(call, itemsize: int):
@@ -1637,7 +1719,7 @@ def train_run(model, train, calls):
                  state.ema.state_dict().items()}
     data = SyntheticDataset(model.resolution, model.img_channels).batches(
         TRAIN_BATCH, seed=0)
-    batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
+    batches = [torch.from_numpy(next(data)["image"]).cuda() for _ in range(4)]
     deltas, lse_counts, _ = counted_steps(state, batches[0], calls,
                                           model.dtype)
     for name in TRAIN_KERNELS:
@@ -1691,7 +1773,7 @@ def d_attention_run(model, train, calls):
     state = train_state_on_card(model, train)
     reals = torch.from_numpy(next(SyntheticDataset(
         model.resolution, model.img_channels).batches(TRAIN_BATCH,
-                                                      seed=1))).cuda()
+                                                      seed=1))["image"]).cuda()
     _, _, losses = counted_steps(state, reals, calls, model.dtype)
     print(f"  losses {losses}", flush=True)
     check_grads(state)
@@ -1748,7 +1830,7 @@ def r1_run(model, train, calls, second, timed: bool):
     state = train_state_on_card(model, train)
     data = SyntheticDataset(model.resolution, model.img_channels).batches(
         TRAIN_BATCH, seed=3)
-    batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
+    batches = [torch.from_numpy(next(data)["image"]).cuda() for _ in range(4)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts, _, losses = reg_counted_step(
@@ -1795,7 +1877,7 @@ def pl_run(model, train, calls, second):
     state = train_state_on_card(model, train)
     data = SyntheticDataset(model.resolution, model.img_channels).batches(
         TRAIN_BATCH, seed=4)
-    batches = [torch.from_numpy(next(data)).cuda() for _ in range(4)]
+    batches = [torch.from_numpy(next(data)["image"]).cuda() for _ in range(4)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts, _, losses = reg_counted_step(
@@ -1890,7 +1972,7 @@ def grads_compare(model, train):
     model = dataclasses.replace(model, dtype="float32")
     train = dataclasses.replace(train, style_mixing_prob=0.0)
     reals = torch.from_numpy(next(SyntheticDataset(
-        model.resolution, model.img_channels).batches(2, seed=5)))
+        model.resolution, model.img_channels).batches(2, seed=5))["image"])
     grads, g_only, times, ct = {}, {}, {}, None
     for dev in ("cpu", "cuda"):
         t0 = time.perf_counter()
@@ -2029,7 +2111,7 @@ def reference_inputs(model, train):
     from gansformer_tpu_torch.data import SyntheticDataset, normalize_images
 
     reals = torch.from_numpy(next(SyntheticDataset(
-        model.resolution, model.img_channels).batches(2, seed=5)))
+        model.resolution, model.img_channels).batches(2, seed=5))["image"])
     fakes = host_fakes(model, train)
     print(f"  G's images by the host's float64 path: max |x| "
           f"{float(fakes.abs().max()):.3f}, divided by it", flush=True)
@@ -2084,7 +2166,7 @@ def _reference_grads(model, train, kind, dev, dtype, plant=False,
         d_step_r1, g_step, steps
 
     reals = torch.from_numpy(next(SyntheticDataset(
-        model.resolution, model.img_channels).batches(2, seed=5)))
+        model.resolution, model.img_channels).batches(2, seed=5))["image"])
     state = create_train_state(dataclasses.replace(model, dtype=dtype),
                                train, seed=0, device=dev)
     perturb(state.generator)
@@ -2699,7 +2781,7 @@ def preset_phase(name, peaks, held):
     state = train_state_on_card(model, train)
     reals = torch.from_numpy(next(SyntheticDataset(
         model.resolution, model.img_channels).batches(TRAIN_BATCH,
-                                                      seed=2))).cuda()
+                                                      seed=2))["image"]).cuda()
     _, _, losses = counted_steps(state, reals, tcalls, model.dtype)
     print(f"  losses {losses}", flush=True)
     check_grads(state)
@@ -2707,6 +2789,371 @@ def preset_phase(name, peaks, held):
     torch.cuda.empty_cache()
     print(f"  {name} phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+
+LOOP_PRESET = "ffhq256-duplex"
+LOOP_IMAGES = 256            # procedural 256^2 images written as TFRecords
+LOOP_KIMG = 2                # run C resumes run B's tick 0 to this
+LOOP_SPANS = ("data_wait", "h2d", "step", "tick_fetch", "snapshot",
+              "checkpoint", "ckpt/save")
+
+
+def write_loop_dataset(root: str, resolution: int) -> str:
+    """``LOOP_IMAGES`` procedural images (the port's ``SyntheticDataset``)
+    written as the reference's multi-resolution TFRecords by the port's
+    writer; returns the directory."""
+    import numpy as np
+
+    from gansformer_tpu_torch.data import SyntheticDataset, export_images
+
+    out = os.path.join(root, "tfrecords")
+    t0 = time.perf_counter()
+    imgs = SyntheticDataset(resolution)._make(np.arange(LOOP_IMAGES))
+    t1 = time.perf_counter()
+    export_images(imgs, out, "smoke", resolution)
+    size = sum(os.path.getsize(os.path.join(out, f))
+               for f in os.listdir(out))
+    print(f"  {LOOP_IMAGES} images made in {t1 - t0:.2f} s, written as "
+          f"TFRecords ({size / 2**20:.1f} MiB, every level of detail) in "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    return out
+
+
+def read_ticks(run_dir: str):
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def check_ticks(ticks, what: str):
+    """Every numeric stat of every tick finite, the phases summing to the
+    tick."""
+    for rec in ticks:
+        bad = {k: v for k, v in rec.items() if isinstance(v, (int, float))
+               and not math.isfinite(v)}
+        if bad:
+            fail(f"{what}: non-finite stats {bad}")
+        phases = sum(v for k, v in rec.items()
+                     if k.startswith("timing/phase/"))
+        if abs(phases - rec["timing/sec_per_tick"]) > \
+                0.05 * rec["timing/sec_per_tick"] + 0.05:
+            fail(f"{what}: phases sum to {phases:.3f} s, the tick took "
+                 f"{rec['timing/sec_per_tick']:.3f} s")
+
+
+def print_tick(rec, label: str, card: str):
+    phases = {k.split("/")[-1]: v for k, v in rec.items()
+              if k.startswith("timing/phase/")}
+    print(f"  {label}: tick {int(rec['Progress/tick'])} to kimg "
+          f"{rec['Progress/kimg']}: sec_per_tick "
+          f"{rec['timing/sec_per_tick']:.3f}, img_per_sec "
+          f"{rec['timing/img_per_sec']:.2f} "
+          f"({rec['timing/img_per_sec'] / 1000:.5f} kimg/s), data_wait_s "
+          f"{rec['timing/data_wait_s']:.4f}, data_wait_frac "
+          f"{rec['timing/data_wait_frac']:.5f} ({card})", flush=True)
+    print("    phase self times (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(phases.items(),
+                                          key=lambda kv: -kv[1])),
+        flush=True)
+    print("    losses: " + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()
+                                     if k.startswith("Loss/")), flush=True)
+
+
+class SyncRecorder:
+    """The host syncs of a stretch of the run, from
+    ``torch.cuda.set_sync_debug_mode('warn')``: each warning is kept with
+    the loop's span open on the thread at that moment."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        import threading
+        import warnings
+
+        import torch
+
+        from gansformer_tpu_torch.obs import get_tracer
+
+        tracer = get_tracer()
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+
+        main = threading.main_thread()
+
+        def show(message, category, filename, lineno, file=None,
+                 line=None):
+            stack = tracer._stack()
+            if threading.current_thread() is not main:
+                where = "backward"    # autograd's device thread
+            else:
+                where = stack[0][0] if stack else "(outside)"
+            self.events.append((where,
+                                f"{os.path.relpath(filename)}:{lineno}",
+                                str(message)[:80]))
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._warnings.__exit__(*exc)
+
+    def by_span(self):
+        out = {}
+        for top, _, _ in self.events:
+            out[top] = out.get(top, 0) + 1
+        return out
+
+
+def start_run_b():
+    """The loop phase's setup and run B, started in the background: the
+    native host ops must load; ``LOOP_IMAGES`` images are written as
+    TFRecords; then a process of the train CLI on ``LOOP_PRESET`` from
+    them, armed with ``sigterm@tick:tick=0``.  Returns what
+    ``loop_phase`` needs to finish it; the process and the temporary
+    directory go at exit whatever happens."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from gansformer_tpu_torch import native
+    from gansformer_tpu_torch.core.config import get_experiment_preset
+
+    lib = native.get_lib()
+    if lib is None:
+        fail(f"the native host ops did not load: {native.build_info}")
+    info = native.build_info
+    how = (f"built in {info['seconds']:.2f} s" if info["built"]
+           else "cached")
+    print(f"  native host ops: {os.path.relpath(info['path'])} ({how}; g++ "
+          f"{' '.join(native.CXX_FLAGS)})", flush=True)
+    exp = get_experiment_preset(LOOP_PRESET)
+    root = tempfile.mkdtemp(prefix="gansformer_smoke_loop_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    data = write_loop_dataset(root, exp.model.resolution)
+    exp = dataclasses.replace(
+        exp, data=dataclasses.replace(exp.data, path=data),
+        train=dataclasses.replace(exp.train, total_kimg=LOOP_KIMG,
+                                  kimg_per_tick=1, snapshot_ticks=1,
+                                  image_snapshot_ticks=1))
+    t = exp.train
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(exp.to_json())
+    run = os.path.join(root, "run")
+    env = dict(os.environ, GANSFORMER_TPU_FAULTS="sigterm@tick:tick=0",
+               GANSFORMER_TPU_FAULT_LEDGER=os.path.join(
+                   root, "faults_fired.jsonl"))
+    print(f"  run B: {LOOP_PRESET}, batch {t.batch_size}, "
+          f"{exp.model.dtype}, r1_gamma {t.r1_gamma} every "
+          f"{t.d_reg_interval}, path length every {t.g_reg_interval}, "
+          f"1-kimg ticks, armed with {env['GANSFORMER_TPU_FAULTS']}; "
+          f"started beside the host's float64 reference phases (its "
+          f"times share the host's cores with them)", flush=True)
+    log = open(os.path.join(root, "run_b.out"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gansformer_tpu_torch.cli.train",
+         "--config", cfg_path, "--run-dir", run], env=env, stdout=log,
+        stderr=subprocess.STDOUT, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return dict(exp=exp, root=root, run=run, proc=proc, log=log,
+                t0=time.time())
+
+
+def loop_phase(card: str, b: dict):
+    """The tick loop of ffhq256-duplex as the preset has it (batch 32,
+    bf16, R1 every 16 iterations, path length every 4) on TFRecords, with
+    1-kimg ticks and a snapshot and a checkpoint every tick.  Run B
+    (``start_run_b``) must exit with EXIT_PREEMPTED after its tick-0
+    checkpoint; its checkpoint round-trips bit for bit; run C (the CLI's
+    ``--resume`` in this process, counters reset just before and read
+    just after) resumes at B's step and data position and runs to
+    ``LOOP_KIMG``, its launches held to the plan of its iterations and
+    snapshots; run D resumes C for 4 iterations under
+    ``torch.cuda.set_sync_debug_mode``.  Prints the ticks' timing, the
+    checkpoints' times and size, C's peak memory and D's host syncs."""
+    import numpy as np
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.cli import train as train_cli
+    from gansformer_tpu_torch.supervise.events import EXIT_PREEMPTED
+    from gansformer_tpu_torch.train import checkpoint as ckpt
+    from gansformer_tpu_torch.train import create_train_state
+    from gansformer_tpu_torch.utils.image import decode_png
+
+    exp, root, run = b["exp"], b["root"], b["run"]
+    t = exp.train
+    ckpt_dir = os.path.join(run, "checkpoints")
+    try:
+        rc = b["proc"].wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        b["proc"].kill()
+        fail("run B did not end within 600 s")
+    if rc != EXIT_PREEMPTED:
+        b["log"].seek(0)
+        print(b["log"].read()[-6000:])
+        fail(f"run B exited {rc}, not EXIT_PREEMPTED "
+             f"({EXIT_PREEMPTED})")
+    b_step = ckpt.latest_step(ckpt_dir)
+    b_ticks = read_ticks(run)
+    check_ticks(b_ticks, "run B")
+    b_log = open(os.path.join(run, "log.txt")).read()
+    if "preemption checkpoint @ step" not in b_log:
+        fail("run B wrote no preemption line in log.txt")
+    per_tick = -(-1000 // t.batch_size) * t.batch_size
+    if b_step != per_tick or len(b_ticks) != 1:
+        fail(f"run B: checkpoint at step {b_step}, {len(b_ticks)} "
+             f"ticks; expected step {per_tick} after one tick")
+    with open(os.path.join(run, "heartbeat-p0.json")) as f:
+        b_s = json.load(f)["time"] - b["t0"]      # its last beat
+    print(f"  run B exited {rc} (EXIT_PREEMPTED), its last heartbeat "
+          f"{b_s:.1f} s after its start (process start, setup, one tick, "
+          f"the preemption), checkpoint at step {b_step}", flush=True)
+    print_tick(b_ticks[0], "run B", card)
+
+    # the checkpoint round trip: B's file -> a state on the card ->
+    # leaves equal to the file's; a synchronous save of that state
+    # writes the same leaves again
+    model = exp.model
+    npz = os.path.join(ckpt_dir, str(b_step), ckpt.STATE_FILE)
+    size = os.path.getsize(npz)
+    state = create_train_state(model, t, t.seed + 1, "cuda")
+    t0 = time.perf_counter()
+    ckpt.restore(ckpt_dir, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+
+    def npz_leaves(path):
+        with np.load(path) as z:
+            return [z[k] for k in sorted(z.files)
+                    if k.startswith("leaf_")]
+    saved = npz_leaves(npz)
+    leaves = [ckpt._host(l) for l in ckpt.state_leaves(state)]
+    diff = sum(not np.array_equal(a, b) or a.dtype != b.dtype
+               for a, b in zip(saved, leaves))
+    if state.step != b_step or len(saved) != len(leaves) or diff:
+        fail(f"restore of step {b_step}: step {state.step}, "
+             f"{len(saved)} vs {len(leaves)} leaves, {diff} differ")
+    again = os.path.join(root, "again")
+    t0 = time.perf_counter()
+    ckpt.save(again, state, block=True)
+    sync_s = time.perf_counter() - t0
+    diff = sum(not np.array_equal(a, b) or a.dtype != b.dtype for a, b
+               in zip(saved, npz_leaves(os.path.join(
+                   again, str(b_step), ckpt.STATE_FILE))))
+    if diff:
+        fail(f"restore -> save round trip: {diff} leaves differ")
+    print(f"  checkpoint: state.npz {size / 2**20:.1f} MiB, "
+          f"{len(saved)} leaves; restore {restore_s:.3f} s, bit-equal "
+          f"to the file; synchronous save {sync_s:.3f} s, its leaves "
+          f"bit-equal to the restored file's ({card})", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # run C: --resume to LOOP_KIMG, counters reset just before
+    start_it = b_step // t.batch_size
+    iters = -(-(LOOP_KIMG * 1000 - b_step) // t.batch_size)
+    kinds = loop_step_kinds(t, start_it, iters)
+    grid_n = min(16, t.batch_size * 2)
+    snapshots = 3          # at start, after the tick, final
+    want, want_lse, want_second, want_paths = loop_plan(
+        model, t, kinds, snapshots, grid_n, model.dtype)
+    print(f"  run C: --resume from step {b_step} to {LOOP_KIMG} kimg: "
+          f"{iters} iterations from {start_it} ({kinds}) and "
+          f"{snapshots} snapshots of {grid_n}; launch plan {want}",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = train_cli.main(["--run-dir", run, "--resume"])
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    got, lse = ops.launch_counts(), ops.lse_launch_counts()
+    second, paths = ops.second_order_counts(), ops.path_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"run C returned {rc}")
+    print(f"  run C launches {got}; with lse {lse}; second order "
+          f"{second}", flush=True)
+    for what, g, w in (("launches", got, want), ("lse", lse, want_lse),
+                       ("second order", second, want_second),
+                       ("routes", paths, want_paths)):
+        if g != w:
+            fail(f"run C {what} {g} != the plan's {w}")
+    c_log = open(os.path.join(run, "log.txt")).read()
+    for line in (f"resumed from step {b_step} ",
+                 f"from batch {start_it}"):
+        if line not in c_log:
+            fail(f"run C: log.txt lacks {line!r}")
+    from gansformer_tpu_torch.utils.logging import read_resume_records
+
+    if [r["step"] for r in read_resume_records(run)] != [b_step]:
+        fail(f"resumes.jsonl: {read_resume_records(run)}")
+    ticks = read_ticks(run)
+    check_ticks(ticks, "run C")
+    c_ticks = ticks[len(b_ticks):]
+    if ckpt.latest_step(ckpt_dir) != b_step + iters * t.batch_size:
+        fail(f"run C ended at checkpoint {ckpt.latest_step(ckpt_dir)}")
+    for rec in c_ticks:
+        print_tick(rec, "run C", card)
+    from gansformer_tpu_torch.obs.registry import parse_prom_values
+
+    prom = parse_prom_values(os.path.join(run, "telemetry.prom"))
+    loop_ms = prom["ckpt_write_ms"]
+    writer_ms = prom["ckpt_async_write_ms_sum"] / max(
+        prom["ckpt_async_write_ms_count"], 1.0)
+    print(f"  async checkpoint: {loop_ms:.1f} ms on the loop thread, "
+          f"{writer_ms:.1f} ms on the writer thread; restore "
+          f"{prom['ckpt_restore_ms']:.1f} ms; run C "
+          f"{c_s:.1f} s (setup, restore, "
+          f"{len(c_ticks)} tick, snapshots, final checkpoint); peak "
+          f"device memory {peak / 2**30:.2f} GiB ({card})", flush=True)
+    # run D: 4 more iterations, one tick with R1 and path length (it 64),
+    # under torch.cuda.set_sync_debug_mode, which C ran without
+    d_first = ckpt.latest_step(ckpt_dir) // t.batch_size
+    d_kinds = loop_step_kinds(t, d_first, 4)
+    with SyncRecorder() as syncs:
+        rc = train_cli.main(["--run-dir", run, "--resume", "--total-kimg",
+                             str(LOOP_KIMG + 1), "--steps", "4"])
+    if rc != 0:
+        fail(f"run D returned {rc}")
+    top = syncs.by_span()
+    in_tick = sum(v for k, v in top.items() if k in (
+        "data_wait", "h2d", "step", "backward", "tick_fetch"))
+    print(f"  host syncs of run D (--resume --steps 4, iterations "
+          f"{d_first}-{d_first + 3}: {d_kinds}; "
+          f"torch.cuda.set_sync_debug_mode): {len(syncs.events)}, by the "
+          f"loop's span open on the main thread at the time (backward: "
+          f"autograd's thread): {top}; in the tick's iterations and "
+          f"boundary {in_tick}, {in_tick / 4:.1f} an iteration, "
+          f"{top.get('tick_fetch', 0)} of them at the boundary",
+          flush=True)
+    sites = {}
+    for span_name, where, _ in syncs.events:
+        sites[(span_name, where)] = sites.get((span_name, where), 0) + 1
+    for (span_name, where), n in sorted(sites.items(),
+                                        key=lambda kv: -kv[1])[:8]:
+        print(f"    {n:6d}  {span_name:12s} {where}", flush=True)
+    pngs = sorted(f for f in os.listdir(run) if f.startswith("fakes"))
+    side = int(math.sqrt(grid_n)) * model.resolution
+    for f in pngs:
+        with open(os.path.join(run, f), "rb") as fh:
+            img = decode_png(fh.read())
+        if img.shape != (side, side, model.img_channels):
+            fail(f"{f}: decoded {img.shape}, not the grid's "
+                 f"{(side, side, model.img_channels)}")
+    print(f"  {pngs} decode (zlib) to {side}x{side}x"
+          f"{model.img_channels}", flush=True)
 
 
 def main() -> int:
@@ -3019,6 +3466,12 @@ def main() -> int:
     for preset in PRESET_PHASES:
         preset_phase(preset, peaks, held)
 
+    print(f"the tick loop of {LOOP_PRESET} on TFRecords, preempted after "
+          f"tick 0 and resumed to {LOOP_KIMG} kimg (setup and run B):",
+          flush=True)
+    t_loop = time.perf_counter()
+    run_b = start_run_b()
+    t_loop = time.perf_counter() - t_loop
     print("card vs host gradients, fp32, batch 2, noise and mixing off:",
           flush=True)
     grads_compare(cfg, tcfg)
@@ -3028,8 +3481,18 @@ def main() -> int:
           "fp32's error on the leaf, the larger of two samples: on the "
           "inputs and on them at another fp32 rounding):", flush=True)
     reference_compare(cfg, tcfg)
-    print(f"training phases took {time.perf_counter() - t_train:.1f} s; "
-          f"the smoke {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"training phases took {time.perf_counter() - t_train:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- the tick loop: TFRecords, preemption, resume ----------------------
+    t0 = time.perf_counter()
+    print(f"the tick loop of {LOOP_PRESET} (run B's end, the checkpoint "
+          f"round trip, run C):", flush=True)
+    loop_phase(card, run_b)
+    print(f"the loop phase took {t_loop + time.perf_counter() - t0:.1f} s "
+          f"besides run B's time beside the reference phases; the smoke "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     train_counts = {k: deltas["d_step"][k] + deltas["g_step"][k]
                     for k in TRAIN_KERNELS}

@@ -1,7 +1,9 @@
 """gansformer_tpu_torch: the PyTorch + CUDA port of GANsformer, for NVIDIA
 Hopper (H100): the generator's serving path and training of the
 generator and discriminator, attention included (D's too), with both
-lazy regularizers (R1 and path length).
+lazy regularizers (R1 and path length), as a run: the tick loop over the
+reference's TFRecords, with checkpoints in the JAX package's format and
+``--resume``.
 
 Beside ``gansformer_tpu`` (the JAX reference) and independent of it: this
 package imports ``torch`` and numpy only.  Layouts match the JAX package

@@ -19,7 +19,12 @@ one flat dict (``g_params/...``, ``d_params/...``, ``ema_params/...``,
 ``.npz``; ``load_train_state`` copies it into the port's ``TrainState``.
 optax's Adam state ``(ScaleByAdamState(count, mu, nu), ...)`` becomes each
 torch parameter's ``step``/``exp_avg``/``exp_avg_sq``.  Any missing, extra
-or misshapen leaf raises.
+or misshapen leaf raises.  ``port_train_state_flat`` is the way back (the
+port's state as that flat dict), and ``jax_leaf_keys`` lists its keys in
+the order ``jax.tree_util.tree_flatten`` gives the JAX ``TrainState``'s
+leaves (its fields in declared order, dict keys sorted level by level,
+Adam's ``count, mu, nu``), which is the leaf order of the JAX checkpoint
+format (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -183,3 +188,77 @@ def save_train_state_npz(path: str, flat: Mapping[str, Any]) -> None:
 def load_train_state_npz(path: str) -> Dict[str, np.ndarray]:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+# The JAX ``TrainState``'s fields in declared order
+# (gansformer_tpu/train/state.py): leaf order of its checkpoints.
+_JAX_FIELDS = ("step", "g_params", "d_params", "g_opt", "d_opt",
+               "ema_params", "w_avg", "pl_mean")
+# Leaves the JAX state holds as int32; every other leaf is fp32.
+INT_KEYS = ("step", "g_opt/count", "d_opt/count")
+
+
+def _tree_order(names) -> list:
+    """Flax names in ``tree_flatten`` order: dict keys sorted at every
+    level, i.e. the ``/``-split paths sorted as tuples."""
+    return sorted(names, key=lambda k: tuple(k.split("/")))
+
+
+def jax_leaf_keys(state) -> list:
+    """The flat keys of the port's ``state`` (``train_state_keys``) in the
+    JAX ``TrainState``'s leaf order."""
+    names = {tree: _tree_order(param_shapes(getattr(state, attr)))
+             for tree, attr in _PARAM_TREES}
+    opt_names = {tree: names[{"g_opt": "g_params",
+                              "d_opt": "d_params"}[tree]]
+                 for tree, _, _ in _OPT_TREES}
+    keys = []
+    for field in _JAX_FIELDS:
+        if field in names:
+            keys += [f"{field}/{k}" for k in names[field]]
+        elif field in opt_names:
+            keys.append(f"{field}/count")
+            for part in ("mu", "nu"):
+                keys += [f"{field}/{part}/{k}" for k in opt_names[field]]
+        else:
+            keys.append(field)
+    return keys
+
+
+def adam_count(opt: torch.optim.Optimizer, module: nn.Module) -> int:
+    """optax's one ``count`` from torch's per-parameter ``step``: equal
+    for every parameter because every leaf steps (zero gradients where a
+    loss does not reach), 0 before the first update.  Unequal steps
+    raise."""
+    steps = {int(opt.state[p]["step"]) if "step" in opt.state[p] else 0
+             for p in module.parameters()}
+    if len(steps) != 1:
+        raise ValueError(f"Adam steps differ between parameters "
+                         f"({sorted(steps)}): one optax count cannot hold "
+                         f"them")
+    return steps.pop()
+
+
+def port_train_state_flat(state) -> Dict[str, Any]:
+    """The port's ``TrainState`` as the flat dict of
+    ``flatten_train_state``: torch tensors (detached, on the state's
+    device) for the parameters, moments, ``w_avg`` and ``pl_mean``, ints
+    for ``step`` and the counts.  Moments not yet created are zeros."""
+    flat: Dict[str, Any] = {}
+    for tree, attr in _PARAM_TREES:
+        for name, p in getattr(state, attr).named_parameters():
+            flat[f"{tree}/{name.replace('.', '/')}"] = p.detach()
+    for tree, attr, opt_attr in _OPT_TREES:
+        module, opt = getattr(state, attr), getattr(state, opt_attr)
+        flat[f"{tree}/count"] = adam_count(opt, module)
+        for name, p in module.named_parameters():
+            key = name.replace(".", "/")
+            st = opt.state[p]
+            for part, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                flat[f"{tree}/{part}/{key}"] = (
+                    st[slot].detach() if slot in st
+                    else torch.zeros_like(p.detach()))
+    flat["w_avg"] = state.w_avg.detach()
+    flat["step"] = int(state.step)
+    flat["pl_mean"] = state.pl_mean.detach()
+    return flat

@@ -1,138 +1,225 @@
-"""Train with the PyTorch port: alternating D and G steps on the
-procedural dataset, with D's lazy R1 penalty (``d_step_r1``) every
-``d_reg_interval`` iterations and G's lazy path-length penalty
-(``g_step_pl``) every ``g_reg_interval`` iterations, each from iteration
-0, as the JAX loop runs them.
+"""Train with the PyTorch port: the JAX train CLI's surface
+(``gansformer_tpu/cli/train.py``) over the port's tick loop.
 
     python -m gansformer_tpu_torch.cli.train --preset ffhq256-duplex \\
-        --steps 4 --batch-size 8 --seed 0 [--device cpu]
+        --data-path /data/ffhq-tfrecords --run-dir runs/ffhq [--resume]
 
-Prints one line per iteration: the losses (``Loss/D/r1`` on the R1
-iterations, ``Loss/G/pl`` on the path-length ones) and the milliseconds
-of the d and g steps (host clock around synchronized work).  ``--config`` reads
-the ``model`` and ``train`` sections and ``data.mirror_augment`` of a
-JAX run's ``config.json`` instead of a preset (the way to
-``d_attention``, which has no flag, as in the JAX CLI); the flags apply
-on top, and ``--seed`` replaces ``train.seed`` only when given.  The
-result is validated as the JAX CLI validates it (a batch that
-``mbstd_group_size`` does not divide is refused).  Runs on the card
-unless ``--device cpu``.  The tick loop, checkpoints and ``--resume``
-come later.
+It picks a preset or ``--config`` (a JAX or port run's ``config.json``),
+applies the flags on top, validates as the JAX CLI does, and trains into a
+numbered run dir under ``--results-dir`` (or the pinned ``--run-dir``):
+ticks of ``kimg_per_tick``, R1 every ``d_reg_interval`` iterations and
+path length every ``g_reg_interval``, image grids and checkpoints at their
+tick intervals, ``stats.jsonl``, ``log.txt``, TensorBoard events,
+``events.jsonl``, ``telemetry.prom`` and the heartbeat.  ``--resume``
+continues the run's own ``config.json`` from its latest checkpoint (a
+JAX run's included: the format is shared).  ``--steps N`` caps this
+invocation at N iterations, which then end with their final tick and
+checkpoint.
+
+The exits are the JAX CLI's: ``EXIT_PREEMPTED`` (75) after a graceful
+SIGTERM checkpoint, ``EXIT_DATA_CORRUPT`` (65), ``EXIT_DATA_STALLED``
+(74).  Flags of the JAX CLI that belong to later parts of the port are
+refused with the part named.  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
-import time
+import os
 from typing import List, Optional
 
-import torch
+from gansformer_tpu_torch.core.config import (PRESETS, ExperimentConfig,
+                                              get_experiment_preset)
 
-from gansformer_tpu_torch.core.config import (PRESETS,
-                                              get_preset, get_train_preset,
-                                              mirror_augment_from_json,
-                                              model_config_from_json,
-                                              train_config_from_json,
-                                              validate)
-from gansformer_tpu_torch.core.device import resolve_device
-from gansformer_tpu_torch.data.dataset import SyntheticDataset
-from gansformer_tpu_torch.train.state import create_train_state
-from gansformer_tpu_torch.train.steps import (d_step, d_step_r1, g_step,
-                                              g_step_pl)
+# JAX flags this port does not take, and why: the slice that brings each
+# (ROADMAP queue A), or why it has no counterpart.
+_A2B = "comes with the fused cycle and the device prefetcher (A.2b)"
+_A7 = "comes with data parallelism over several cards (A.7)"
+_DEVICE = "has no counterpart: the device picks the path"
+LATER_FLAGS = {
+    "--fused-cycle": _A2B, "--no-fused-cycle": _A2B,
+    "--device-prefetch": _A2B, "--no-device-prefetch": _A2B,
+    "--attention-backend": _DEVICE, "--conv-backend": _DEVICE,
+    "--attn-fused-kv": "comes with the fused K/V projection",
+    "--no-attn-fused-kv": "comes with the fused K/V projection",
+    "--selfcheck": "has no counterpart: graftlint reads jaxprs",
+    "--profile-dir": "comes with the device-time sampler (A.6)",
+    "--device-time-ticks": "comes with the device-time sampler (A.6)",
+    **dict.fromkeys(("--mesh-data", "--mesh-model", "--sequence-parallel",
+                     "--no-sequence-parallel", "--fsdp", "--no-fsdp",
+                     "--coordinator", "--num-processes", "--process-id"),
+                    _A7),
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="GANsformer training, PyTorch "
-                                            "port (R1 every d_reg_interval "
-                                            "iterations, path length every "
-                                            "g_reg_interval)")
+    p = argparse.ArgumentParser(
+        description="GANsformer training, PyTorch port: the tick loop with "
+                    "R1 every d_reg_interval iterations and path length "
+                    "every g_reg_interval, checkpoints and --resume")
     p.add_argument("--preset", default="ffhq256-duplex",
                    choices=sorted(PRESETS))
     p.add_argument("--config", default=None,
-                   help="a JAX run's config.json (overrides --preset)")
+                   help="a run's config.json (overrides --preset; flags "
+                        "still apply on top)")
+    p.add_argument("--results-dir", default="results")
+    p.add_argument("--desc", default=None, help="run dir description suffix")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint of --resume-dir "
+                        "(default: the latest run dir in --results-dir)")
+    p.add_argument("--resume-dir", default=None)
+    p.add_argument("--run-dir", default=None,
+                   help="pin the run dir; with --resume the run continues "
+                        "if it has checkpoints, else starts fresh in place")
     p.add_argument("--attention", choices=["none", "simplex", "duplex"])
+    p.add_argument("--components", type=int, help="k latent components")
     p.add_argument("--resolution", type=int)
     p.add_argument("--dtype", choices=["float32", "bfloat16"])
     p.add_argument("--batch-size", type=int)
-    p.add_argument("--steps", type=int, default=4,
-                   help="alternating d/g iterations")
-    p.add_argument("--seed", type=int,
-                   help="overrides train.seed (default: the config's)")
+    p.add_argument("--total-kimg", type=float)
+    p.add_argument("--g-lr", type=float)
+    p.add_argument("--d-lr", type=float)
+    p.add_argument("--r1-gamma", type=float)
+    p.add_argument("--seed", type=int)
+    p.add_argument("--pl-batch-shrink", type=int, default=None,
+                   help="path-length probe batch divisor")
+    p.add_argument("--r1-batch-shrink", type=int, default=None,
+                   help="compute R1 on the first batch/N reals")
+    p.add_argument("--async-checkpoint", action="store_const", const=True,
+                   dest="async_checkpoint", default=None,
+                   help="checkpoint and snapshot writes on a writer thread "
+                        "(the default)")
+    p.add_argument("--no-async-checkpoint", action="store_const",
+                   const=False, dest="async_checkpoint",
+                   help="write them on the loop thread")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="anomaly detection + per-tick finite checks")
+    p.add_argument("--data-path", default=None)
+    p.add_argument("--data-source",
+                   choices=["synthetic", "npz", "tfrecord", "folder"])
     p.add_argument("--mirror-augment", action="store_true")
+    p.add_argument("--max-corrupt-frac", type=float, default=None,
+                   help="quarantined/total record fraction above which "
+                        "the run fails as data-corrupt (default 0.01)")
+    p.add_argument("--io-retries", type=int, default=None,
+                   help="retries of a transient record read (default 3)")
+    p.add_argument("--stall-after-s", type=float, default=None,
+                   help="seconds without producer progress before the run "
+                        "fails as data-stalled (0 = off; default 120)")
+    p.add_argument("--steps", type=int, default=None,
+                   help="stop after this many iterations (the port's cap; "
+                        "the run ends with its final tick and checkpoint)")
     p.add_argument("--device", default=None,
                    help="'cpu' for the plain path on the host (default: "
                         "the card)")
     return p
 
 
-def configs(args):
-    """(model, train, mirror_augment) from the preset or ``--config`` with
-    the flags on top, validated."""
-    mirror = args.mirror_augment
+def refuse_later_flags(argv: List[str]) -> None:
+    for a in argv:
+        flag = a.split("=", 1)[0]
+        if flag in LATER_FLAGS:
+            raise SystemExit(f"{flag}: not in the PyTorch port yet; it "
+                             f"{LATER_FLAGS[flag]}")
+
+
+def config_from_args(args) -> ExperimentConfig:
+    """The preset or ``--config`` with the flags on top, validated."""
     if args.config:
         with open(args.config) as f:
-            text = f.read()
-        model, train = model_config_from_json(text), \
-            train_config_from_json(text)
-        mirror = mirror or mirror_augment_from_json(text)
+            cfg = ExperimentConfig.from_json(f.read())
     else:
-        model, train = get_preset(args.preset), \
-            get_train_preset(args.preset)
-    over = {k: getattr(args, k) for k in ("attention", "resolution", "dtype")
-            if getattr(args, k) is not None}
-    model = dataclasses.replace(model, **over)
-    tover = {k: v for k, v in (("batch_size", args.batch_size),
-                               ("seed", args.seed)) if v is not None}
-    train = dataclasses.replace(train, **tover)
-    validate(model, train)
-    return model, train, mirror
+        cfg = get_experiment_preset(args.preset)
+
+    def override(obj, **kv):
+        kv = {k: v for k, v in kv.items() if v is not None}
+        return dataclasses.replace(obj, **kv) if kv else obj
+
+    model = override(cfg.model, attention=args.attention,
+                     components=args.components, resolution=args.resolution,
+                     dtype=args.dtype)
+    train = override(cfg.train, batch_size=args.batch_size,
+                     total_kimg=args.total_kimg, g_lr=args.g_lr,
+                     d_lr=args.d_lr, r1_gamma=args.r1_gamma, seed=args.seed,
+                     pl_batch_shrink=args.pl_batch_shrink,
+                     r1_batch_shrink=args.r1_batch_shrink,
+                     async_checkpoint=args.async_checkpoint)
+    if args.debug_nans:
+        train = dataclasses.replace(train, debug_nans=True)
+    data = override(cfg.data, path=args.data_path, source=args.data_source,
+                    resolution=args.resolution,
+                    max_corrupt_frac=args.max_corrupt_frac,
+                    io_retries=args.io_retries,
+                    stall_after_s=args.stall_after_s)
+    if args.mirror_augment:
+        data = dataclasses.replace(data, mirror_augment=True)
+    return dataclasses.replace(cfg, model=model, train=train,
+                               data=data).validate()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    refuse_later_flags(argv)
     args = build_parser().parse_args(argv)
-    model, train, mirror = configs(args)
-    if model.label_dim:
-        raise SystemExit("conditional training needs a labelled dataset, "
-                         "which the port does not read yet")
+
+    from gansformer_tpu_torch.core.device import resolve_device
+    from gansformer_tpu_torch.data.errors import DataCorrupt, DataStalled
+    from gansformer_tpu_torch.supervise.events import (
+        EXIT_DATA_CORRUPT, EXIT_DATA_STALLED, EXIT_PREEMPTED,
+        PreemptionExit)
+    from gansformer_tpu_torch.train import loop
+    from gansformer_tpu_torch.utils.logging import (RunLogger,
+                                                    create_run_dir,
+                                                    list_run_dirs)
+
+    run_dir = None
+    if args.run_dir:
+        run_dir = args.run_dir
+        os.makedirs(run_dir, exist_ok=True)
+        if args.resume and not os.path.isdir(
+                os.path.join(run_dir, "checkpoints")):
+            args.resume = False
+    elif args.resume:
+        runs = list_run_dirs(args.results_dir)
+        run_dir = args.resume_dir or (runs[-1] if runs else None)
+        if run_dir is None or not os.path.isdir(
+                os.path.join(run_dir, "checkpoints")):
+            raise SystemExit(
+                f"--resume: no run dir with checkpoints found (looked in "
+                f"{args.resume_dir or args.results_dir}); pass --resume-dir "
+                f"explicitly")
+    if args.resume and not args.config:
+        saved = os.path.join(run_dir, "config.json")
+        if os.path.exists(saved):
+            args.config = saved
+    cfg = config_from_args(args)
     dev = resolve_device(args.device)
-    state = create_train_state(model, train, train.seed, dev)
-    data = SyntheticDataset(model.resolution, model.img_channels).batches(
-        train.batch_size, seed=train.seed)
-    print(json.dumps({"model": dataclasses.asdict(model),
-                      "train": dataclasses.asdict(train),
-                      "mirror_augment": mirror, "device": str(dev)},
-                     default=str), flush=True)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    for it in range(args.steps):
-        reals = torch.from_numpy(next(data))
-        sync()
-        t0 = time.perf_counter()
-        step = d_step_r1 if it % train.d_reg_interval == 0 else d_step
-        d_aux = step(state, reals, it, mirror_augment=mirror)
-        sync()
-        t1 = time.perf_counter()
-        gstep = g_step_pl if it % train.g_reg_interval == 0 else g_step
-        g_aux = gstep(state, it, train.batch_size)
-        sync()
-        t2 = time.perf_counter()
-        losses = {k: float(v) for k, v in {**d_aux, **g_aux}.items()}
-        r1 = (f" Loss/D/r1 {losses['Loss/D/r1']:.4f}"
-              if "Loss/D/r1" in losses else "")
-        pl = (f" Loss/G/pl {losses['Loss/G/pl']:.4f}"
-              if "Loss/G/pl" in losses else "")
-        print(f"step {it}: kimg {state.step / 1000:.3f} "
-              f"Loss/D {losses['Loss/D']:.4f}{r1} Loss/G "
-              f"{losses['Loss/G']:.4f}{pl} real "
-              f"{losses['Loss/scores/real']:.4f} fake "
-              f"{losses['Loss/scores/fake']:.4f} d_ms "
-              f"{(t1 - t0) * 1e3:.2f} g_ms {(t2 - t1) * 1e3:.2f}",
-              flush=True)
+    if run_dir is None:
+        desc = args.desc or (f"{cfg.name}-{cfg.model.attention}-"
+                             f"k{cfg.model.components}")
+        run_dir = create_run_dir(args.results_dir, desc)
+    if not args.resume:
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+    logger = RunLogger(run_dir)
+    logger.write(f"run dir: {run_dir}")
+    try:
+        loop.train(cfg, run_dir, resume=args.resume, logger=logger,
+                   device=dev, steps=args.steps)
+    except PreemptionExit as e:
+        logger.write(f"preempted cleanly at step {e.step}; "
+                     f"exit code {EXIT_PREEMPTED}")
+        raise SystemExit(EXIT_PREEMPTED)
+    except DataCorrupt as e:
+        logger.write(f"data corrupt (budget exhausted): {e}; "
+                     f"exit code {EXIT_DATA_CORRUPT}")
+        raise SystemExit(EXIT_DATA_CORRUPT)
+    except DataStalled as e:
+        logger.write(f"data stalled: {e}; exit code {EXIT_DATA_STALLED}")
+        raise SystemExit(EXIT_DATA_STALLED)
     return 0
 
 

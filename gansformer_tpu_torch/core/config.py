@@ -1,16 +1,20 @@
-"""Model and training configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-A copy of ``gansformer_tpu/core/config.py``'s ``ModelConfig`` (the same
-fields with the same defaults, the same fmap schedule) and of the part of
-its ``TrainConfig`` that the port's training steps use, with the
-model and train parts of the named presets.  It reads the ``model`` and
-``train`` sections of a ``config.json`` written by the JAX trainer, and
-its ``data.mirror_augment``; ``validate`` runs the checks of the JAX
-``ExperimentConfig.validate()`` that these fields reach.
+A copy of ``gansformer_tpu/core/config.py``: ``ModelConfig``,
+``TrainConfig``, ``DataConfig`` and ``MeshConfig`` with the JAX fields and
+defaults, ``ExperimentConfig`` with JAX's ``to_json`` layout (a port run's
+``config.json`` is byte for byte what the JAX trainer writes for the same
+configuration, and each package reads the other's), and the named
+presets (``PRESETS`` / ``TRAIN_PRESETS`` / ``DATA_PRESETS`` hold their
+parts, ``get_experiment_preset`` the whole).  ``validate`` and
+``ExperimentConfig.validate`` run the checks of the JAX
+``ExperimentConfig.validate()`` that the port reaches.
 ``conv_backend`` and ``attention_backend`` are accepted and ignored: in
 the port the device of the tensor picks the path (kernel on the card,
-plain version on the CPU).  The attention-free configuration of a preset
-is ``dataclasses.replace(get_preset(name), attention="none")``.
+plain version on the CPU).  The keys of ``IGNORED_TRAIN_KEYS`` and
+``IGNORED_DATA_KEYS`` are carried (so a config round-trips) and not
+acted on yet.  The attention-free configuration of a preset is
+``dataclasses.replace(get_preset(name), attention="none")``.
 """
 
 from __future__ import annotations
@@ -143,16 +147,22 @@ def get_preset(name: str) -> ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Two-timescale G/D Adam training with lazy regularization: the
-    fields of the JAX ``TrainConfig`` that the port's steps read (same
+    """Two-timescale G/D Adam training with lazy regularization, and the
+    tick loop's cadence: field for field the JAX ``TrainConfig`` (same
     names and defaults).  R1 (``d_step_r1``) runs every
     ``d_reg_interval`` iterations on the first ``batch_size //
     r1_batch_shrink`` reals, weighted by ``r1_gamma``; path length
     (``g_step_pl``) every ``g_reg_interval`` iterations on ``batch_size
     // pl_batch_shrink`` fresh latents, weighted by ``pl_weight``, its
-    mean length an EMA of rate ``pl_decay``."""
+    mean length an EMA of rate ``pl_decay``.  The loop runs to
+    ``total_kimg``, logs a tick every ``kimg_per_tick``, writes an image
+    grid every ``image_snapshot_ticks`` and a checkpoint every
+    ``snapshot_ticks`` ticks (on a writer thread when
+    ``async_checkpoint``); ``debug_nans`` turns on anomaly detection and
+    the per-tick finite checks."""
 
     batch_size: int = 32
+    total_kimg: int = 25000
     g_lr: float = 2e-3
     d_lr: float = 2e-3
     adam_beta1: float = 0.0
@@ -160,33 +170,48 @@ class TrainConfig:
     adam_eps: float = 1e-8
     r1_gamma: float = 10.0
     d_reg_interval: int = 16
-    r1_batch_shrink: int = 1
     g_reg_interval: int = 4
+    r1_batch_shrink: int = 1
     pl_weight: float = 2.0
     pl_decay: float = 0.01
     pl_batch_shrink: int = 2
     style_mixing_prob: float = 0.9
     ema_kimg: float = 10.0
     ema_rampup: Optional[float] = None
+    fused_cycle: bool = False          # ignored: the fused cycle is later
+    async_checkpoint: bool = True
+    kimg_per_tick: int = 4
+    snapshot_ticks: int = 10
+    image_snapshot_ticks: int = 10
+    metric_ticks: int = 50             # ignored: metrics are later
+    metrics: str = ""                  # ignored
     seed: int = 0
+    debug_nans: bool = False
+    profile_dir: Optional[str] = None  # ignored: device sampling is later
+    device_time_ticks: int = 8         # ignored
 
 
-# Keys of the JAX ``TrainConfig`` that the port reads and does not use yet
-# (the tick loop, checkpoints, telemetry).
+# Keys of the JAX ``TrainConfig`` that the port carries and does not act on
+# yet: the fused cycle (a CUDA graph, later), in-loop metrics, and the
+# device-time sampler and profiler.  The loop says so in log.txt when one
+# is set.
 IGNORED_TRAIN_KEYS = frozenset({
-    "total_kimg", "fused_cycle", "async_checkpoint", "kimg_per_tick",
-    "snapshot_ticks", "image_snapshot_ticks", "metric_ticks", "metrics",
-    "debug_nans", "profile_dir", "device_time_ticks"})
+    "fused_cycle", "metric_ticks", "metrics", "profile_dir",
+    "device_time_ticks"})
+
+
+def _from_dict(cls, d: Dict[str, Any], what: str):
+    names = {f.name for f in dataclasses.fields(cls)}
+    extra = sorted(set(d) - names)
+    if extra:
+        raise ValueError(f"unknown {what} keys: {extra}")
+    return cls(**d)
 
 
 def train_config_from_dict(d: Dict[str, Any]) -> TrainConfig:
-    """From the ``train`` section of a JAX ``config.json``.  Keys the port
-    does not use yet are dropped; any other unknown key raises."""
-    names = {f.name for f in dataclasses.fields(TrainConfig)}
-    extra = sorted(set(d) - names - IGNORED_TRAIN_KEYS)
-    if extra:
-        raise ValueError(f"unknown TrainConfig keys: {extra}")
-    return TrainConfig(**{k: v for k, v in d.items() if k in names})
+    """From the ``train`` section of a JAX ``config.json``; an unknown
+    key raises."""
+    return _from_dict(TrainConfig, d, "TrainConfig")
 
 
 def train_config_from_json(text: str) -> TrainConfig:
@@ -194,11 +219,114 @@ def train_config_from_json(text: str) -> TrainConfig:
     return train_config_from_dict(json.loads(text)["train"])
 
 
-def mirror_augment_from_json(text: str) -> bool:
-    """``data.mirror_augment`` of a JAX run's ``config.json`` (False
-    where the section or the key is missing, the JAX default)."""
-    return bool(json.loads(text).get("data", {}).get("mirror_augment",
-                                                      False))
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The dataset pipeline, field for field the JAX ``DataConfig``.
+    ``source``: 'synthetic' (procedural images), 'npz', 'tfrecord' (the
+    reference's multi-resolution records) or 'folder' (decoded with
+    Pillow, on a host that has it).  ``prefetch`` is the depth of the
+    host prefetch queue.  Corrupt records are quarantined until more
+    than ``max_corrupt_frac`` of them are (then ``DataCorrupt``),
+    transient reads retry ``io_retries`` times from
+    ``io_retry_base_s``, and a producer that makes no progress for
+    ``stall_after_s`` (0: never) raises ``DataStalled``."""
+
+    name: str = "synthetic"
+    path: Optional[str] = None
+    resolution: int = 256
+    channels: int = 3
+    source: str = "synthetic"
+    shuffle_buffer: int = 4096         # accepted; the record index shuffles
+    prefetch: int = 2
+    device_prefetch: bool = True       # ignored: the device ring is later
+    device_prefetch_depth: int = 2     # ignored
+    mirror_augment: bool = False
+    max_corrupt_frac: float = 0.01
+    io_retries: int = 3
+    io_retry_base_s: float = 0.05
+    stall_after_s: float = 120.0
+
+
+# Keys of the JAX ``DataConfig`` the port carries and does not act on yet.
+IGNORED_DATA_KEYS = frozenset({"device_prefetch", "device_prefetch_depth"})
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The JAX ``MeshConfig``, carried so a config round-trips.  The port
+    trains on one device: a mesh of more than one device raises in
+    ``ExperimentConfig.validate``."""
+
+    data: int = -1
+    model: int = 1
+    fsdp: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    name: str = "default"
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+    def validate(self) -> "ExperimentConfig":
+        """``validate(model, train)`` plus the data checks of the JAX
+        ``validate()`` and the port's one-device rule; raises
+        ``ValueError`` listing every failure.  Returns self."""
+        errs = []
+        try:
+            validate(self.model, self.train)
+        except ValueError as e:
+            errs += [ln.strip()[2:] for ln in str(e).splitlines()[1:]]
+        d, m = self.data, self.mesh
+        if not 0.0 <= d.max_corrupt_frac <= 1.0:
+            errs.append(f"data.max_corrupt_frac must be in [0, 1], got "
+                        f"{d.max_corrupt_frac}")
+        if d.io_retries < 0:
+            errs.append(f"data.io_retries must be ≥ 0, got {d.io_retries}")
+        if d.io_retry_base_s <= 0:
+            errs.append(f"data.io_retry_base_s must be > 0, got "
+                        f"{d.io_retry_base_s}")
+        if d.stall_after_s < 0:
+            errs.append(f"data.stall_after_s must be ≥ 0 (0 = watchdog "
+                        f"off), got {d.stall_after_s}")
+        if d.source not in ("synthetic", "npz", "tfrecord", "folder"):
+            errs.append(f"data.source must be synthetic|npz|tfrecord|"
+                        f"folder, got {d.source!r}")
+        if (m.data > 1 or m.model > 1 or m.fsdp
+                or (m.num_processes or 1) > 1
+                or m.coordinator_address is not None):
+            errs.append(
+                f"the port trains on one device; this mesh asks for more "
+                f"(data={m.data}, model={m.model}, fsdp={m.fsdp}, "
+                f"num_processes={m.num_processes}): data parallelism over "
+                f"several cards comes with its own slice")
+        if errs:
+            raise ValueError("invalid config:\n  - " + "\n  - ".join(errs))
+        return self
+
+    def to_json(self) -> str:
+        """The JAX ``ExperimentConfig.to_json`` layout."""
+        return json.dumps(dataclasses.asdict(self), indent=2,
+                          sort_keys=True)
+
+    @staticmethod
+    def from_json(s: str) -> "ExperimentConfig":
+        """A JAX (or port) ``config.json``; ``name``, ``train`` and
+        ``mesh`` take their defaults where missing, ``data`` its defaults
+        at the model's resolution.  Unknown keys raise."""
+        d = json.loads(s)
+        model = ModelConfig.from_dict(d["model"])
+        return ExperimentConfig(
+            name=d.get("name", "default"), model=model,
+            train=train_config_from_dict(d.get("train", {})),
+            data=_from_dict(DataConfig, d.get(
+                "data", {"resolution": model.resolution}), "DataConfig"),
+            mesh=_from_dict(MeshConfig, d.get("mesh", {}), "MeshConfig"))
 
 
 def validate(model: ModelConfig, train: TrainConfig) -> None:
@@ -250,11 +378,30 @@ def validate(model: ModelConfig, train: TrainConfig) -> None:
 
 # The train part of the JAX presets.
 TRAIN_PRESETS: Dict[str, TrainConfig] = {
-    "clevr64-simplex": TrainConfig(batch_size=4, r1_gamma=1.0),
-    "ffhq256-duplex": TrainConfig(batch_size=32, r1_gamma=10.0),
-    "bedroom256-duplex": TrainConfig(batch_size=32, r1_gamma=100.0),
-    "cityscapes256-duplex": TrainConfig(batch_size=32, r1_gamma=20.0),
-    "ffhq1024-duplex": TrainConfig(batch_size=32, r1_gamma=32.0),
+    "clevr64-simplex": TrainConfig(batch_size=4, total_kimg=100,
+                                   kimg_per_tick=1, r1_gamma=1.0),
+    "ffhq256-duplex": TrainConfig(batch_size=32, total_kimg=25000,
+                                  r1_gamma=10.0),
+    "bedroom256-duplex": TrainConfig(batch_size=32, total_kimg=25000,
+                                     r1_gamma=100.0),
+    "cityscapes256-duplex": TrainConfig(batch_size=32, total_kimg=25000,
+                                        r1_gamma=20.0),
+    "ffhq1024-duplex": TrainConfig(batch_size=32, total_kimg=25000,
+                                   r1_gamma=32.0),
+}
+
+# The data part and the names of the JAX presets.
+DATA_PRESETS: Dict[str, DataConfig] = {
+    "clevr64-simplex": DataConfig(name="clevr", resolution=64,
+                                  source="synthetic"),
+    "ffhq256-duplex": DataConfig(name="ffhq", resolution=256,
+                                 source="tfrecord"),
+    "bedroom256-duplex": DataConfig(name="lsun-bedroom", resolution=256,
+                                    source="tfrecord"),
+    "cityscapes256-duplex": DataConfig(name="cityscapes", resolution=256,
+                                       source="tfrecord"),
+    "ffhq1024-duplex": DataConfig(name="ffhq", resolution=1024,
+                                  source="tfrecord"),
 }
 
 
@@ -263,3 +410,10 @@ def get_train_preset(name: str) -> TrainConfig:
         raise KeyError(f"unknown preset {name!r}; have "
                        f"{sorted(TRAIN_PRESETS)}")
     return TRAIN_PRESETS[name]
+
+
+def get_experiment_preset(name: str) -> ExperimentConfig:
+    """The whole JAX preset: name, model, train and data parts."""
+    return ExperimentConfig(name=name, model=get_preset(name),
+                            train=get_train_preset(name),
+                            data=DATA_PRESETS[name])

@@ -64,7 +64,7 @@ def inputs(model, train):
     from gansformer_tpu_torch.data import SyntheticDataset, normalize_images
 
     reals = normalize_images(torch.from_numpy(next(SyntheticDataset(
-        model.resolution, model.img_channels).batches(2, seed=5))))
+        model.resolution, model.img_channels).batches(2, seed=5))["image"]))
     return reals.double(), cs.host_fakes(model, train)
 
 

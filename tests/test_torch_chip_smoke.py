@@ -555,7 +555,7 @@ def test_preset_phase_plans_match_the_cards_route(card_route, variant):
     st = create_train_state(model, port_config.TrainConfig(batch_size=4),
                             seed=1, device="cpu")
     chip_smoke.perturb(st.generator)
-    reals = torch.from_numpy(next(SyntheticDataset(16).batches(4)))
+    reals = torch.from_numpy(next(SyntheticDataset(16).batches(4))["image"])
     plan = chip_smoke.train_path_calls(model, 4)
     for phase, step in (("d_step", lambda: d_step(st, reals, 0)),
                         ("g_step", lambda: g_step(st, 0, 4))):
@@ -584,7 +584,7 @@ def test_d_step_r1_plan_matches_the_cards_route(card_route, d_attention):
         d_attention=d_attention, d_components=3)
     st = create_train_state(model, port_config.TrainConfig(batch_size=4),
                             seed=1, device="cpu")
-    reals = torch.from_numpy(next(SyntheticDataset(32).batches(4)))
+    reals = torch.from_numpy(next(SyntheticDataset(32).batches(4))["image"])
     plan = chip_smoke.r1_step_calls(model, 4)
     ops.reset_launch_counts()
     aux = d_step_r1(st, reals, 0)

@@ -30,6 +30,7 @@ generator's attention, where fp32 cannot resolve the step (see
 
 import contextlib
 import dataclasses
+import json
 from importlib import import_module
 
 import jax
@@ -476,41 +477,41 @@ def test_train_cli_runs_g_step_pl_every_g_reg_interval(tmp_path,
                                                       monkeypatch):
     """``cli.train`` over 5 iterations at ``g_reg_interval`` 4 runs
     ``g_step_pl`` at iterations 0 and 4 and ``g_step`` at the others (the
-    steps stubbed), and prints ``Loss/G/pl`` on those lines."""
+    steps stubbed), and the ticks of those iterations (one iteration a
+    tick) carry ``Loss/G/pl``."""
+    from gansformer_tpu_torch.train import loop
+
     cfg = _jax_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, kimg_per_tick=cfg.train.batch_size / 1000))
     path = tmp_path / "config.json"
     path.write_text(cfg.to_json())
     calls = []
+    zero = torch.zeros(())
 
-    def fake_d(state, reals, it, mirror_augment=False):
-        return {"Loss/D": 0.0, "Loss/scores/real": 0.0,
-                "Loss/scores/fake": 0.0}
+    def fake_d(state, reals, it, mirror_augment=False, label=None):
+        return {"Loss/D": zero, "Loss/scores/real": zero,
+                "Loss/scores/fake": zero}
 
     def fake_g(pl):
-        def step(state, it, n):
+        def step(state, it, n, label=None):
             calls.append((it, pl))
-            return {"Loss/G": 0.0, **({"Loss/G/pl": 1.5} if pl else {})}
+            return {"Loss/G": zero,
+                    **({"Loss/G/pl": torch.tensor(1.5)} if pl else {})}
         return step
 
-    class _State:
-        step = 0
-
-    monkeypatch.setattr(port_cli, "d_step", fake_d)
-    monkeypatch.setattr(port_cli, "d_step_r1", fake_d)
-    monkeypatch.setattr(port_cli, "g_step", fake_g(False))
-    monkeypatch.setattr(port_cli, "g_step_pl", fake_g(True))
-    monkeypatch.setattr(port_cli, "create_train_state",
-                        lambda *a: _State())
-    printed = []
-    monkeypatch.setattr("builtins.print",
-                        lambda *a, **k: printed.append(" ".join(map(str, a))))
+    monkeypatch.setattr(loop, "d_step", fake_d)
+    monkeypatch.setattr(loop, "d_step_r1", fake_d)
+    monkeypatch.setattr(loop, "g_step", fake_g(False))
+    monkeypatch.setattr(loop, "g_step_pl", fake_g(True))
     assert cfg.train.g_reg_interval == 4
+    run = tmp_path / "run"
     assert port_cli.main(["--config", str(path), "--steps", "5",
-                          "--device", "cpu"]) == 0
+                          "--device", "cpu", "--run-dir", str(run)]) == 0
     assert calls == [(0, True), (1, False), (2, False), (3, False),
                      (4, True)]
-    lines = [ln for ln in printed if ln.startswith("step ")]
-    assert ["Loss/G/pl 1.5000" in ln for ln in lines] == [
-        True, False, False, False, True]
+    ticks = [json.loads(ln) for ln in (run / "stats.jsonl").open()]
+    assert [t.get("Loss/G/pl") for t in ticks] == [
+        1.5, None, None, None, 1.5]
     assert "path length" in port_cli.build_parser().description
     assert "first-order" not in (port_cli.__doc__ or "")

@@ -387,23 +387,25 @@ def test_r1_batch_shrink_is_read_and_validated_as_in_jax():
 
 def test_train_cli_runs_r1_every_d_reg_interval(tmp_path):
     """``cli.train --device cpu`` at ``d_reg_interval`` 1 runs
-    ``d_step_r1`` at both iterations; at 2, at iteration 0 only."""
+    ``d_step_r1`` at both iterations; at 2, at iteration 0 only (one
+    iteration per tick, so each tick's stats show its iteration's
+    step)."""
     for interval, want in ((1, [True, True]), (2, [True, False])):
         cfg = _jax_cfg()
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, d_reg_interval=interval))
+            cfg.train, d_reg_interval=interval, kimg_per_tick=0.004))
         path = tmp_path / f"config{interval}.json"
         path.write_text(cfg.to_json())
+        run = tmp_path / f"run{interval}"
         out = subprocess.run(
             [sys.executable, "-m", "gansformer_tpu_torch.cli.train",
              "--config", str(path), "--steps", "2", "--batch-size", "4",
-             "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
-            timeout=300)
+             "--device", "cpu", "--run-dir", str(run)], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr[-2000:]
-        lines = [ln for ln in out.stdout.splitlines()
-                 if ln.startswith("step ")]
-        assert ["Loss/D/r1" in ln for ln in lines] == want, lines
-        assert json.loads(out.stdout.splitlines()[0])["train"][
+        ticks = [json.loads(ln) for ln in (run / "stats.jsonl").open()]
+        assert ["Loss/D/r1" in t for t in ticks] == want, ticks
+        assert json.loads((run / "config.json").read_text())["train"][
             "d_reg_interval"] == interval
 
 
@@ -413,7 +415,7 @@ def test_d_step_r1_reaches_every_leaf_of_d(card_route):
     model = port_config.ModelConfig(**D_ATTENTION)
     st = create_train_state(model, port_config.TrainConfig(batch_size=4),
                             seed=2, device="cpu")
-    reals = torch.from_numpy(next(SyntheticDataset(16).batches(4)))
+    reals = torch.from_numpy(next(SyntheticDataset(16).batches(4))["image"])
     aux = steps.d_step_r1(st, reals, 0)
     assert np.isfinite(float(aux["Loss/D/r1"])) and float(aux["Loss/D/r1"])
     for name, p in st.discriminator.named_parameters():

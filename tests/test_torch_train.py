@@ -158,7 +158,7 @@ def test_synthetic_reals_and_normalize_match_jax():
     np.testing.assert_allclose(
         normalize_images(torch.from_numpy(ours)).numpy(),
         np.asarray(jax_normalize(jnp.asarray(ours))), rtol=0, atol=1e-7)
-    batch = next(SyntheticDataset(8).batches(3, seed=2))
+    batch = next(SyntheticDataset(8).batches(3, seed=2))["image"]
     assert batch.shape == (3, 8, 8, 3) and batch.dtype == np.uint8
 
 
@@ -441,7 +441,7 @@ def test_training_on_the_cards_route_launches_the_plan(card_route, variant):
     train = port_config.TrainConfig(batch_size=2)
     st = create_train_state(model, train, seed=1, device="cpu")
     chip_smoke.perturb(st.generator)
-    reals = torch.from_numpy(next(SyntheticDataset(32).batches(2)))
+    reals = torch.from_numpy(next(SyntheticDataset(32).batches(2))["image"])
     plan = chip_smoke.train_path_calls(model, 2)
     for phase, step in (("d_step", lambda: d_step(st, reals, 0)),
                         ("g_step", lambda: g_step(st, 0, 2))):
@@ -469,7 +469,7 @@ def test_step_draws_follow_the_seed():
     b = create_train_state(model, train, seed=5, device="cpu")
     for p, q in zip(a.generator.parameters(), b.generator.parameters()):
         assert torch.equal(p, q)
-    reals = torch.from_numpy(next(SyntheticDataset(16).batches(2)))
+    reals = torch.from_numpy(next(SyntheticDataset(16).batches(2))["image"])
     la = d_step(a, reals, 3, mirror_augment=True)
     lb = d_step(b, reals, 3, mirror_augment=True)
     assert float(la["Loss/D"]) == float(lb["Loss/D"])
@@ -482,8 +482,9 @@ def test_step_draws_follow_the_seed():
 
 def test_train_cli_with_attention_imports_no_jax(tmp_path):
     """``cli.train --device cpu`` with the generator's attention and D
-    attention on (a config.json written by the port's own dataclasses)
-    leaves jax, flax and the JAX package out of sys.modules."""
+    attention on (a config.json written by the port's own dataclasses,
+    model and train sections only) runs its iteration through the loop
+    and leaves jax, flax and the JAX package out of sys.modules."""
     model = port_config.ModelConfig(**dict(
         MICRO, attention="duplex", style_mode="attention", d_attention=True,
         d_components=3))
@@ -491,41 +492,49 @@ def test_train_cli_with_attention_imports_no_jax(tmp_path):
     path.write_text(json.dumps({
         "model": dataclasses.asdict(model),
         "train": dataclasses.asdict(port_config.TrainConfig())}))
+    run = tmp_path / "run"
     code = (
         "import sys\n"
         "from gansformer_tpu_torch.cli import train\n"
         f"assert train.main(['--config', {str(path)!r}, '--steps', '1', "
-        "'--batch-size', '4', '--device', 'cpu']) == 0\n"
+        f"'--batch-size', '4', '--device', 'cpu', '--run-dir', "
+        f"{str(run)!r}]) == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'gansformer_tpu')]\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "Loss/G" in out.stdout
+    ticks = [json.loads(ln) for ln in (run / "stats.jsonl").open()]
+    assert len(ticks) == 1 and np.isfinite(ticks[0]["Loss/G"])
+    assert (run / "checkpoints" / "4" / "state.npz").exists()
 
 
 def test_train_cli_runs_two_steps_on_cpu(tmp_path):
     cfg = _jax_cfg()
     path = tmp_path / "config.json"
     path.write_text(cfg.to_json())
+    run = tmp_path / "run"
     out = subprocess.run(
         [sys.executable, "-m", "gansformer_tpu_torch.cli.train", "--config",
          str(path), "--steps", "2", "--batch-size", "4", "--seed", "1",
-         "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300)
+         "--device", "cpu", "--run-dir", str(run)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    lines = out.stdout.strip().splitlines()
-    head = json.loads(lines[0])
-    assert head["model"]["resolution"] == 16 and head["device"] == "cpu"
-    steps = [ln for ln in lines if ln.startswith("step ")]
-    assert len(steps) == 2 and "Loss/D" in steps[0] and "g_ms" in steps[1]
+    saved = json.loads((run / "config.json").read_text())
+    assert saved["model"]["resolution"] == 16 and saved["train"]["seed"] == 1
+    log = (run / "log.txt").read_text()
+    assert "device: cpu" in log and "done: 0.0 kimg" in log
+    ticks = [json.loads(ln) for ln in (run / "stats.jsonl").open()]
+    assert len(ticks) == 1 and ticks[0]["Progress/kimg"] == 0.008
+    assert "Loss/D" in ticks[0] and ticks[0]["timing/sec_per_tick"] > 0
+    assert (run / "checkpoints" / "8" / "state.npz").exists()
 
 
 def test_train_cli_config_reads_mirror_seed_and_validates(tmp_path,
                                                          monkeypatch):
     """``cli.train --config`` on a JAX ``ExperimentConfig.to_json()``:
-    ``data.mirror_augment`` reaches ``d_step``, ``train.seed`` is used
+    ``data.mirror_augment`` reaches the loop, ``train.seed`` is used
     unless ``--seed`` is given, and a batch that ``mbstd_group_size``
     does not divide is refused, as the JAX ``validate()`` refuses it."""
     from gansformer_tpu_torch.cli import train as train_cli
@@ -538,49 +547,52 @@ def test_train_cli_config_reads_mirror_seed_and_validates(tmp_path,
     path.write_text(cfg.to_json())
     parse = train_cli.build_parser().parse_args
 
-    model, train, mirror = train_cli.configs(parse(["--config", str(path)]))
-    assert mirror is True and train.seed == 7
-    assert train.batch_size == BATCH and model.mbstd_group_size == 4
-    _, train, _ = train_cli.configs(parse(["--config", str(path),
-                                           "--seed", "3"]))
-    assert train.seed == 3
+    got = train_cli.config_from_args(parse(["--config", str(path)]))
+    assert got.data.mirror_augment is True and got.train.seed == 7
+    assert got.train.batch_size == BATCH and got.model.mbstd_group_size == 4
+    assert got.to_json() == cfg.to_json()
+    got = train_cli.config_from_args(parse(["--config", str(path),
+                                            "--seed", "3"]))
+    assert got.train.seed == 3
     plain = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, mirror_augment=False))
     path2 = tmp_path / "plain.json"
     path2.write_text(plain.to_json())
-    assert train_cli.configs(parse(["--config", str(path2)]))[2] is False
-    assert train_cli.configs(parse(["--config", str(path2),
-                                    "--mirror-augment"]))[2] is True
+    assert train_cli.config_from_args(
+        parse(["--config", str(path2)])).data.mirror_augment is False
+    assert train_cli.config_from_args(parse(
+        ["--config", str(path2), "--mirror-augment"])).data.mirror_augment
 
     with pytest.raises(ValueError, match="mbstd_group_size"):
         jax_config.ExperimentConfig.validate(dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, batch_size=6)))
     with pytest.raises(ValueError, match="mbstd_group_size"):
-        train_cli.configs(parse(["--config", str(path), "--batch-size",
-                                 "6"]))
+        train_cli.config_from_args(parse(["--config", str(path),
+                                          "--batch-size", "6"]))
+
+    from gansformer_tpu_torch.train import loop
 
     seen = {}
+    zero = torch.zeros(())
 
-    def fake_d_step(state, reals, it, mirror_augment=False):
+    def fake_d_step(state, reals, it, mirror_augment=False, label=None):
         seen["mirror"] = mirror_augment
-        return {"Loss/D": 0.0, "Loss/scores/real": 0.0,
-                "Loss/scores/fake": 0.0}
+        return {"Loss/D": zero, "Loss/scores/real": zero,
+                "Loss/scores/fake": zero}
 
     def fake_create(model, train, seed, dev):
         seen["seed"] = seed
+        return create_train_state(model, train, seed, dev)
 
-        class _State:
-            step = 0
-        return _State()
-
-    monkeypatch.setattr(train_cli, "d_step", fake_d_step)
-    monkeypatch.setattr(train_cli, "d_step_r1", fake_d_step)
-    monkeypatch.setattr(train_cli, "g_step",
-                        lambda state, it, n: {"Loss/G": 0.0})
-    monkeypatch.setattr(train_cli, "g_step_pl",
-                        lambda state, it, n: {"Loss/G": 0.0,
-                                              "Loss/G/pl": 0.0})
-    monkeypatch.setattr(train_cli, "create_train_state", fake_create)
+    monkeypatch.setattr(loop, "d_step", fake_d_step)
+    monkeypatch.setattr(loop, "d_step_r1", fake_d_step)
+    monkeypatch.setattr(loop, "g_step",
+                        lambda state, it, n, label=None: {"Loss/G": zero})
+    monkeypatch.setattr(loop, "g_step_pl",
+                        lambda state, it, n, label=None: {
+                            "Loss/G": zero, "Loss/G/pl": zero})
+    monkeypatch.setattr(loop, "create_train_state", fake_create)
     assert train_cli.main(["--config", str(path), "--steps", "1",
-                           "--device", "cpu"]) == 0
+                           "--device", "cpu", "--run-dir",
+                           str(tmp_path / "run")]) == 0
     assert seen == {"mirror": True, "seed": 7}
