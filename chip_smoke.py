@@ -144,17 +144,28 @@ In order:
    EXIT_PREEMPTED after its tick-0 checkpoint; that checkpoint restores
    on the card bit-equal to the file and a synchronous save of it writes
    the same leaves; run C, the CLI's ``--resume`` in this process with
-   the counters reset just before and read just after, must resume at
-   B's step and data position and run to 2 kimg, its launches (with lse,
-   second order, by route) equal to the plans' counts times its
-   iterations of each step kind plus its snapshots, every stat of every
-   tick finite, its phases summing to the tick, and every
-   ``fakes*.png`` decoding (zlib) to the grid's shape.  It prints
-   sec_per_tick, img_per_sec, data_wait_frac, the phases' self times,
-   the checkpoints' times and size, C's peak device memory, and the host
-   syncs (``torch.cuda.set_sync_debug_mode``) by the loop's span of run
-   D, 4 more iterations resumed from C (with R1 and path length);
-10. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+   the counters reset just before and read just after and
+   ``--fused-cycle`` (JAX's key, taken and said in ``log.txt``), must
+   resume at B's step and data position and run to 2 kimg, its launches
+   (with lse, second order, by route) equal to the plans' counts times
+   its iterations of each step kind plus its snapshots, every stat of
+   every tick finite, its phases summing to the tick, and every
+   ``fakes*.png`` decoding (zlib) to the grid's shape; run D, 4
+   iterations resumed from C (with R1 and path length), counts the host
+   syncs (``torch.cuda.set_sync_debug_mode``) by the loop's span.  It
+   prints sec_per_tick, img_per_sec, data_wait_frac, the phases' self
+   times with ``timing/phase/h2d``, the checkpoints' times and size and
+   the run's peak device memory;
+10. one lazy-reg cycle (``sync_phase``): the loop's steps over the 16
+   iterations of one cycle of the preset from a fresh state, on batches
+   of the TFRecords, under ``torch.cuda.set_sync_debug_mode("error")``
+   (a host sync fails it; a planted ``.item()`` must), launches held to
+   the plan; ``prepare_data --synthetic --to tfrecord`` at 256^2 read
+   back image for image; ``generate --run-dir`` on the loop's run in
+   each of
+   ``GENERATE_MODES``, launches held to the plan of its synthesize
+   calls, every PNG decoded (zlib) to its size;
+11. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
    Every number of a kernel in the JSON line covers that kernel's
    ``span``: the serve run's launches for the forward kernels (and, in a
    second entry with ``"lse": true``, the forward attention launches of
@@ -2901,10 +2912,22 @@ class SyncRecorder:
         torch.cuda.set_sync_debug_mode("default")
         self._warnings.__exit__(*exc)
 
+    def syncs(self):
+        """The events that are syncs (not the mode's own notice that it
+        is a prototype, which it gives when it is turned on)."""
+        return [e for e in self.events
+                if "debug mode is a prototype" not in e[2]]
+
     def by_span(self):
         out = {}
-        for top, _, _ in self.events:
+        for top, _, _ in self.syncs():
             out[top] = out.get(top, 0) + 1
+        return out
+
+    def sites(self):
+        out = {}
+        for top, where, _ in self.syncs():
+            out[f"{top} {where}"] = out.get(f"{top} {where}", 0) + 1
         return out
 
 
@@ -2966,6 +2989,13 @@ def start_run_b():
     atexit.register(stop)
     return dict(exp=exp, root=root, run=run, proc=proc, log=log,
                 t0=time.time())
+
+
+def print_h2d(rec, peak):
+    """The tick's h2d (the batches' copies from pinned memory, on the
+    loop thread) and the run's peak memory."""
+    print(f"    h2d: timing/phase/h2d {rec['timing/phase/h2d']:.4f} s; "
+          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
 
 
 def loop_phase(card: str, b: dict):
@@ -3059,7 +3089,8 @@ def loop_phase(card: str, b: dict):
     del state
     torch.cuda.empty_cache()
 
-    # run C: --resume to LOOP_KIMG, counters reset just before
+    # run C: --resume --fused-cycle to LOOP_KIMG, counters reset just
+    # before; the key is taken and the loop's steps run as without it
     start_it = b_step // t.batch_size
     iters = -(-(LOOP_KIMG * 1000 - b_step) // t.batch_size)
     kinds = loop_step_kinds(t, start_it, iters)
@@ -3067,15 +3098,15 @@ def loop_phase(card: str, b: dict):
     snapshots = 3          # at start, after the tick, final
     want, want_lse, want_second, want_paths = loop_plan(
         model, t, kinds, snapshots, grid_n, model.dtype)
-    print(f"  run C: --resume from step {b_step} to {LOOP_KIMG} kimg: "
-          f"{iters} iterations from {start_it} ({kinds}) and "
-          f"{snapshots} snapshots of {grid_n}; launch plan {want}",
+    print(f"  run C: --resume --fused-cycle from step {b_step} to "
+          f"{LOOP_KIMG} kimg: {iters} iterations from {start_it} ({kinds})"
+          f" and {snapshots} snapshots of {grid_n}; launch plan {want}",
           flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rc = train_cli.main(["--run-dir", run, "--resume"])
+    rc = train_cli.main(["--run-dir", run, "--resume", "--fused-cycle"])
     torch.cuda.synchronize()
     c_s = time.perf_counter() - t0
     got, lse = ops.launch_counts(), ops.lse_launch_counts()
@@ -3092,7 +3123,9 @@ def loop_phase(card: str, b: dict):
             fail(f"run C {what} {g} != the plan's {w}")
     c_log = open(os.path.join(run, "log.txt")).read()
     for line in (f"resumed from step {b_step} ",
-                 f"from batch {start_it}"):
+                 f"from batch {start_it}",
+                 f"fused cycle: {t.d_reg_interval} iterations make no host "
+                 f"round trip"):
         if line not in c_log:
             fail(f"run C: log.txt lacks {line!r}")
     from gansformer_tpu_torch.utils.logging import read_resume_records
@@ -3106,6 +3139,7 @@ def loop_phase(card: str, b: dict):
         fail(f"run C ended at checkpoint {ckpt.latest_step(ckpt_dir)}")
     for rec in c_ticks:
         print_tick(rec, "run C", card)
+        print_h2d(rec, peak)
     from gansformer_tpu_torch.obs.registry import parse_prom_values
 
     prom = parse_prom_values(os.path.join(run, "telemetry.prom"))
@@ -3118,7 +3152,7 @@ def loop_phase(card: str, b: dict):
           f"{c_s:.1f} s (setup, restore, "
           f"{len(c_ticks)} tick, snapshots, final checkpoint); peak "
           f"device memory {peak / 2**30:.2f} GiB ({card})", flush=True)
-    # run D: 4 more iterations, one tick with R1 and path length (it 64),
+    # run D: 4 more iterations, unfused, one tick with R1 and path length,
     # under torch.cuda.set_sync_debug_mode, which C ran without
     d_first = ckpt.latest_step(ckpt_dir) // t.batch_size
     d_kinds = loop_step_kinds(t, d_first, 4)
@@ -3132,18 +3166,16 @@ def loop_phase(card: str, b: dict):
         "data_wait", "h2d", "step", "backward", "tick_fetch"))
     print(f"  host syncs of run D (--resume --steps 4, iterations "
           f"{d_first}-{d_first + 3}: {d_kinds}; "
-          f"torch.cuda.set_sync_debug_mode): {len(syncs.events)}, by the "
+          f"torch.cuda.set_sync_debug_mode): {len(syncs.syncs())}, by the "
           f"loop's span open on the main thread at the time (backward: "
-          f"autograd's thread): {top}; in the tick's iterations and "
-          f"boundary {in_tick}, {in_tick / 4:.1f} an iteration, "
+          f"autograd's thread): "
+          f"{top}; in the tick's iterations and boundary {in_tick}, "
+          f"{in_tick / 4:.1f} an iteration, "
           f"{top.get('tick_fetch', 0)} of them at the boundary",
           flush=True)
-    sites = {}
-    for span_name, where, _ in syncs.events:
-        sites[(span_name, where)] = sites.get((span_name, where), 0) + 1
-    for (span_name, where), n in sorted(sites.items(),
-                                        key=lambda kv: -kv[1])[:8]:
-        print(f"    {n:6d}  {span_name:12s} {where}", flush=True)
+    for where, n in sorted(syncs.sites().items(),
+                           key=lambda kv: -kv[1])[:8]:
+        print(f"    {n:6d}  {where}", flush=True)
     pngs = sorted(f for f in os.listdir(run) if f.startswith("fakes"))
     side = int(math.sqrt(grid_n)) * model.resolution
     for f in pngs:
@@ -3154,6 +3186,206 @@ def loop_phase(card: str, b: dict):
                  f"{(side, side, model.img_channels)}")
     print(f"  {pngs} decode (zlib) to {side}x{side}x"
           f"{model.img_channels}", flush=True)
+
+
+GENERATE_MODES = (
+    # (mode, extra arguments, batch, synthesize calls, PNGs and shapes in
+    # units of the resolution: (rows, columns))
+    ("singles", ["--images-num", "4", "--batch-size", "4"], 4, 1,
+     {f"img{i:04d}.png": (1, 1) for i in range(4)}),
+    ("grid", ["--grid", "--images-num", "8", "--batch-size", "8"], 8, 1,
+     {"grid.png": (4, 2)}),
+    ("interpolate 2 5", ["--grid", "--images-num", "8", "--batch-size", "8",
+                         "--interpolate", "2", "5"], 8, 6,
+     {"grid.png": (4, 2), "interp.png": (2, 5)}),
+    ("style-mix 2 3", ["--grid", "--images-num", "8", "--batch-size", "8",
+                       "--style-mix", "2", "3"], 8, 2,
+     {"grid.png": (4, 2), "mix.png": (2, 3)}),
+)
+
+
+def sync_phase(card: str, data: str):
+    """ffhq256-duplex as the preset has it (batch 32, bf16, R1 every 16,
+    path length every 4): one lazy-reg cycle, the loop's steps over
+    iterations 0-15 from a fresh state of seed 0 on 16 batches of the
+    smoke's TFRecords, under ``torch.cuda.set_sync_debug_mode("error")``,
+    so that a host sync fails it (JAX's fused cycle is one dispatch for
+    these iterations; the port's make no host round trip).  Its launches
+    are held to the plan of the 16 iterations, its aux counts to the
+    schedule's, its sums must be finite; a planted ``.item()`` under the
+    same mode must raise, so the mode is armed in this build."""
+    import numpy as np
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.core.config import get_experiment_preset
+    from gansformer_tpu_torch.core.device import to_device
+    from gansformer_tpu_torch.data import TFRecordDataset
+    from gansformer_tpu_torch.train import create_train_state, d_step, g_step
+
+    exp = get_experiment_preset(LOOP_PRESET)
+    model, t = exp.model, exp.train
+    k = t.d_reg_interval
+    ds = TFRecordDataset(data, resolution=model.resolution)
+    stream = ds.batches(t.batch_size, seed=t.seed + 1)
+    try:
+        host = np.stack([next(stream)["image"] for _ in range(k)])
+    finally:
+        ds.close()
+    imgs = to_device(torch.from_numpy(host), torch.device("cuda"))
+    kinds = loop_step_kinds(t, 0, k)
+    want = loop_plan(model, t, kinds, 0, 1, model.dtype)
+    want_counts = {"Loss/D": k, "Loss/scores/real": k,
+                   "Loss/scores/fake": k, "Loss/G": k,
+                   "Loss/D/r1": -(-k // t.d_reg_interval),
+                   "Loss/G/pl": -(-k // t.g_reg_interval)}
+    print(f"  {k} batches of {t.batch_size} from the TFRecords; the "
+          f"cycle's iterations: {kinds}; launch plan {want[0]}", flush=True)
+    mirror = exp.data.mirror_augment
+    st = create_train_state(model, t, t.seed, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    sums, counts = {}, {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for it in range(k):
+            aux = d_step(st, imgs[it], it, mirror_augment=mirror,
+                         do_r1=it % t.d_reg_interval == 0)
+            aux.update(g_step(st, it, t.batch_size,
+                              do_pl=it % t.g_reg_interval == 0))
+            for n, v in aux.items():
+                sums[n] = v if n not in sums else sums[n] + v
+                counts[n] = counts.get(n, 0) + 1
+    except RuntimeError as e:
+        fail(f"a host sync inside the cycle's iterations: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t1.record()
+    torch.cuda.synchronize()
+    got = (ops.launch_counts(), ops.lse_launch_counts(),
+           ops.second_order_counts(), ops.path_launch_counts())
+    for name, g, w in zip(("launches", "lse", "second order", "routes"),
+                          got, want):
+        if g != w:
+            fail(f"the cycle's iterations: {name} {g} != the plan's {w}")
+    if counts != want_counts:
+        fail(f"the cycle's aux counts {counts} != {want_counts}")
+    if not all(math.isfinite(float(v)) for v in sums.values()):
+        fail(f"the cycle's aux sums are not finite: {sums}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sums["Loss/G"].item()
+        fail("a planted .item() passed the sync debug mode 'error'")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"  {k} iterations: {t0.elapsed_time(t1):.1f} ms by CUDA events, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, 0 "
+          f"host syncs under the sync debug mode 'error' (a planted "
+          f".item() raised); launches equal the plan ({card})", flush=True)
+    print("    sums: " + ", ".join(
+        f"{n} {float(v):.4f}" for n, v in sums.items()), flush=True)
+    del st
+    torch.cuda.empty_cache()
+
+
+def prepare_data_phase(card: str) -> None:
+    """``prepare_data --synthetic --to tfrecord`` at 256^2 into a
+    temporary directory; the records read back through the port's
+    TFRecord dataset image for image; timed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from gansformer_tpu_torch.cli import prepare_data
+    from gansformer_tpu_torch.data import SyntheticDataset, TFRecordDataset
+
+    root = tempfile.mkdtemp(prefix="gansformer_smoke_prep_")
+    try:
+        n, out = 64, os.path.join(root, "synthetic")
+        t0 = time.perf_counter()
+        rc = prepare_data.main(["--synthetic", "--resolution", "256",
+                                "--max-images", str(n), "--to", "tfrecord",
+                                "--out", out])
+        took = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"prepare_data returned {rc}")
+        size = sum(os.path.getsize(os.path.join(out, f))
+                   for f in os.listdir(out))
+        ds = TFRecordDataset(out, resolution=256)
+        got = ds._emit(range(ds.num_images))["image"]
+        ds.close()
+        want = SyntheticDataset(256, num_images=n)._make(np.arange(n))
+        if ds.num_images != n or not np.array_equal(got, want):
+            fail(f"prepare_data's records read back {ds.num_images} "
+                 f"images, not the {n} it wrote")
+        print(f"  prepare_data --synthetic --to tfrecord: {n} images at "
+              f"256^2, {len(os.listdir(out))} files ({size / 2**20:.1f} "
+              f"MiB, every level of detail) in {took:.2f} s; read back "
+              f"image for image ({card})", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def generate_phase(card: str, run: str) -> None:
+    """``generate --run-dir`` on the loop's run dir on the card, one
+    invocation for each of ``GENERATE_MODES``: counters reset just before
+    and held to the plan of its synthesize calls just after; every PNG
+    decoded (zlib) to its expected size, not constant."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.cli import generate
+    from gansformer_tpu_torch.core.config import ExperimentConfig
+    from gansformer_tpu_torch.utils.image import decode_png
+
+    with open(os.path.join(run, "config.json")) as f:
+        model = ExperimentConfig.from_json(f.read()).model
+    r = model.resolution
+    root = tempfile.mkdtemp(prefix="gansformer_smoke_gen_")
+    try:
+        for mode, extra, batch, synths, pngs in GENERATE_MODES:
+            out = os.path.join(root, mode.split()[0])
+            calls = main_path_calls(model, batch)
+            want = {kname: synths * sum(c["kernel"] == kname for c in calls)
+                    for kname in REPLACES}
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = generate.main(["--run-dir", run, "--out", out] + extra)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            got = ops.launch_counts()
+            if rc != 0:
+                fail(f"generate {mode} returned {rc}")
+            if got != want:
+                fail(f"generate {mode}: launches {got} != the plan's "
+                     f"{want} ({synths} synthesize at {batch})")
+            if sorted(os.listdir(out)) != sorted(pngs):
+                fail(f"generate {mode} wrote {sorted(os.listdir(out))}")
+            for name, (rows, cols) in pngs.items():
+                with open(os.path.join(out, name), "rb") as f:
+                    img = decode_png(f.read())
+                if img.shape != (rows * r, cols * r, model.img_channels):
+                    fail(f"generate {mode}: {name} decoded {img.shape}")
+                if not float(np.asarray(img, np.float64).std()) > 0:
+                    fail(f"generate {mode}: {name} is constant")
+            print(f"  generate --run-dir {mode}: {took:.2f} s (restore "
+                  f"included), {synths} synthesize at batch {batch}, "
+                  f"launches {got} = the plan; {sorted(pngs)} decode "
+                  f"(zlib) to their sizes, not constant ({card})",
+                  flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -3491,7 +3723,19 @@ def main() -> int:
           f"round trip, run C):", flush=True)
     loop_phase(card, run_b)
     print(f"the loop phase took {t_loop + time.perf_counter() - t0:.1f} s "
-          f"besides run B's time beside the reference phases; the smoke "
+          f"besides run B's time beside the reference phases", flush=True)
+
+    # ---- one cycle's host syncs, prepare_data, generate -------------------
+    t0 = time.perf_counter()
+    print(f"one lazy-reg cycle of {LOOP_PRESET} under the sync debug "
+          f"mode (batch 32, bf16, the smoke's TFRecords):", flush=True)
+    sync_phase(card, run_b["exp"].data.path)
+    print("prepare_data:", flush=True)
+    prepare_data_phase(card)
+    print("generate --run-dir on the loop's run:", flush=True)
+    generate_phase(card, run_b["run"])
+    print(f"the cycle, prepare_data and generate phases took "
+          f"{time.perf_counter() - t0:.1f} s; the smoke "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     train_counts = {k: deltas["d_step"][k] + deltas["g_step"][k]

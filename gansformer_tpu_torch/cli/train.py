@@ -10,11 +10,13 @@ numbered run dir under ``--results-dir`` (or the pinned ``--run-dir``):
 ticks of ``kimg_per_tick``, R1 every ``d_reg_interval`` iterations and
 path length every ``g_reg_interval``, image grids and checkpoints at their
 tick intervals, ``stats.jsonl``, ``log.txt``, TensorBoard events,
-``events.jsonl``, ``telemetry.prom`` and the heartbeat.  ``--resume``
-continues the run's own ``config.json`` from its latest checkpoint (a
-JAX run's included: the format is shared).  ``--steps N`` caps this
-invocation at N iterations, which then end with their final tick and
-checkpoint.
+``events.jsonl``, ``telemetry.prom`` and the heartbeat.
+``--fused-cycle`` and ``--device-prefetch`` are JAX's, taken and said in
+``log.txt``: no iteration of the port makes a host round trip, so they
+select the same loop.  ``--resume`` continues the run's own
+``config.json`` from its latest checkpoint (a JAX run's included: the
+format is shared).  ``--steps N`` caps this invocation at N iterations,
+which then end with their final tick and checkpoint.
 
 The exits are the JAX CLI's: ``EXIT_PREEMPTED`` (75) after a graceful
 SIGTERM checkpoint, ``EXIT_DATA_CORRUPT`` (65), ``EXIT_DATA_STALLED``
@@ -34,12 +36,9 @@ from gansformer_tpu_torch.core.config import (PRESETS, ExperimentConfig,
 
 # JAX flags this port does not take, and why: the slice that brings each
 # (ROADMAP queue A), or why it has no counterpart.
-_A2B = "comes with the fused cycle and the device prefetcher (A.2b)"
 _A7 = "comes with data parallelism over several cards (A.7)"
 _DEVICE = "has no counterpart: the device picks the path"
 LATER_FLAGS = {
-    "--fused-cycle": _A2B, "--no-fused-cycle": _A2B,
-    "--device-prefetch": _A2B, "--no-device-prefetch": _A2B,
     "--attention-backend": _DEVICE, "--conv-backend": _DEVICE,
     "--attn-fused-kv": "comes with the fused K/V projection",
     "--no-attn-fused-kv": "comes with the fused K/V projection",
@@ -93,6 +92,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-async-checkpoint", action="store_const",
                    const=False, dest="async_checkpoint",
                    help="write them on the loop thread")
+    p.add_argument("--fused-cycle", action="store_const", const=True,
+                   dest="fused_cycle", default=None,
+                   help="JAX's one dispatch per lazy-reg cycle; taken and "
+                        "said in log.txt: the port's steps already make no "
+                        "host round trip inside a cycle")
+    p.add_argument("--no-fused-cycle", action="store_const", const=False,
+                   dest="fused_cycle",
+                   help="clear train.fused_cycle of a loaded config")
+    p.add_argument("--device-prefetch", action="store_const", const=True,
+                   dest="device_prefetch", default=None,
+                   help="JAX's device-resident prefetch (the default); "
+                        "taken and said in log.txt: the port copies each "
+                        "batch from pinned memory without a host sync")
+    p.add_argument("--no-device-prefetch", action="store_const",
+                   const=False, dest="device_prefetch",
+                   help="clear data.device_prefetch of a loaded config")
     p.add_argument("--debug-nans", action="store_true",
                    help="anomaly detection + per-tick finite checks")
     p.add_argument("--data-path", default=None)
@@ -144,14 +159,16 @@ def config_from_args(args) -> ExperimentConfig:
                      d_lr=args.d_lr, r1_gamma=args.r1_gamma, seed=args.seed,
                      pl_batch_shrink=args.pl_batch_shrink,
                      r1_batch_shrink=args.r1_batch_shrink,
-                     async_checkpoint=args.async_checkpoint)
+                     async_checkpoint=args.async_checkpoint,
+                     fused_cycle=args.fused_cycle)
     if args.debug_nans:
         train = dataclasses.replace(train, debug_nans=True)
     data = override(cfg.data, path=args.data_path, source=args.data_source,
                     resolution=args.resolution,
                     max_corrupt_frac=args.max_corrupt_frac,
                     io_retries=args.io_retries,
-                    stall_after_s=args.stall_after_s)
+                    stall_after_s=args.stall_after_s,
+                    device_prefetch=args.device_prefetch)
     if args.mirror_augment:
         data = dataclasses.replace(data, mirror_augment=True)
     return dataclasses.replace(cfg, model=model, train=train,

@@ -11,10 +11,10 @@ parts, ``get_experiment_preset`` the whole).  ``validate`` and
 ``ExperimentConfig.validate()`` that the port reaches.
 ``conv_backend`` and ``attention_backend`` are accepted and ignored: in
 the port the device of the tensor picks the path (kernel on the card,
-plain version on the CPU).  The keys of ``IGNORED_TRAIN_KEYS`` and
-``IGNORED_DATA_KEYS`` are carried (so a config round-trips) and not
-acted on yet.  The attention-free configuration of a preset is
-``dataclasses.replace(get_preset(name), attention="none")``.
+plain version on the CPU).  The keys of ``IGNORED_TRAIN_KEYS`` are
+carried (so a config round-trips) and not acted on yet (in-loop metrics
+and the device-time sampler).  The attention-free configuration of a
+preset is ``dataclasses.replace(get_preset(name), attention="none")``.
 """
 
 from __future__ import annotations
@@ -159,7 +159,10 @@ class TrainConfig:
     grid every ``image_snapshot_ticks`` and a checkpoint every
     ``snapshot_ticks`` ticks (on a writer thread when
     ``async_checkpoint``); ``debug_nans`` turns on anomaly detection and
-    the per-tick finite checks."""
+    the per-tick finite checks.  ``fused_cycle`` is JAX's one dispatch
+    per lazy-reg cycle of ``d_reg_interval`` iterations (a multiple of
+    ``g_reg_interval``); the port's steps make no host round trip inside
+    a cycle either way, so the loop only says it in ``log.txt``."""
 
     batch_size: int = 32
     total_kimg: int = 25000
@@ -178,7 +181,7 @@ class TrainConfig:
     style_mixing_prob: float = 0.9
     ema_kimg: float = 10.0
     ema_rampup: Optional[float] = None
-    fused_cycle: bool = False          # ignored: the fused cycle is later
+    fused_cycle: bool = False
     async_checkpoint: bool = True
     kimg_per_tick: int = 4
     snapshot_ticks: int = 10
@@ -192,12 +195,10 @@ class TrainConfig:
 
 
 # Keys of the JAX ``TrainConfig`` that the port carries and does not act on
-# yet: the fused cycle (a CUDA graph, later), in-loop metrics, and the
-# device-time sampler and profiler.  The loop says so in log.txt when one
-# is set.
+# yet: in-loop metrics, and the device-time sampler and profiler.  The loop
+# says so in log.txt when one is set.
 IGNORED_TRAIN_KEYS = frozenset({
-    "fused_cycle", "metric_ticks", "metrics", "profile_dir",
-    "device_time_ticks"})
+    "metric_ticks", "metrics", "profile_dir", "device_time_ticks"})
 
 
 def _from_dict(cls, d: Dict[str, Any], what: str):
@@ -225,9 +226,12 @@ class DataConfig:
     ``source``: 'synthetic' (procedural images), 'npz', 'tfrecord' (the
     reference's multi-resolution records) or 'folder' (decoded with
     Pillow, on a host that has it).  ``prefetch`` is the depth of the
-    host prefetch queue.  Corrupt records are quarantined until more
-    than ``max_corrupt_frac`` of them are (then ``DataCorrupt``),
-    transient reads retry ``io_retries`` times from
+    host prefetch queue.  ``device_prefetch`` (JAX's copies off the
+    critical path, ``device_prefetch_depth`` batches ahead) is taken and
+    said in ``log.txt``: the port's loop copies each batch from pinned
+    memory without a host sync either way.  Corrupt records are
+    quarantined until more than ``max_corrupt_frac`` of them are (then
+    ``DataCorrupt``), transient reads retry ``io_retries`` times from
     ``io_retry_base_s``, and a producer that makes no progress for
     ``stall_after_s`` (0: never) raises ``DataStalled``."""
 
@@ -238,17 +242,13 @@ class DataConfig:
     source: str = "synthetic"
     shuffle_buffer: int = 4096         # accepted; the record index shuffles
     prefetch: int = 2
-    device_prefetch: bool = True       # ignored: the device ring is later
-    device_prefetch_depth: int = 2     # ignored
+    device_prefetch: bool = True
+    device_prefetch_depth: int = 2     # JAX's device ring size, in batches
     mirror_augment: bool = False
     max_corrupt_frac: float = 0.01
     io_retries: int = 3
     io_retry_base_s: float = 0.05
     stall_after_s: float = 120.0
-
-
-# Keys of the JAX ``DataConfig`` the port carries and does not act on yet.
-IGNORED_DATA_KEYS = frozenset({"device_prefetch", "device_prefetch_depth"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,7 +282,16 @@ class ExperimentConfig:
             validate(self.model, self.train)
         except ValueError as e:
             errs += [ln.strip()[2:] for ln in str(e).splitlines()[1:]]
-        d, m = self.data, self.mesh
+        d, m, t = self.data, self.mesh, self.train
+        if t.fused_cycle and (t.g_reg_interval < 1 or t.d_reg_interval
+                              % t.g_reg_interval):
+            errs.append(
+                f"train.fused_cycle needs d_reg_interval "
+                f"({t.d_reg_interval}) to be a multiple of g_reg_interval "
+                f"({t.g_reg_interval})")
+        if d.device_prefetch and d.device_prefetch_depth < 1:
+            errs.append(f"data.device_prefetch_depth must be ≥ 1, got "
+                        f"{d.device_prefetch_depth}")
         if not 0.0 <= d.max_corrupt_frac <= 1.0:
             errs.append(f"data.max_corrupt_frac must be in [0, 1], got "
                         f"{d.max_corrupt_frac}")

@@ -28,6 +28,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``.  A host tensor bound for the card is copied from
+    pinned memory with ``non_blocking=True``: the host does not wait for
+    the copy, and the pinned block is held until the copy has run."""
+    if t.device.type == "cpu" and dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def wants_graph(*ts) -> bool:
     """True when autograd is recording and any of ``ts`` (tensors or None)
     requires grad: a kernel op must then build its own graph node (an

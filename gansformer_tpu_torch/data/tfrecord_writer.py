@@ -6,7 +6,9 @@ It writes the reference's multi-resolution layout,
 a ``tf.train.Example`` with ``shape`` (int64 [C,H,W]) and ``data`` (raw
 CHW uint8), framed with masked CRC32C as stock ``tf.data`` reads it, and
 optional ``<name>-rXX.labels`` (``np.save`` of float32).  The bytes are
-the JAX writer's.  The CRC runs in the port's native host ops
+the JAX writer's.  ``load_cifar10`` and ``iter_lsun_lmdb`` read the two
+benchmark sources ``prepare_data`` converts (the roles of the
+reference's ``dataset_tool`` ``create_cifar10`` and ``create_lsun``).  The CRC runs in the port's native host ops
 (``gansformer_tpu_torch/native``) or, without them, in pure Python
 (about 1 MB/s).  The TensorBoard writer reuses the framing.
 """
@@ -183,3 +185,79 @@ def export_images(images: Iterable[np.ndarray], out_dir: str, name: str,
         if labels is not None:
             ex.add_labels(labels)
         return ex.num_images
+
+
+# ----------------------------------------------------------------------------
+# LSUN lmdb -> images; the dataset_tool ``create_lsun`` role.
+# ----------------------------------------------------------------------------
+
+def iter_lsun_lmdb(lmdb_dir: str, resolution: int,
+                   max_images: Optional[int] = None):
+    """Yields HWC uint8 images centre-cropped and resized to
+    ``resolution`` from an LSUN lmdb export (webp/jpg values, keys
+    ignored), as the JAX package's reader does.  It needs the ``lmdb``
+    package and Pillow; without ``lmdb`` it raises the JAX reader's
+    words.  Undecodable records are skipped with a count."""
+    try:
+        import lmdb  # type: ignore
+    except ImportError as e:
+        raise ImportError(
+            "LSUN conversion needs the 'lmdb' package (pip install lmdb); "
+            "it is not bundled because only the LSUN path uses it") from e
+    import io
+
+    from PIL import Image
+
+    env = lmdb.open(lmdb_dir, readonly=True, lock=False, readahead=False,
+                    meminit=False)
+    n, bad = 0, 0
+    with env.begin(write=False) as txn:
+        for _key, val in txn.cursor():
+            if max_images is not None and n >= max_images:
+                break
+            try:
+                img = Image.open(io.BytesIO(val)).convert("RGB")
+            except Exception:
+                bad += 1
+                continue
+            s = min(img.size)
+            left = (img.size[0] - s) // 2
+            top = (img.size[1] - s) // 2
+            img = img.crop((left, top, left + s, top + s))
+            img = img.resize((resolution, resolution), Image.LANCZOS)
+            yield np.asarray(img, dtype=np.uint8)
+            n += 1
+    if bad:
+        import sys
+
+        print(f"[prepare_data] skipped {bad} undecodable LSUN records",
+              file=sys.stderr)
+
+
+# ----------------------------------------------------------------------------
+# CIFAR-10 (python pickle batches) -> arrays; the dataset_tool
+# ``create_cifar10`` role.
+# ----------------------------------------------------------------------------
+
+def load_cifar10(data_dir: str):
+    """The training batches (data_batch_1..5, those present) of an
+    extracted cifar-10-batches-py directory: (images NHWC uint8, labels
+    one-hot float32)."""
+    import pickle
+
+    imgs, labs = [], []
+    names = [f"data_batch_{i}" for i in range(1, 6)]
+    found = [n for n in names if os.path.exists(os.path.join(data_dir, n))]
+    if not found:
+        raise FileNotFoundError(
+            f"no CIFAR-10 batches under {data_dir} (expected data_batch_1..5)")
+    for n in found:
+        with open(os.path.join(data_dir, n), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        imgs.append(np.asarray(d[b"data"], np.uint8)
+                    .reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+        labs.extend(d[b"labels"])
+    images = np.concatenate(imgs)
+    labels = np.zeros((len(labs), 10), np.float32)
+    labels[np.arange(len(labs)), np.asarray(labs)] = 1.0
+    return images, labels

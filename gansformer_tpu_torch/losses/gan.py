@@ -4,6 +4,7 @@ the R1 penalty with its batch slice, and the path-length penalty."""
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Tuple
 
 import torch
@@ -68,8 +69,10 @@ def path_length_penalty(synthesize: Callable[[torch.Tensor], torch.Tensor],
     the penalty is mean((length - new_pl_mean)^2)."""
     img = synthesize(ws)
     h, w = img.shape[1], img.shape[2]
-    noise = noise.to(img.dtype) / torch.sqrt(
-        torch.tensor(h * w, dtype=img.dtype, device=img.device))
+    # sqrt(h * w) as a Python scalar: a tensor made on the card from a
+    # Python number is a host-to-device copy that syncs the host; the
+    # resolutions are powers of two, so the quotient is the same bits
+    noise = noise.to(img.dtype) / math.sqrt(h * w)
     proj = (widen(img) * widen(noise)).sum()
     (g,) = torch.autograd.grad(proj, [ws], create_graph=True)
     lengths = widen(g).square().sum(dim=2).mean(dim=1).sqrt()

@@ -7,6 +7,12 @@ grid (a soft k-means centroid step, ``kmeans_iters`` rounds), then the
 grid attends back.  Both directions run through
 ``fused_multihead_attention``: the kernels on the card, the plain version
 on the CPU.  Grid sharding waits for the data-parallel slice.
+
+The grid->latent probabilities (the region-assignment maps the JAX block
+sows as ``attn_probs``) are collected where ``probs_sink`` is a list:
+each forward appends [N, heads, h, w, k] from the plain path
+(``ops.attention.multihead_attention``).  The kernels never write them,
+so collecting them on a CUDA tensor raises: re-run on the host.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ from torch import nn
 
 from gansformer_tpu_torch.core.precision import widen
 from gansformer_tpu_torch.models.layers import EqualDense
-from gansformer_tpu_torch.ops.attention import sinusoidal_grid_encoding
+from gansformer_tpu_torch.ops.attention import (multihead_attention,
+                                                sinusoidal_grid_encoding)
 from gansformer_tpu_torch.ops.cuda_attention import fused_multihead_attention
 
 
@@ -47,6 +54,7 @@ class BipartiteAttention(nn.Module):
         self.integration, self.kmeans_iters = integration, kmeans_iters
         self.pos_encoding, self.dtype, self.fused_kv = (pos_encoding, dtype,
                                                         fused_kv)
+        self.probs_sink = None     # a list collects the assignment maps
         n = resolution * resolution
         dense = lambda i, o: EqualDense(i, o, dtype=dtype)  # noqa: E731
         if pos_encoding == "sinusoidal":
@@ -94,6 +102,11 @@ class BipartiteAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [N,H,W,C] grid, y [N,k,D] latents -> (updated x, updated y)."""
+        if self.probs_sink is not None and x.is_cuda:
+            raise RuntimeError(
+                "the attention probabilities come from the plain path on "
+                "the host (the kernels never write them): re-run the "
+                "generator with device='cpu'")
         n, h, w, c = x.shape
         att, dt = self.att, self.dtype
         grid = x.reshape(n, h * w, c)
@@ -127,6 +140,10 @@ class BipartiteAttention(nn.Module):
         else:
             k_y, v_y = self.k_y(y.to(dt)), self.v_y(y.to(dt))
         out = self._attend(q_x, k_y, v_y)
+        if self.probs_sink is not None:
+            probs = multihead_attention(q_x, k_y, v_y, self.num_heads)[1]
+            self.probs_sink.append(probs.reshape(n, self.num_heads, h, w,
+                                                 -1))
 
         if self.integration == "add":
             grid = grid + self.o_proj(out)

@@ -95,6 +95,18 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int,
     return y.permute(0, 2, 3, 1)
 
 
+def _phase_taps(w: torch.Tensor) -> torch.Tensor:
+    """[3,3,Ci,Co] -> [dh, dw, a, b, Ci, Co]: the tap of w that output
+    phase (a, b) reads at offset (dh, dw), ``w_pad[2dh+1-a, 2dw+1-b]`` of
+    w padded to 4x4 with zeros.  Taken by reshape and flip, with no index
+    tensor: a CPU index on a CUDA weight is a host-to-device copy that
+    syncs the host."""
+    ci, co = w.shape[2], w.shape[3]
+    w_pad = F.pad(w, (0, 0, 0, 0, 0, 1, 0, 1))            # [4, 4, Ci, Co]
+    w6 = w_pad.reshape(2, 2, 2, 2, ci, co).flip(1).flip(3)  # [dh,a,dw,b,..]
+    return w6.permute(0, 2, 1, 3, 4, 5)
+
+
 def _conv_transpose_poly(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Stride-2 transposed 3x3 conv as one 2x2 conv with 4*Co phase outputs
     (phase-MAJOR columns: a*2*Co + b*Co + co), then depth-to-space.  Output
@@ -104,9 +116,7 @@ def _conv_transpose_poly(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     assert kh == kw == 3, "polyphase path is derived for 3x3 kernels"
     n, h, wd, ci = x.shape
     co = w.shape[3]
-    w_pad = F.pad(w, (0, 0, 0, 0, 0, 1, 0, 1))            # [4, 4, Ci, Co]
-    idx = torch.tensor([[1, 0], [3, 2]])                   # rh[dh, a]
-    w4 = w_pad[idx[:, None, :, None], idx[None, :, None, :]]  # [dh,dw,a,b,..]
+    w4 = _phase_taps(w)                                    # [dh,dw,a,b,..]
     w4 = w4.permute(0, 1, 4, 2, 3, 5).reshape(2, 2, ci, 4 * co)
     xp = F.pad(x, (0, 0, 0, 1, 0, 1))                      # right/bottom 1
     y = _conv(xp, w4, 1, 0)                                # [N, H, W, 4Co]
@@ -156,9 +166,7 @@ def poly_w4(w: torch.Tensor) -> torch.Tensor:
     + dw), columns co-OUTER / phase-INNER (co*4 + a*2 + b): the Pallas
     kernel's ``_poly_w4`` layout, which the CUDA kernel reads."""
     ci, co = w.shape[2], w.shape[3]
-    w_pad = F.pad(w, (0, 0, 0, 0, 0, 1, 0, 1))
-    idx = torch.tensor([[1, 0], [3, 2]])                   # rh[dh, a]
-    w4 = w_pad[idx[:, None, :, None], idx[None, :, None, :]]  # [dh,dw,a,b,..]
+    w4 = _phase_taps(w)                                    # [dh,dw,a,b,..]
     w4 = w4.permute(0, 1, 4, 5, 2, 3)                      # [dh,dw,Ci,Co,a,b]
     return w4.reshape(4, ci, co * 4).contiguous()
 

@@ -3,7 +3,13 @@
 
 Per iteration: ``d_step_r1`` when ``it % d_reg_interval == 0``, else
 ``d_step``; then ``g_step_pl`` when ``it % g_reg_interval == 0``, else
-``g_step``, inside the ``data_wait`` / ``h2d`` / ``step`` spans.  The
+``g_step``, inside the ``data_wait`` / ``h2d`` / ``step`` spans.  No
+iteration makes a host round trip: batches and draws reach the card from
+pinned memory with ``non_blocking``.  That is what JAX's
+``train.fused_cycle`` (one dispatch per lazy-reg cycle) and
+``data.device_prefetch`` (copies off the critical path) ask for, so both
+keys are taken, said in ``log.txt``, and the loop runs the same
+iterations either way.  The
 steps' aux scalars are summed on the device; the tick boundary is the
 loop's only host sync (one synchronize, one fetch of the sums and the
 attention gates).  There it writes the tick's stats (``stats.jsonl``,
@@ -24,10 +30,8 @@ with ``seed + 2`` (``grid_z`` stands in for them), their noise from
 
 Not in the port, and said so in ``log.txt`` where a config asks: the
 mesh, FSDP and multi-host branches (a mesh of more than one device fails
-``ExperimentConfig.validate``), the fused lazy-regularization cycle and
-the device-resident prefetcher (the plain loop runs; by JAX's own parity
-tests their trajectory is the plain loop's), in-loop metrics, the
-device-time sampler and ``profile_dir``.  The compile listener, the
+``ExperimentConfig.validate``), in-loop metrics, the device-time sampler
+and ``profile_dir``.  The compile listener, the
 retrace watch and the TPU-only MFU bookkeeping count XLA compiles and
 TPU FLOPs and have no counterpart.  The ``--steps`` cap of the CLI
 (``steps``) ends the run after that many iterations, with its final tick
@@ -48,10 +52,9 @@ import numpy as np
 import torch
 
 from gansformer_tpu_torch import obs
-from gansformer_tpu_torch.core.config import (IGNORED_DATA_KEYS,
-                                              IGNORED_TRAIN_KEYS,
+from gansformer_tpu_torch.core.config import (IGNORED_TRAIN_KEYS,
                                               ExperimentConfig)
-from gansformer_tpu_torch.core.device import resolve_device
+from gansformer_tpu_torch.core.device import resolve_device, to_device
 from gansformer_tpu_torch.core.precision import input_dtype
 from gansformer_tpu_torch.data.dataset import PrefetchIterator, make_dataset
 from gansformer_tpu_torch.obs.spans import span
@@ -96,16 +99,13 @@ def resolve_conditional(cfg: ExperimentConfig, dataset) -> ExperimentConfig:
 
 def ignored_notes(cfg: ExperimentConfig) -> list:
     """One line for each key the config turns on that the port does not
-    act on yet (JAX's defaults turn some on: the device prefetcher and
-    the device-time sampler)."""
+    act on yet (JAX's defaults turn one on: the device-time sampler)."""
     out = []
-    for section, keys in (("train", IGNORED_TRAIN_KEYS),
-                          ("data", IGNORED_DATA_KEYS)):
-        for k in sorted(keys - {"metric_ticks", "device_prefetch_depth"}):
-            v = getattr(getattr(cfg, section), k)
-            if v:
-                out.append(f"{section}.{k}={v!r} is not in the port yet: "
-                           f"it runs the plain loop without it")
+    for k in sorted(IGNORED_TRAIN_KEYS - {"metric_ticks"}):
+        v = getattr(cfg.train, k)
+        if v:
+            out.append(f"train.{k}={v!r} is not in the port yet: it runs "
+                       f"the plain loop without it")
     return out
 
 
@@ -257,7 +257,17 @@ def _train(cfg: ExperimentConfig, run_dir: str, dev: torch.device,
     conditional = bool(cfg.model.label_dim)
 
     def put_batch(arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(dev, non_blocking=True)
+        """A host batch on the device: from pinned memory on the card
+        (the copy does not hold up the host), as is on the CPU."""
+        return to_device(torch.from_numpy(arr), dev)
+
+    if t.fused_cycle:
+        log.write(f"fused cycle: {t.d_reg_interval} iterations make no host "
+                  f"round trip, as every iteration of the port; they run "
+                  f"one by one")
+    if cfg.data.device_prefetch:
+        log.write("device prefetch: each batch is copied from pinned "
+                  "memory without a host sync, on the loop thread")
 
     # --- fixed grid latents for snapshots ------------------------------------
     grid_n = min(16, t.batch_size * 2)

@@ -28,7 +28,9 @@ same on every device); each row's conv noise comes from its own generator
 on the device.  Callers may pass ``z`` to use their own latents.  The
 path-length draws are tagged ``"pl"``: its latents from a CPU generator,
 its projection noise and conv noise from the device's; ``z_pl`` and
-``pl_noise`` stand in for them.
+``pl_noise`` stand in for them.  Host draws reach the card from pinned
+memory without a host sync (``core.device.to_device``), so a run of
+iterations makes no host round trip.
 
 On the card the ops build their graphs through the kernels'
 ``autograd.Function``s (the conv family's and both attention
@@ -47,6 +49,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from gansformer_tpu_torch.core.device import to_device
 from gansformer_tpu_torch.core.precision import input_dtype, widen
 from gansformer_tpu_torch.data.dataset import normalize_images
 from gansformer_tpu_torch.losses.gan import (d_logistic_loss,
@@ -81,18 +84,19 @@ def draw_step(state: TrainState, it: int, phase: str, batch: int,
     z = drawn if z is None else z
     z2 = cut = do_mix = None
     if t.style_mixing_prob > 0:
-        z2 = torch.randn(shape, generator=gen).to(dev)
-        cut = torch.randint(1, m.num_ws, (batch, 1), generator=gen).to(dev)
-        do_mix = (torch.rand((batch, 1), generator=gen)
-                  < t.style_mixing_prob).to(dev)
-    flip = (torch.rand(batch, generator=gen) < 0.5).to(dev)
+        z2 = to_device(torch.randn(shape, generator=gen), dev)
+        cut = to_device(torch.randint(1, m.num_ws, (batch, 1),
+                                      generator=gen), dev)
+        do_mix = to_device(torch.rand((batch, 1), generator=gen)
+                           < t.style_mixing_prob, dev)
+    flip = to_device(torch.rand(batch, generator=gen) < 0.5, dev)
     gens = None
     if noise_mode == "random":
         gens = [torch.Generator(device=dev).manual_seed(
             derive_seed(state.seed, it, phase, "noise", row))
             for row in range(batch)]
-    return StepDraws(z=z.to(dev, input_dtype(m.dtype)), z2=z2, cut=cut,
-                     do_mix=do_mix, flip=flip, noise_gens=gens)
+    return StepDraws(z=to_device(z, dev).to(input_dtype(m.dtype)), z2=z2,
+                     cut=cut, do_mix=do_mix, flip=flip, noise_gens=gens)
 
 
 def g_forward(generator, draws: StepDraws, noise_mode: str = "random",
@@ -138,7 +142,7 @@ def d_step(state: TrainState, images: torch.Tensor, it: int, *,
     penalty when ``do_r1``.  Leaves D's gradients in ``.grad``; returns
     the loss and mean scores (and ``Loss/D/r1``) as device scalars, no
     host sync."""
-    reals = normalize_images(images.to(state.device)).to(
+    reals = normalize_images(to_device(images, state.device)).to(
         input_dtype(state.model.dtype))
     draws = draw_step(state, it, "d", reals.shape[0], z, noise_mode)
     if mirror_augment:
@@ -189,7 +193,7 @@ def pl_draws(state: TrainState, it: int, batch: int,
         gens = [torch.Generator(device=dev).manual_seed(
             derive_seed(state.seed, it, "g", "pl", "noise", row))
             for row in range(pl_batch)]
-    return z_pl.to(dev, input_dtype(m.dtype)), gens
+    return to_device(z_pl, dev).to(input_dtype(m.dtype)), gens
 
 
 def pl_term(state: TrainState, it: int, batch: int,
@@ -212,7 +216,7 @@ def pl_term(state: TrainState, it: int, batch: int,
     return path_length_penalty(
         lambda w: gen.synthesize(w, noise_mode=noise_mode,
                                  noise_gens=noise_gens),
-        ws, state.pl_mean, pl_noise.to(dev), state.train.pl_decay)
+        ws, state.pl_mean, to_device(pl_noise, dev), state.train.pl_decay)
 
 
 def g_step(state: TrainState, it: int, batch: int, *,

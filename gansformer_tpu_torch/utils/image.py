@@ -1,8 +1,9 @@
-"""Image grids (the port's copy of ``to_uint8``, ``make_grid`` and
-``save_image_grid`` of ``gansformer_tpu/utils/image.py``): every tick the
-loop writes ``fakes<kimg>.png``.  The PNG is written with ``zlib`` and
-``struct`` (8-bit grey or RGB, filter 0), because the card's machine has
-no Pillow; the attention overlays come with the generate CLI's modes."""
+"""Image grids (the port's copy of ``to_uint8``, ``make_grid``,
+``save_image_grid``, ``attention_overlay`` and ``save_attention_grid`` of
+``gansformer_tpu/utils/image.py``): every tick the loop writes
+``fakes<kimg>.png``, and the generate CLI its grids and attention
+overlays.  The PNG is written with ``zlib`` and ``struct`` (8-bit grey
+or RGB, filter 0), because the card's machine has no Pillow."""
 
 from __future__ import annotations
 
@@ -96,5 +97,48 @@ def save_image_grid(images, path: str, drange: Tuple[float, float] = (-1, 1),
     arr = make_grid(to_uint8(np.asarray(images), drange), grid)
     if arr.shape[-1] == 1:
         arr = arr[..., 0]
+    with open(path, "wb") as f:
+        f.write(encode_png(arr))
+
+
+# Distinct colors for up to 32 latent components (k ≤ 32 in every config).
+_COMPONENT_COLORS = np.array(
+    [[230, 25, 75], [60, 180, 75], [255, 225, 25], [0, 130, 200],
+     [245, 130, 48], [145, 30, 180], [70, 240, 240], [240, 50, 230],
+     [210, 245, 60], [250, 190, 212], [0, 128, 128], [220, 190, 255],
+     [170, 110, 40], [255, 250, 200], [128, 0, 0], [170, 255, 195],
+     [128, 128, 0], [255, 215, 180], [0, 0, 128], [128, 128, 128],
+     [255, 255, 255], [0, 0, 0], [233, 109, 109], [109, 233, 168],
+     [109, 150, 233], [233, 208, 109], [176, 109, 233], [109, 233, 233],
+     [233, 109, 187], [150, 150, 80], [80, 150, 150], [150, 80, 150]],
+    dtype=np.float32)
+
+
+def attention_overlay(images: np.ndarray, probs: np.ndarray,
+                      alpha: float = 0.55) -> np.ndarray:
+    """Latent->region assignment maps blended over the images (the
+    GANsformer paper's attention figure).  images: [N,H,W,3] float in
+    [-1,1]; probs: [N,h,w,k] row-stochastic over k, nearest-upsampled to
+    the image size.  Returns uint8 [N,H,W,3]: the grey image under a
+    per-component colour segmentation weighted by confidence."""
+    imgs = to_uint8(images).astype(np.float32)
+    n, H, W, _ = imgs.shape
+    k = probs.shape[-1]
+    ph, pw = probs.shape[1:3]
+    probs = np.asarray(probs, np.float32)
+    probs = probs[:, np.repeat(np.arange(ph), H // ph), :, :][
+        :, :, np.repeat(np.arange(pw), W // pw), :]
+    colors = _COMPONENT_COLORS[np.arange(k) % len(_COMPONENT_COLORS)]
+    seg = probs @ colors                                # [N,H,W,3]
+    gray = imgs.mean(axis=-1, keepdims=True)
+    out = (1 - alpha) * np.broadcast_to(gray, imgs.shape) + alpha * seg
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def save_attention_grid(images, probs, path: str,
+                        grid: Optional[Tuple[int, int]] = None) -> None:
+    """The attention-overlay grid PNG (generate ``--save-attention``)."""
+    arr = make_grid(attention_overlay(np.asarray(images), np.asarray(probs)),
+                    grid)
     with open(path, "wb") as f:
         f.write(encode_png(arr))

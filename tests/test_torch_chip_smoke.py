@@ -769,3 +769,44 @@ def test_perturbed_is_another_fp32_rounding():
     rel = ((a - x).abs() / x.abs()).max()
     assert 0 < float(rel) <= 2.0 ** -21
     assert not torch.equal(chip_smoke.perturbed(x, seed=1), a)
+
+
+# --------------------------------------------------------------------------
+# The generate phase
+# --------------------------------------------------------------------------
+
+def test_generate_modes_plan_their_synthesize_calls(tmp_path, monkeypatch):
+    """``GENERATE_MODES``: each mode's synthesize calls at its batch and
+    its PNGs, against the generate CLI on the CPU (a micro run)."""
+    from gansformer_tpu_torch.cli import generate
+    from gansformer_tpu_torch.serve.programs import ServePrograms
+    from gansformer_tpu_torch.train import checkpoint as ckpt
+    from gansformer_tpu_torch.train import create_train_state
+    from gansformer_tpu_torch.utils.image import decode_png
+    from tests.test_torch_loop import micro_exp
+
+    exp = micro_exp()
+    run = str(tmp_path / "run")
+    st = create_train_state(exp.model, exp.train, 0, "cpu")
+    ckpt.save(os.path.join(run, "checkpoints"), st, block=True)
+    with open(os.path.join(run, "config.json"), "w") as f:
+        f.write(exp.to_json())
+    seen = []
+    orig = ServePrograms.synthesize
+
+    def spy(self, ws, *a, **k):
+        seen.append(ws.shape[0])
+        return orig(self, ws, *a, **k)
+
+    monkeypatch.setattr(ServePrograms, "synthesize", spy)
+    r = exp.model.resolution
+    for mode, extra, batch, synths, pngs in chip_smoke.GENERATE_MODES:
+        seen.clear()
+        out = str(tmp_path / mode.split()[0])
+        assert generate.main(["--run-dir", run, "--out", out, "--device",
+                              "cpu"] + extra) == 0
+        assert seen == [batch] * synths, mode
+        assert sorted(os.listdir(out)) == sorted(pngs)
+        for name, (rows, cols) in pngs.items():
+            with open(os.path.join(out, name), "rb") as f:
+                assert decode_png(f.read()).shape == (rows * r, cols * r, 3)

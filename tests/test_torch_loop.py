@@ -274,14 +274,13 @@ def test_resumes_from_a_jax_checkpoint(tmp_path):
 
 
 def test_ignored_keys_are_said_in_the_log(tmp_path):
-    exp = micro_exp(total_iters=1, tick_iters=1, fused_cycle=True)
-    exp = dataclasses.replace(exp, data=dataclasses.replace(
-        exp.data, device_prefetch=True))
-    assert "train.fused_cycle=True" in " ".join(loop.ignored_notes(exp))
+    exp = micro_exp(total_iters=1, tick_iters=1, profile_dir="prof",
+                    metrics="fid")
+    assert "train.profile_dir='prof'" in " ".join(loop.ignored_notes(exp))
     loop.train(exp, str(tmp_path), device="cpu")
     log = open(os.path.join(str(tmp_path), "log.txt")).read()
-    assert "train.fused_cycle=True is not in the port yet" in log
-    assert "data.device_prefetch=True is not in the port yet" in log
+    assert "train.profile_dir='prof' is not in the port yet" in log
+    assert "train.metrics='fid' is not in the port yet" in log
 
 
 def test_debug_nans_turns_on_anomaly_detection_for_the_run(tmp_path,
@@ -320,7 +319,7 @@ def test_cli_maps_typed_exits(tmp_path, monkeypatch, exc, code):
             events.EXIT_DATA_STALLED) == (code, 75, 65, 74)
 
 
-@pytest.mark.parametrize("flag", ["--fused-cycle", "--mesh-data=2",
+@pytest.mark.parametrize("flag", ["--attn-fused-kv", "--mesh-data=2",
                                   "--profile-dir", "--selfcheck"])
 def test_cli_refuses_later_flags_with_words(flag):
     with pytest.raises(SystemExit, match="not in the PyTorch port yet"):
@@ -408,3 +407,23 @@ def test_loop_launches_match_the_smokes_plan(tmp_path, monkeypatch):
     assert got == want[:3]
     assert all(math.isfinite(v) for t in _ticks(str(tmp_path))
                for k, v in t.items() if k.startswith("Loss/"))
+
+
+def test_fused_cycle_and_device_prefetch_are_taken(tmp_path):
+    """A config with ``train.fused_cycle`` (JAX's, at d_reg_interval 4 and
+    g_reg_interval 2) and ``data.device_prefetch`` (JAX's default) is
+    taken, not ignored: log.txt says that no iteration makes a host round
+    trip, and the run takes the loop's own steps."""
+    exp = micro_exp(total_iters=8, tick_iters=4, d_reg_interval=4,
+                    g_reg_interval=2, fused_cycle=True)
+    assert exp.data.device_prefetch and not loop.ignored_notes(exp)
+    st = loop.train(exp, str(tmp_path), device="cpu")
+    assert st.step == 64
+    ticks = _ticks(str(tmp_path))
+    assert [t["Progress/kimg"] for t in ticks] == [0.032, 0.064]
+    assert all(math.isfinite(t["Loss/D/r1"]) and math.isfinite(
+        t["Loss/G/pl"]) for t in ticks)
+    log = open(os.path.join(str(tmp_path), "log.txt")).read()
+    assert "fused cycle: 4 iterations make no host round trip" in log
+    assert "device prefetch: each batch is copied from pinned memory" in log
+    assert "is not in the port yet" not in log
