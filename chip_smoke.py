@@ -53,6 +53,22 @@ In order:
 5. compares the card's images (fp32 and bf16 kernels) with the plain path
    on the host CPU (fp32) at batch 2 and noise off: a wrapper never routes
    a CUDA tensor to its plain version, so the host run is the plain path;
+   then the serving precisions (``precision_phase``): the serve weights in
+   the fp32 configuration at buckets 1 and 8 in f32, bf16 and int8w, the
+   launches of each synthesize held to the plan (int8w launches the bf16
+   kernels), the images held to the host's fp32 plain path at psi 0.7 and
+   1.0, noise on (drawn on the CPU, so both sides add the same) and off,
+   at ``precision_tolerance`` with the host's plain path at the same
+   precision as the witness, the JAX package's ``fidelity_report`` fixture
+   gated the same way, each synth program's bytes, peak memory, ms and
+   images/s at bucket 8, a planted int8w scale fault the gate must
+   reject, and the w cache on the card (a repeated seed maps 0 times, a
+   hit-and-miss batch once); then ``cli/serve.py`` in processes
+   of its own on one fresh manifest directory (``serve_cli_phase``):
+   ``--warm-only`` cold (the library builds), then bf16 and int8w warm
+   (it loads), then bf16 cold with ``--no-warm-start``, each
+   first_image_ms and restore_ms printed, each JSON line and grid
+   checked;
 6. training (the ffhq256-duplex preset itself: full width and depth,
    attention on, batch 8, bf16, random init from seed 0, noise on, style
    mixing 0.9, procedural reals).  For every backward launch of one
@@ -84,7 +100,8 @@ In order:
    then the preset with ``d_attention`` (one d_step + one g_step): its
    counters against its plan, finite losses and gradients, and any
    attention launch shape the preset's run did not hold against its
-   plain version; then R1: one ``d_step_r1`` of the preset and one with
+   plain version; the same with ``attn_fused_kv`` too (ROADMAP C.18: k
+   and v are views of one projection's output in G and D); then R1: one ``d_step_r1`` of the preset and one with
    ``d_attention`` (batch 8, bf16; R1 on the whole batch at the preset's
    ``r1_batch_shrink``), each with its counters (kernel launches, lse,
    routes and the second-order passes: kernel 2 as the adjoint's
@@ -1625,6 +1642,324 @@ def model_compare(cfg, bundle):
         if not math.isfinite(out[name][0]) or out[name][0] > tol:
             fail(f"generator {name}: max|err| {out[name][0]:.3e} > {tol:.3e}")
     return out
+
+
+# --------------------------------------------------------------------------
+# Serving precisions, the w cache and the serve CLI
+# --------------------------------------------------------------------------
+
+PRECISION_BUCKETS = (1, 8)
+PRECISION_SEEDS = tuple(range(300, 308))
+# The psi of the JAX package's fidelity fixture (``fidelity_report``) and
+# of the serve CLI's default.
+PRECISION_PSI = 0.7
+# The inputs each precision is held on: (bucket, psi, noise_mode).  The
+# noise is drawn on the CPU (``noise_device``), so the card and the host
+# add the same noise to the same layers.
+PRECISION_CASES = ((8, 0.7, "random"), (8, 1.0, "random"),
+                   (8, 0.7, "none"), (8, 1.0, "none"), (1, 0.7, "random"))
+PRECISION_NOISE_SEED = 7
+# How far the card's error may exceed the host plain path's own error at
+# the same precision on the same inputs, where that error is above the
+# declared tolerance: the excess over the declared figure is then the
+# precision's rounding at this depth, not the kernels'.
+WITNESS_RATIO = 1.5
+# The serve CLI's runs: (title, arguments, (loaded, compiled)); each a
+# process of its own on one manifest directory, cold first; the last
+# builds into a temporary directory of its own, so its first image is a
+# cold one.
+SERVE_CLI_PRESET = "ffhq256-duplex"
+SERVE_CLI_RUNS = (
+    ("--warm-only (cold)", ["--warm-only"], (0, 1)),
+    ("bf16 (warm)", ["--images", "16", "--serve-precision", "bf16"], (1, 0)),
+    ("int8w (warm)", ["--images", "16", "--serve-precision", "int8w"],
+     (1, 0)),
+    ("bf16 --no-warm-start (cold)", ["--images", "16", "--serve-precision",
+                                     "bf16", "--no-warm-start"], (0, 1)),
+)
+
+
+def precision_tolerance(precision: str, witness: float = None) -> float:
+    """A serving precision's images against the host's fp32 plain path on
+    the same weights, ws, psi and noise (max |err| / max |host|).  f32
+    runs the fp32 kernels, whose difference from the host is summation
+    order: ``MODEL_TOL["float32"]`` (the declared 0 of
+    ``FIDELITY_TOLERANCES`` holds the f32 program against itself on one
+    device).  bf16 and int8w: the declared ``FIDELITY_TOLERANCES``, or,
+    where the host's plain path at the same precision on the same inputs
+    already errs by ``witness`` > that, ``WITNESS_RATIO * witness``."""
+    from gansformer_tpu_torch.serve import FIDELITY_TOLERANCES
+
+    if precision == "f32":
+        return MODEL_TOL["float32"]
+    declared = FIDELITY_TOLERANCES[precision]
+    return declared if witness is None else max(declared,
+                                                WITNESS_RATIO * witness)
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref| on the host."""
+    return float((got.float().cpu() - ref).abs().max()) / float(
+        ref.abs().max())
+
+
+def plant_scale_fault(synth_module, cfg) -> None:
+    """Double the int8 scales of the full-resolution tRGB layer of an int8w
+    synth program: not demodulated, so its scale reaches the image (a
+    demodulated conv would normalize a uniform scale away)."""
+    getattr(synth_module.synthesis,
+            f"b{cfg.resolution}_trgb").w.scale.mul_(2.0)
+
+
+def fp32_bundle(cfg, bundle, device):
+    """The bundle's weights in the fp32 configuration on ``device``."""
+    from gansformer_tpu_torch.models import Generator
+    from gansformer_tpu_torch.serve.programs import bundle_from_generator
+
+    g = Generator(dataclasses.replace(cfg, dtype="float32"))
+    g.load_state_dict({k: v.detach().cpu() for k, v in
+                       bundle.generator.state_dict().items()})
+    return bundle_from_generator(g, bundle.w_avg.cpu(), device=device)
+
+
+def precision_case(progs, rows, case):
+    """One synthesize of ``case`` (bucket, psi, noise_mode) on ``rows``,
+    the noise drawn on the CPU; the images on the host."""
+    b, psi, noise = case
+    return progs.synthesize(
+        rows[b].to(progs.device), [psi] * b, seed=PRECISION_NOISE_SEED,
+        tags=PRECISION_SEEDS[:b], noise_mode=noise,
+        noise_device="cpu").float().cpu()
+
+
+def case_name(case) -> str:
+    b, psi, noise = case
+    return f"bucket {b} psi {psi} noise {'on' if noise == 'random' else 'off'}"
+
+
+def precision_gate(prec, what, err, witness) -> None:
+    tol = precision_tolerance(prec, witness)
+    if not math.isfinite(err) or err > tol:
+        fail(f"{prec} {what}: rel_err {err:.4e} against the host's fp32 > "
+             f"{tol:.4e} (the host's plain {prec}: {witness})")
+
+
+def precision_phase(cfg, bundle, card: str) -> dict:
+    """ffhq256-duplex's serve bundle (``serve_run``'s weights, noise
+    strengths and gates 0.1, in the fp32 configuration, so f32 runs the
+    fp32 kernels) in each serving precision on ``PRECISION_CASES``:
+    launches per synthesize at buckets 1 and 8 held to ``main_path_calls``
+    (routes by the compute dtype: int8w launches the bf16 kernels); the
+    images held to the host's fp32 plain path on the same weights, ws,
+    psi and noise at ``precision_tolerance``, with the host's plain path
+    at the same precision as the witness; the same for the JAX package's
+    ``fidelity_report`` fixture (bucket 4, seeds 1-4, psi 0.7, noise on),
+    on the card against the report on the host; the bytes of each synth
+    program, its peak device memory, ms and images/s at bucket 8; a
+    planted fault (int8w with one layer's scales doubled) that the gate
+    must reject; then the w cache on the card."""
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.serve import (SERVE_PRECISIONS, ServePrograms,
+                                            fidelity_report,
+                                            param_tree_bytes)
+
+    card32, host = (fp32_bundle(cfg, bundle, d) for d in ("cuda", "cpu"))
+    mapper = ServePrograms(card32, buckets=PRECISION_BUCKETS)
+    rows = {b: mapper.map_seeds(list(PRECISION_SEEDS[:b]))
+            for b in PRECISION_BUCKETS}
+    t0 = time.perf_counter()
+    hosts = {}
+    for prec in SERVE_PRECISIONS:
+        hp = ServePrograms(host, buckets=PRECISION_BUCKETS,
+                           serve_precision=prec)
+        for case in PRECISION_CASES:
+            hosts[prec, case] = precision_case(hp, rows, case)
+    refs = {case: hosts["f32", case] for case in PRECISION_CASES}
+    witness = {(prec, case): rel_err(hosts[prec, case], refs[case])
+               for prec in SERVE_PRECISIONS if prec != "f32"
+               for case in PRECISION_CASES}
+    print(f"  the host's plain path (fp32 reference, bf16 and int8w "
+          f"witnesses) on {len(PRECISION_CASES)} cases: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    seeds8 = list(PRECISION_SEEDS)
+    for prec in SERVE_PRECISIONS:
+        progs = ServePrograms(card32, buckets=PRECISION_BUCKETS,
+                              serve_precision=prec)
+        dtype_name = "float32" if prec == "f32" else "bfloat16"
+        pcfg = dataclasses.replace(cfg, dtype=dtype_name)
+        errs = {}
+        for case in PRECISION_CASES:
+            b = case[0]
+            calls = main_path_calls(pcfg, b)
+            want = {k: sum(c["kernel"] == k for c in calls) for k in REPLACES}
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            img = precision_case(progs, rows, case)
+            got = ops.launch_counts()
+            if got != want:
+                fail(f"{prec} {case_name(case)}: launches {got} != the "
+                     f"plan's {want}")
+            check_path_counts(ops.path_launch_counts(), calls, dtype_name,
+                              f"{prec} {case_name(case)}")
+            errs[case] = rel_err(img, refs[case])
+            wit = witness.get((prec, case))
+            print(f"  {prec} {case_name(case)}: rel_err vs the host's fp32 "
+                  f"{errs[case]:.4e}"
+                  + ("" if wit is None else
+                     f", the host's plain {prec} {wit:.4e}; gate "
+                     f"{precision_tolerance(prec, wit):.4e}"), flush=True)
+            precision_gate(prec, case_name(case), errs[case], wit)
+        psi8 = [PRECISION_PSI] * 8
+        progs.synthesize(rows[8], psi8, seed=7, tags=seeds8)
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            progs.synthesize(rows[8], psi8, seed=7, tags=seeds8)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        progs.synthesize(rows[8], psi8, seed=7, tags=seeds8)
+        torch.cuda.synchronize()
+        peak = torch.cuda.memory_stats()["allocated_bytes.all.peak"] - base
+        tree = param_tree_bytes(progs.synth_module)
+        out[prec] = dict(rel_err=errs, tree_bytes=tree, peak_bytes=peak,
+                         ms=ms)
+        print(f"  {prec}: launches a synthesize = the plan ({dtype_name} "
+              f"routes) on every case; synth program {tree} bytes "
+              f"({tree / 2**20:.2f} MiB); peak device memory of one "
+              f"synthesize at bucket 8 {peak / 2**20:.1f} MiB above its "
+              f"inputs; {ms:.2f} ms a synthesize at bucket 8, "
+              f"{8e3 / ms:.2f} images/s (host clock, mean of {reps}) "
+              f"({card})", flush=True)
+        if prec == "int8w":
+            case = PRECISION_CASES[0]
+            plant_scale_fault(progs.synth_module, cfg)
+            bad = rel_err(precision_case(progs, rows, case), refs[case])
+            tol = precision_tolerance(prec, witness[prec, case])
+            print(f"  int8w with the b{cfg.resolution}_trgb scales doubled, "
+                  f"{case_name(case)}: rel_err {bad:.4e} (must exceed "
+                  f"{tol:.4e})", flush=True)
+            if not bad > tol:
+                fail(f"the planted scale fault passed the gate: {bad:.4e}")
+        del progs
+        torch.cuda.empty_cache()
+    ratio = out["f32"]["tree_bytes"] / out["int8w"]["tree_bytes"]
+    print(f"  synth program bytes f32 / int8w: {ratio:.3f}", flush=True)
+    if not ratio >= 3.0:
+        fail(f"int8w holds {ratio:.3f}x fewer bytes than f32, not >= 3")
+    for prec in ("bf16", "int8w"):
+        rep = fidelity_report(card32, prec)
+        wit = fidelity_report(host, prec)["rel_err"]
+        print(f"  fidelity_report({prec}) on the card (bucket "
+              f"{rep['bucket']}, psi {rep['psi']}, noise on, against the "
+              f"card's f32): rel_err {rep['rel_err']:.4e} (declared "
+              f"{rep['tolerance']}; on the host {wit:.4e}; gate "
+              f"{precision_tolerance(prec, wit):.4e})", flush=True)
+        precision_gate(prec, "fidelity_report", rep["rel_err"], wit)
+    wcache_check(mapper)
+    return out
+
+
+def wcache_check(progs) -> None:
+    """On the card: a repeated seed maps 0 times, at another psi too; a
+    batch of a hit and a miss maps once."""
+    import torch
+
+    from gansformer_tpu_torch.obs import registry as telemetry
+    from gansformer_tpu_torch.serve import WCache, map_rows
+
+    def maps():
+        return telemetry.counter("serve/map_dispatch_total").value
+
+    cache = WCache()
+    first = map_rows(progs, cache, [991])
+    m0 = maps()
+    again = map_rows(progs, cache, [991])
+    a = progs.synthesize(again, [0.7], seed=1, tags=[991])
+    b = progs.synthesize(map_rows(progs, cache, [991]), [0.4], seed=1,
+                         tags=[991])
+    if maps() != m0 or not torch.equal(first, again):
+        fail(f"w cache: a repeated seed mapped {maps() - m0} times")
+    if torch.equal(a, b):
+        fail("w cache: psi 0.4 and 0.7 gave the same image")
+    m0 = maps()
+    rows = map_rows(progs, cache, [991, 992])
+    if maps() != m0 + 1 or tuple(rows.shape[:1]) != (2,):
+        fail(f"w cache: a hit and a miss mapped {maps() - m0} times")
+    print("  w cache on the card: a repeated seed mapped 0 times (psi 0.7 "
+          "and 0.4), a batch of a hit and a miss mapped once", flush=True)
+
+
+def serve_cli_phase(card: str) -> None:
+    """``cli/serve.py`` in processes of its own on one fresh manifest
+    directory (``SERVE_CLI_RUNS``): ``--warm-only`` cold (it builds the
+    kernel library: compiled 1), then the default mode in bf16 and in
+    int8w (warm: loaded 1, compiled 0), then bf16 with
+    ``--no-warm-start`` (a cold first image), each with ``--init random
+    --preset ffhq256-duplex``; every JSON line parsed, the grids decoded
+    (zlib) to 16 images, not constant."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from gansformer_tpu_torch.utils.image import decode_png
+
+    root = tempfile.mkdtemp(prefix="gansformer_smoke_serve_")
+    manifest = os.path.join(root, "manifest")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        for i, (title, extra, (loaded, compiled)) in enumerate(
+                SERVE_CLI_RUNS):
+            out_dir = os.path.join(root, f"out{i}")
+            cmd = [sys.executable, "-m", "gansformer_tpu_torch.cli.serve",
+                   "--init", "random", "--preset", SERVE_CLI_PRESET,
+                   "--manifest-dir", manifest, "--out", out_dir] + extra
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=here, capture_output=True,
+                                 text=True, timeout=600)
+            took = time.perf_counter() - t0
+            if run.returncode != 0:
+                fail(f"serve {title} exited {run.returncode}: "
+                     f"{run.stderr.strip()[-2000:]}")
+            try:
+                summary = json.loads(run.stdout.strip().splitlines()[-1])
+            except (ValueError, IndexError):
+                fail(f"serve {title} printed no JSON line: "
+                     f"{run.stdout[-500:]}")
+            warm = summary["warm_start"]
+            if (warm["loaded"], warm["compiled"]) != (loaded, compiled):
+                fail(f"serve {title}: warm start {warm}, expected loaded "
+                     f"{loaded}, compiled {compiled}")
+            if summary["device"]["platform"] != "gpu":
+                fail(f"serve {title}: device {summary['device']}")
+            line = (f"  serve {title}: {took:.1f} s in all; restore_ms "
+                    f"{summary['restore_ms']}; warm start {warm}")
+            if "--warm-only" in extra:
+                if os.path.exists(out_dir):
+                    fail(f"serve {title} wrote {out_dir}")
+                print(f"{line}: the library built in {warm['seconds']} s "
+                      f"({card})", flush=True)
+                continue
+            with open(os.path.join(out_dir, "served_grid.png"), "rb") as f:
+                grid = decode_png(f.read())
+            r = 256
+            if grid.shape != (4 * r, 4 * r, 3) or not float(
+                    np.asarray(grid, np.float64).std()) > 0:
+                fail(f"serve {title}: served_grid.png {grid.shape}")
+            if not os.path.exists(os.path.join(out_dir, "telemetry.prom")):
+                fail(f"serve {title}: no telemetry.prom")
+            print(f"{line}; first_image_ms {summary['first_image_ms']}; "
+                  f"e2e_ms {summary['e2e_ms']}; counters "
+                  f"{summary['counters']}; served_grid.png decodes to 16 "
+                  f"images ({card})", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -3510,7 +3845,19 @@ def main() -> int:
           f"{8 / synth_s:.2f} images/s on {card}", flush=True)
     print("generator vs plain path, batch 2, noise off:", flush=True)
     model_compare(cfg, bundle)
+    print(f"serving precisions of ffhq256-duplex (its serve weights, fp32 "
+          f"configuration; buckets {'/'.join(map(str, PRECISION_BUCKETS))}, "
+          f"psi 0.7 and 1.0, noise on and off):", flush=True)
+    t0 = time.perf_counter()
+    precision_phase(cfg, bundle, card)
+    print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
     del bundle
+    torch.cuda.empty_cache()
+    print(f"the serve CLI ({SERVE_CLI_PRESET}, random init), a process per "
+          f"run on one fresh manifest directory:", flush=True)
+    t0 = time.perf_counter()
+    serve_cli_phase(card)
+    print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     print(f"serve phases took {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -3601,6 +3948,13 @@ def main() -> int:
         print("  every attention launch shape of its d_step + g_step is "
               "one the preset's run already held", flush=True)
     d_attention_run(dmodel, tcfg, dcalls)
+    torch.cuda.empty_cache()
+    fmodel = dataclasses.replace(dmodel, attn_fused_kv=True)
+    print(f"ffhq256-duplex with d_attention and attn_fused_kv (one K/V "
+          f"projection per attention direction in G and D; ROADMAP C.18), "
+          f"batch {TRAIN_BATCH}, bf16; the launch plan is d_attention's",
+          flush=True)
+    d_attention_run(fmodel, tcfg, dcalls)
     torch.cuda.empty_cache()
 
     # ---- R1: d_step_r1, with and without d_attention ----------------------

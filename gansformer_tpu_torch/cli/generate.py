@@ -10,7 +10,8 @@ generate.py``)::
 
 ``--run-dir`` is a run dir (its ``config.json`` and newest checkpoint, a
 port run's or a JAX run's: the format is shared) or a ``pack_run``
-archive.  Only the EMA generator and ``w_avg`` are read.  It writes
+archive.  Only the EMA generator and ``w_avg`` are read
+(``serve.load_generator``).  It writes
 ``img<i>.png`` singles or ``grid.png`` (``--grid``), and optionally
 ``interp.png`` (z-lerp strips, frames sharing their noise), ``mix.png``
 (row sources keep the leading latent components, column sources give
@@ -51,6 +52,7 @@ from gansformer_tpu_torch.models.generator import (Generator,
 from gansformer_tpu_torch.serve.programs import (ServePrograms, bucket_for,
                                                  bundle_from_generator,
                                                  init_generator,
+                                                 load_generator,
                                                  noise_generators)
 from gansformer_tpu_torch.train.state import derive_seed
 from gansformer_tpu_torch.utils.image import (encode_png, make_grid,
@@ -61,7 +63,8 @@ from gansformer_tpu_torch.utils.image import (encode_png, make_grid,
 LATER_FLAGS = {
     "--attention-backend": "has no counterpart: the device picks the path",
     "--conv-backend": "has no counterpart: the device picks the path",
-    "--no-warm-start": "comes with the serving slice's warm start (A.4)",
+    "--no-warm-start": "has no counterpart: generate builds the kernel "
+                       "library at first use (cli/serve.py warm-starts it)",
 }
 
 
@@ -107,27 +110,6 @@ def _pad_rows(a: np.ndarray, bucket: int) -> np.ndarray:
         return a
     pad = np.broadcast_to(a[-1:], (bucket - a.shape[0],) + a.shape[1:])
     return np.concatenate([a, pad])
-
-
-def load_run(run_dir: str, device=None):
-    """(ExperimentConfig, GeneratorBundle) of a run dir's newest
-    checkpoint: the EMA generator and ``w_avg`` only (checked against a
-    template state on the host, whose other leaves are never read)."""
-    from gansformer_tpu_torch.train import checkpoint as ckpt
-    from gansformer_tpu_torch.train.state import create_train_state
-
-    with open(os.path.join(run_dir, "config.json")) as f:
-        cfg = ExperimentConfig.from_json(f.read())
-    template = create_train_state(cfg.model, cfg.train, 0, "cpu")
-    got = ckpt.restore_selected(
-        os.path.join(run_dir, "checkpoints"), template,
-        lambda k: k.startswith("ema_params/") or k == "w_avg")
-    del template
-    params = {k[len("ema_params/"):]: v for k, v in got.items()
-              if k.startswith("ema_params/")}
-    g = load_flax_params(Generator(cfg.model), params)
-    return cfg, bundle_from_generator(g, torch.from_numpy(got["w_avg"]),
-                                      device=device)
 
 
 def _seeds_main(args) -> int:
@@ -202,7 +184,9 @@ def _run_main(args) -> int:
             "plain path on the host (the kernels never write the attention "
             "probabilities), so the whole run is the host's")
     run_dir = resolve_run_dir(args.run_dir)
-    cfg, bundle = load_run(run_dir, args.device)
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    bundle = load_generator(run_dir, cfg, device=args.device)
     m = cfg.model
     bs = args.batch_size
     progs = ServePrograms(bundle, buckets=(bs,))

@@ -40,8 +40,6 @@ _A7 = "comes with data parallelism over several cards (A.7)"
 _DEVICE = "has no counterpart: the device picks the path"
 LATER_FLAGS = {
     "--attention-backend": _DEVICE, "--conv-backend": _DEVICE,
-    "--attn-fused-kv": "comes with the fused K/V projection",
-    "--no-attn-fused-kv": "comes with the fused K/V projection",
     "--selfcheck": "has no counterpart: graftlint reads jaxprs",
     "--profile-dir": "comes with the device-time sampler (A.6)",
     "--device-time-ticks": "comes with the device-time sampler (A.6)",
@@ -85,6 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="path-length probe batch divisor")
     p.add_argument("--r1-batch-shrink", type=int, default=None,
                    help="compute R1 on the first batch/N reals")
+    p.add_argument("--attn-fused-kv", action="store_const", const=True,
+                   dest="attn_fused_kv", default=None,
+                   help="fuse each attention direction's K/V projections "
+                        "into one matmul (exact math, different param "
+                        "tree; default off)")
+    p.add_argument("--no-attn-fused-kv", action="store_const", const=False,
+                   dest="attn_fused_kv",
+                   help="clear model.attn_fused_kv of a loaded config")
     p.add_argument("--async-checkpoint", action="store_const", const=True,
                    dest="async_checkpoint", default=None,
                    help="checkpoint and snapshot writes on a writer thread "
@@ -153,7 +159,7 @@ def config_from_args(args) -> ExperimentConfig:
 
     model = override(cfg.model, attention=args.attention,
                      components=args.components, resolution=args.resolution,
-                     dtype=args.dtype)
+                     dtype=args.dtype, attn_fused_kv=args.attn_fused_kv)
     train = override(cfg.train, batch_size=args.batch_size,
                      total_kimg=args.total_kimg, g_lr=args.g_lr,
                      d_lr=args.d_lr, r1_gamma=args.r1_gamma, seed=args.seed,

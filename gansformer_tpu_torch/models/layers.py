@@ -4,7 +4,9 @@ The counterparts of ``EqualDense``, ``EqualConv``, ``ModulatedConv`` and
 ``minibatch_stddev`` in ``gansformer_tpu/models/layers.py``.  Parameters
 are stored at unit scale in fp32 under the flax names (``w``, ``b``,
 ``noise_strength``, ``affine``) and scaled by ``gain / sqrt(fan_in) *
-lrmul`` at use, so bridging JAX weights is a pure copy.  Compute may run
+lrmul`` at use, so bridging JAX weights is a pure copy.  Every kernel
+``w`` is fetched through ``ops.resolve_weight``, where an int8w serving
+copy's ``QuantizedWeight`` dequantizes.  Compute may run
 in bf16 (``dtype``).  A ``ModulatedConv``'s noise is drawn by the caller
 from explicit ``torch.Generator``s (``synthesis.draw_noise``), in serving
 and in training alike.
@@ -20,7 +22,8 @@ from torch import nn
 
 from gansformer_tpu_torch.core.precision import island_dtype, widen
 from gansformer_tpu_torch.ops.fused_bias_act import fused_bias_act
-from gansformer_tpu_torch.ops.modulated_conv import conv2d, modulated_conv2d
+from gansformer_tpu_torch.ops.modulated_conv import (conv2d, modulated_conv2d,
+                                                     resolve_weight)
 
 
 class EqualDense(nn.Module):
@@ -42,9 +45,10 @@ class EqualDense(nn.Module):
             self.b.fill_(self.bias_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        coef = self.gain / math.sqrt(self.w.shape[0]) * self.lrmul
+        w = resolve_weight(self.w)
+        coef = self.gain / math.sqrt(w.shape[0]) * self.lrmul
         dt = island_dtype(x, self.dtype)
-        y = x.to(dt) @ (self.w * coef).to(dt)
+        y = x.to(dt) @ (w * coef).to(dt)
         return fused_bias_act(y, self.b * self.lrmul, act=self.act)
 
 
@@ -74,9 +78,10 @@ class EqualConv(nn.Module):
                 self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        coef = self.gain / math.sqrt(self.w.shape[2] * self.kernel**2) \
+        w = resolve_weight(self.w)
+        coef = self.gain / math.sqrt(w.shape[2] * self.kernel**2) \
             * self.lrmul
-        y = conv2d(x.to(self.dtype), (self.w * coef).to(self.dtype),
+        y = conv2d(x.to(self.dtype), (w * coef).to(self.dtype),
                    up=self.up, down=self.down,
                    resample_filter=self.resample_filter)
         b = None if self.b is None else self.b * self.lrmul
@@ -138,8 +143,9 @@ class ModulatedConv(nn.Module):
         """x [N,H,W,Cin], w_style [N,w_dim]; ``noise`` [N,H',W',1] at the
         output resolution, or None for no noise."""
         styles = self.affine(w_style)
-        coef = 1.0 / math.sqrt(self.w.shape[2] * self.kernel**2)
-        weight = (self.w * coef).to(self.dtype)
+        w = resolve_weight(self.w)
+        coef = 1.0 / math.sqrt(w.shape[2] * self.kernel**2)
+        weight = (w * coef).to(self.dtype)
         x = x.to(self.dtype)
         if noise is None:
             return modulated_conv2d(

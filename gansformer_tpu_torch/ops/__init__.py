@@ -13,9 +13,11 @@ from gansformer_tpu_torch.ops.attention import (attention_plain,
 from gansformer_tpu_torch.ops.cuda_attention import fused_multihead_attention
 from gansformer_tpu_torch.ops.fused_bias_act import (ACTIVATIONS,
                                                      fused_bias_act)
-from gansformer_tpu_torch.ops.modulated_conv import (conv2d, modconv_plain,
+from gansformer_tpu_torch.ops.modulated_conv import (QuantizedWeight, conv2d,
+                                                     modconv_plain,
                                                      modulated_conv2d,
-                                                     poly_w4)
+                                                     poly_w4,
+                                                     resolve_weight)
 from gansformer_tpu_torch.ops.upfirdn2d import (downsample_2d, filter_2d,
                                                 setup_filter, upfirdn2d,
                                                 upfirdn2d_plain, upsample_2d)
@@ -96,10 +98,11 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
-__all__ = ["ACTIVATIONS", "attention_plain", "conv2d", "downsample_2d",
+__all__ = ["ACTIVATIONS", "QuantizedWeight", "attention_plain", "conv2d", "downsample_2d",
            "filter_2d", "fused_bias_act", "fused_multihead_attention",
            "launch_counts", "lse_launch_counts", "modconv_plain",
            "modulated_conv2d", "multihead_attention", "path_launch_counts",
-           "poly_w4", "reset_launch_counts", "second_order_counts",
+           "poly_w4", "reset_launch_counts", "resolve_weight",
+           "second_order_counts",
            "setup_filter", "sinusoidal_grid_encoding", "upfirdn2d",
            "upfirdn2d_plain", "upsample_2d"]

@@ -4,10 +4,13 @@ Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` (one ``nvcc``
 per source, all started together) and the objects link into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs
 at first use, from the package's own sources only, into
-``gansformer_tpu_torch/_build/<hash>/`` where the hash covers the sources
-and the flags, so an edited source rebuilds and an unchanged one loads
-in milliseconds.  Nothing here runs at import time: the CPU tests import
-every module on a machine with no ``nvcc``.
+``<build root>/<hash>/`` (the root is ``gansformer_tpu_torch/_build/``
+unless a caller names another) where the hash covers the sources, the
+flags and ``nvcc --version``, so an edited source or a new toolkit
+rebuilds and an unchanged one loads in milliseconds.  ``signature()`` is
+what a built library is valid for, which the serving warm start records
+beside it (``serve/warmstart.py``).  Nothing here runs at import time:
+the CPU tests import every module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _lib: Optional[ctypes.CDLL] = None
 # What the last build did, for the smoke script's report.
 build_info: dict = {}
@@ -95,6 +98,19 @@ def nvcc_path() -> str:
     return found
 
 
+_nvcc_version: Optional[str] = None
+
+
+def nvcc_version() -> str:
+    """``nvcc --version`` as it prints it (read once a process)."""
+    global _nvcc_version
+    if _nvcc_version is None:
+        _nvcc_version = subprocess.run(
+            [nvcc_path(), "--version"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip()
+    return _nvcc_version
+
+
 def _digest() -> str:
     h = hashlib.sha256()
     for path in sources() + _headers():
@@ -102,13 +118,33 @@ def _digest() -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile (if needed) and return the path of the shared library."""
-    out_dir = os.path.join(BUILD_ROOT, _digest())
-    lib_path = os.path.join(out_dir, LIB_NAME)
+def library_path(build_root: Optional[str] = None) -> str:
+    """Where ``build(build_root)`` puts the library of these sources."""
+    return os.path.join(build_root or BUILD_ROOT, _digest(), LIB_NAME)
+
+
+def signature() -> dict:
+    """What a built library is valid for: the sources' digest (flags and
+    toolkit included), the toolkit, the flags, torch, and the card."""
+    import torch
+
+    return {"sources": _digest(), "nvcc": nvcc_version(),
+            "arch_flags": list(ARCH_FLAGS), "nvcc_flags": list(NVCC_FLAGS),
+            "torch": torch.__version__,
+            "device": torch.cuda.get_device_name(0),
+            "capability": list(torch.cuda.get_device_capability(0))}
+
+
+def build(build_root: Optional[str] = None) -> str:
+    """Compile (if needed) into ``build_root`` and return the path of the
+    shared library."""
+    build_root = build_root or BUILD_ROOT
+    lib_path = library_path(build_root)
+    out_dir = os.path.dirname(lib_path)
     log_path = os.path.join(out_dir, LOG_NAME)
     if os.path.exists(lib_path):
         build_info.update(path=lib_path, built=False, seconds=0.0)
@@ -116,10 +152,10 @@ def build() -> str:
             with open(log_path) as f:
                 build_info["log"] = f.read()
         return lib_path
-    os.makedirs(BUILD_ROOT, exist_ok=True)
+    os.makedirs(build_root, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-")
+    tmp = tempfile.mkdtemp(dir=build_root, prefix="tmp-")
     try:
         procs = []
         for src in sources():
@@ -158,18 +194,31 @@ def build() -> str:
     return lib_path
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+def loaded() -> bool:
+    """Whether this process has loaded the library."""
+    return _lib is not None
+
+
+def load_path(path: str) -> ctypes.CDLL:
+    """Load the library at ``path`` and bind its functions, unless this
+    process has loaded it already (then that one is returned)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(path)
             for name, (res, args) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.restype = res
                 fn.argtypes = args
             _lib = lib
         return _lib
+
+
+def load_library(build_root: Optional[str] = None) -> ctypes.CDLL:
+    """The kernels' shared library, built on first use into
+    ``build_root`` (default ``gansformer_tpu_torch/_build/``)."""
+    with _lock:
+        return _lib if _lib is not None else load_path(build(build_root))
 
 
 def check(rc: int, what: str) -> None:

@@ -78,6 +78,55 @@ from gansformer_tpu_torch.ops.upfirdn2d import (FUSED_ACTS, act_grad,
                                                 upfirdn2d)
 
 
+class QuantizedWeight(torch.nn.Module):
+    """An int8 weight-only kernel (``serve_precision='int8w'``), the
+    counterpart of ``QuantizedWeight`` in
+    ``gansformer_tpu/ops/modulated_conv.py``.
+
+    ``q`` keeps the kernel's shape in int8; ``scale`` is the fp32 scale of
+    each output channel over the last axis (keepdims, so it broadcasts
+    over the dense [fan_in, Cout] and the conv [kh, kw, Cin, Cout]
+    layouts).  Both are buffers, so the module moves with ``.to()`` and
+    its ``state_dict`` holds the codes and the scales.  It takes the place
+    of a layer's ``w`` parameter; the layers fetch every kernel through
+    ``resolve_weight``."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        if q.dtype != torch.int8 or scale.dtype != torch.float32:
+            raise TypeError(f"QuantizedWeight takes int8 codes and fp32 "
+                            f"scales, got {q.dtype} and {scale.dtype}")
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.q.ndim
+
+    def extra_repr(self) -> str:
+        return f"q={tuple(self.q.shape)}:int8, scale={tuple(self.scale.shape)}"
+
+
+def _dequant_int8w(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8w dequantization, an fp32 island: the codes span +-127, so a
+    bf16 product would round the mantissa a second time."""
+    return q.float() * scale.float()
+
+
+def resolve_weight(w):
+    """The kernel fetch of every equalized-LR layer: an fp32 kernel passes
+    through; a ``QuantizedWeight`` dequantizes here, ahead of the
+    equalized-LR coefficient and the dtype cast, so the plain versions and
+    the kernels take the same dequantized weights."""
+    if isinstance(w, QuantizedWeight):
+        return _dequant_int8w(w.q, w.scale)
+    return w
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 

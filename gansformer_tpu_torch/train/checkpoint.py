@@ -272,9 +272,9 @@ def _decode_leaf(arr: np.ndarray, want: tuple, path: str, k: str,
     return arr
 
 
-def _read_leaves(path: str, state, select=None) -> Dict[str, np.ndarray]:
-    """{flat key: array} of the npz at ``path`` checked against ``state``
-    (every leaf, or those whose key ``select`` accepts)."""
+def _read_leaves(path: str, state) -> Dict[str, np.ndarray]:
+    """{flat key: array} of every leaf of the npz at ``path``, checked
+    against ``state``."""
     keys = bridge.jax_leaf_keys(state)
     want = _expected(state)
     with np.load(path, allow_pickle=False) as z:
@@ -284,21 +284,43 @@ def _read_leaves(path: str, state, select=None) -> Dict[str, np.ndarray]:
                 f"checkpoint {path} has {len(names)} leaves, the state has "
                 f"{len(keys)} — config/model mismatch?")
         return {k: _decode_leaf(z[n], want[k], path, n, k)
-                for n, k in zip(names, keys) if select is None or select(k)}
+                for n, k in zip(names, keys)}
 
 
-def restore_selected(ckpt_dir: str, state, select,
-                     step: Optional[int] = None) -> Dict[str, np.ndarray]:
-    """Only the leaves whose flat key ``select(key)`` accepts (e.g. the
-    EMA parameters and ``w_avg`` for serving), as {key: array}, checked
-    against ``state``'s shapes; nothing is copied into ``state``."""
+def restore_generator(ckpt_dir: str, generator, step: Optional[int] = None
+                      ) -> Dict[str, np.ndarray]:
+    """The EMA generator's leaves (``ema_params/...``) and ``w_avg`` of a
+    checkpoint (the latest unless ``step``), checked against
+    ``generator``'s shapes, with no discriminator or optimizer built: the
+    JAX ``TrainState``'s leaves end with ``ema_params`` in tree order,
+    ``w_avg``, ``pl_mean``, so they are read by position from the end.
+    The count of the rest must fit G's leaves (step, G, D, both Adam
+    states: 5 + 4 nG + 3 nD in all) or it raises."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    with span("ckpt/restore_selected") as sp:
-        out = _read_leaves(os.path.join(ckpt_dir, str(step), STATE_FILE),
-                           state, select)
-    telemetry.gauge("ckpt/restore_selected_ms").set(sp.duration_s * 1000.0)
+    shapes = bridge.param_shapes(generator)
+    names = bridge._tree_order(shapes)
+    n_g = len(names)
+    path = os.path.join(ckpt_dir, str(step), STATE_FILE)
+    f32 = np.dtype(np.float32)
+    with span("ckpt/restore_generator"), np.load(
+            path, allow_pickle=False) as z:
+        leaves = sorted(k for k in z.files if k.startswith("leaf_"))
+        n_d, rest = divmod(len(leaves) - 5 - 4 * n_g, 3)
+        if n_d < 0 or rest:
+            raise ValueError(
+                f"checkpoint {path} has {len(leaves)} leaves: not a state "
+                f"of a generator with {n_g} leaves — config/model mismatch?")
+        tail = leaves[-(n_g + 2):]
+        out = {f"ema_params/{k}": _decode_leaf(
+            z[lf], (shapes[k], f32), path, lf, f"ema_params/{k}")
+            for k, lf in zip(names, tail)}
+        w_dim = generator.cfg.w_dim
+        out["w_avg"] = _decode_leaf(z[tail[n_g]], ((w_dim,), f32), path,
+                                    tail[n_g], "w_avg")
+        _decode_leaf(z[tail[n_g + 1]], ((), f32), path, tail[n_g + 1],
+                     "pl_mean")
     return out
 
 

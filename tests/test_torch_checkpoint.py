@@ -200,13 +200,16 @@ def test_unequal_adam_steps_raise():
         ckpt.save("/nonexistent-never-written", st)
 
 
-def test_restore_selected_reads_only_selected(tmp_path):
+def test_restore_generator_reads_only_the_generator(tmp_path):
+    """The G-only restore: the EMA generator's leaves and ``w_avg`` of a
+    saved state, bit for bit, read against a bare generator."""
+    from gansformer_tpu_torch.models import Generator
+
     exp = _jax_exp()
     st = _trained_port_state(exp)
     ckpt.save(str(tmp_path), st, block=True)
-    got = ckpt.restore_selected(
-        str(tmp_path), _port_state(exp),
-        lambda k: k.startswith("ema_params/") or k == "w_avg")
+    pc = port_config.ExperimentConfig.from_json(exp.to_json())
+    got = ckpt.restore_generator(str(tmp_path), Generator(pc.model))
     flat = _port_flat(st)
     assert sorted(got) == sorted(k for k in flat
                                  if k.startswith("ema_params/")

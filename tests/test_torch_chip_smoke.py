@@ -810,3 +810,121 @@ def test_generate_modes_plan_their_synthesize_calls(tmp_path, monkeypatch):
         for name, (rows, cols) in pngs.items():
             with open(os.path.join(out, name), "rb") as f:
                 assert decode_png(f.read()).shape == (rows * r, cols * r, 3)
+
+
+# --------------------------------------------------------------------------
+# The precision and serve-CLI phases
+# --------------------------------------------------------------------------
+
+PRECISION_MODEL = dict(resolution=16, components=3, latent_dim=16, w_dim=16,
+                       mapping_dim=16, mapping_layers=2, fmap_base=256,
+                       fmap_max=32, attention="duplex", attn_start_res=4,
+                       attn_max_res=8, style_mode="attention",
+                       dtype="bfloat16")
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8w"])
+def test_precision_plan_matches_the_cards_route(card_route, monkeypatch,
+                                                precision):
+    """Each precision's synthesize on the card's route launches
+    ``main_path_calls``' plan; f32 of the fp32 configuration hands the
+    modconv kernel fp32, bf16 and int8w hand it bf16 (int8w launches the
+    bf16 kernels on dequantized weights)."""
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.ops import cuda_modconv
+    from gansformer_tpu_torch.serve import ServePrograms, init_generator
+
+    cfg = port_config.ModelConfig(**PRECISION_MODEL)
+    b32 = chip_smoke.fp32_bundle(cfg, init_generator(cfg, seed=0,
+                                                     device="cpu"), "cpu")
+    progs = ServePrograms(b32, buckets=chip_smoke.PRECISION_BUCKETS,
+                          serve_precision=precision)
+    seen = set()
+    stub = cuda_modconv.modconv_cuda
+
+    def spy(x, ws, *a, **k):
+        seen.add((x.dtype, ws.dtype))
+        return stub(x, ws, *a, **k)
+
+    monkeypatch.setattr(cuda_modconv, "modconv_cuda", spy)
+    dtype = torch.float32 if precision == "f32" else torch.bfloat16
+    for b in chip_smoke.PRECISION_BUCKETS:
+        ops.reset_launch_counts()
+        ws = progs.map_seeds(list(chip_smoke.PRECISION_SEEDS[:b]))
+        progs.synthesize(ws, [chip_smoke.PRECISION_PSI] * b,
+                         noise_mode="none")
+        calls = chip_smoke.main_path_calls(
+            dataclasses.replace(cfg, dtype=str(dtype)[6:]), b)
+        assert ops.launch_counts() == {
+            k: sum(c["kernel"] == k for c in calls)
+            for k in chip_smoke.REPLACES}
+    assert seen == {(dtype, dtype)}
+
+
+def test_precision_gate_passes_and_rejects_the_planted_scale_fault():
+    """On the host at micro width, on every case of the phase (psi 0.7 and
+    1.0, noise on and off, buckets 8 and 1): every precision within the
+    declared tolerance of the fp32 plain path, with no witness clause; the
+    witness clause only widens the gate to ``WITNESS_RATIO`` times an
+    error above the declared figure; and the int8w program with the
+    full-resolution tRGB scales doubled outside the gate that its clean
+    program's error as the witness gives."""
+    from gansformer_tpu_torch.serve import ServePrograms, init_generator
+
+    cfg = port_config.ModelConfig(**PRECISION_MODEL)
+    bundle = init_generator(cfg, seed=0, device="cpu")
+    chip_smoke.perturb(bundle.generator)
+    b32 = chip_smoke.fp32_bundle(cfg, bundle, "cpu")
+    rows = {b: ServePrograms(b32, buckets=(b,)).map_seeds(
+        list(chip_smoke.PRECISION_SEEDS[:b]))
+        for b in chip_smoke.PRECISION_BUCKETS}
+    progs = {p: ServePrograms(b32, buckets=chip_smoke.PRECISION_BUCKETS,
+                              serve_precision=p)
+             for p in ("f32", "bf16", "int8w")}
+    first = chip_smoke.PRECISION_CASES[0]
+    assert first[2] == "random"
+    for case in chip_smoke.PRECISION_CASES:
+        ref = chip_smoke.precision_case(progs["f32"], rows, case)
+        for prec, p in progs.items():
+            err = chip_smoke.rel_err(
+                chip_smoke.precision_case(p, rows, case), ref)
+            assert err <= chip_smoke.precision_tolerance(prec), (prec, case,
+                                                                 err)
+    assert chip_smoke.precision_tolerance("f32") == \
+        chip_smoke.MODEL_TOL["float32"]
+    assert chip_smoke.precision_tolerance("int8w") == 0.20
+    assert chip_smoke.precision_tolerance("bf16", 0.01) == 0.05
+    assert chip_smoke.precision_tolerance("bf16", 0.06) == pytest.approx(
+        chip_smoke.WITNESS_RATIO * 0.06)
+    ref = chip_smoke.precision_case(progs["f32"], rows, first)
+    witness = chip_smoke.rel_err(
+        chip_smoke.precision_case(progs["int8w"], rows, first), ref)
+    chip_smoke.plant_scale_fault(progs["int8w"].synth_module, cfg)
+    bad = chip_smoke.rel_err(
+        chip_smoke.precision_case(progs["int8w"], rows, first), ref)
+    assert bad > chip_smoke.precision_tolerance("int8w", witness)
+
+
+def test_serve_cli_runs_parse_and_expect_a_cold_then_warm_manifest(
+        tmp_path):
+    """Each run's arguments parse with the serve CLI's parser, and
+    processes on one fresh manifest directory see what the runs expect:
+    the first builds, the others load, and one with ``--no-warm-start``
+    builds in a directory of its own (the g++ stand-in library of
+    ``tests/test_torch_serve_warmstart``)."""
+    if shutil.which("g++") is None:
+        pytest.skip("the stand-in library is built by g++")
+    from gansformer_tpu_torch.cli import serve as serve_cli
+    from gansformer_tpu_torch.serve import warmstart
+    from tests.test_torch_serve_warmstart import GppLibrary
+
+    d = str(tmp_path / "manifest")
+    for title, extra, want in chip_smoke.SERVE_CLI_RUNS:
+        args = serve_cli.build_parser().parse_args(
+            ["--init", "random", "--preset", chip_smoke.SERVE_CLI_PRESET,
+             "--manifest-dir", d] + extra)
+        assert args.warm_only == ("--warm-only" in extra)
+        lib = GppLibrary(str(tmp_path))
+        got = (warmstart.cold_start(str(tmp_path / title), lib)
+               if args.no_warm_start else warmstart.warm_start(d, lib))
+        assert (got["loaded"], got["compiled"]) == want, title

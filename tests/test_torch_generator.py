@@ -31,6 +31,7 @@ VARIANTS = {
     "simplex_add_learned_fusedkv": dict(
         attention="simplex", integration="add", pos_encoding="learned",
         attn_fused_kv=True, style_mode="attention"),
+    "duplex_fusedkv": dict(attn_fused_kv=True, style_mode="attention"),
     "duplex_mul_nopos_2heads_2iters": dict(
         integration="mul", pos_encoding="none", num_heads=2, kmeans_iters=2,
         use_global=False),
@@ -67,6 +68,10 @@ def test_generator_matches_jax(rng, variant):
     jparams = traverse_util.unflatten_dict(
         {k: jnp.asarray(v) for k, v in flat.items()}, sep="/")
     g = load_flax_params(Generator(pcfg), flat).eval()
+    if jcfg.attn_fused_kv and jcfg.attention == "duplex":
+        # the bridge carries the fused K/V leaves of both directions
+        assert {"synthesis/b8_attn/dup0_kv_x/w",
+                "synthesis/b8_attn/kv_y/w"} <= set(flat)
 
     z = rng.randn(2, jcfg.num_ws, jcfg.latent_dim).astype(np.float32)
     w_avg = (rng.randn(jcfg.w_dim) * 0.5).astype(np.float32)

@@ -319,7 +319,7 @@ def test_cli_maps_typed_exits(tmp_path, monkeypatch, exc, code):
             events.EXIT_DATA_STALLED) == (code, 75, 65, 74)
 
 
-@pytest.mark.parametrize("flag", ["--attn-fused-kv", "--mesh-data=2",
+@pytest.mark.parametrize("flag", ["--device-time-ticks", "--mesh-data=2",
                                   "--profile-dir", "--selfcheck"])
 def test_cli_refuses_later_flags_with_words(flag):
     with pytest.raises(SystemExit, match="not in the PyTorch port yet"):

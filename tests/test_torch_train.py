@@ -200,8 +200,10 @@ def test_lazy_adam_matches_optax(rng):
 @pytest.mark.parametrize("variant", [
     dict(), dict(label_dim=3), dict(resolution=32, mbstd_group_size=3,
                                     mbstd_num_features=2),
-    dict(d_attention=True, d_components=3)],
-    ids=["uncond", "label", "res32-mbstd3x2", "d_attention"])
+    dict(d_attention=True, d_components=3),
+    dict(d_attention=True, d_components=3, attn_fused_kv=True)],
+    ids=["uncond", "label", "res32-mbstd3x2", "d_attention",
+         "d_attention_fusedkv"])
 def test_discriminator_matches_jax(rng, variant):
     """Forward logits and the gradients wrt every parameter and the
     image, with JAX's random parameters carried by the bridge.  With
@@ -239,7 +241,10 @@ def test_discriminator_matches_jax(rng, variant):
     _close(grads[0], gx, "d/dimage")
     flat = _flat(gp)
     assert set(flat) == set(names)
-    if variant.get("d_attention"):
+    if variant.get("attn_fused_kv"):
+        assert {"d_queries", "b16_attn/q_x/w", "b8_attn/dup0_kv_x/w",
+                "b8_attn/kv_y/w"} <= set(names)
+    elif variant.get("d_attention"):
         assert {"d_queries", "b16_attn/q_x/w", "b8_attn/dup0_k_x/w"} \
             <= set(names)
     for name, g in zip(names, grads[1:]):
@@ -262,17 +267,22 @@ class _NoNoiseGenerator(JaxG):
 
 
 # The steps are compared with the generator's attention off and on (the
-# duplex preset's block with attention-routed styles).
+# duplex preset's block with attention-routed styles), and with the fused
+# K/V projections in G and in D's attention (``attn_fused_kv``).
 STEP_MODELS = {"none": MICRO,
                "duplex": dict(MICRO, attention="duplex",
-                              style_mode="attention")}
+                              style_mode="attention"),
+               "duplex_fusedkv": dict(MICRO, attention="duplex",
+                                      style_mode="attention",
+                                      attn_fused_kv=True, d_attention=True)}
 # Parameters after the update are held at 1e-5 of their scale.  A leaf
 # that was zero before the update (a bias at init) is its update alone,
 # which carries the gradient's relative error: with attention on, the
 # gradient of the centroid queries' bias (``dup0_q_y/b``) is a sum over
 # the grid whose cancellation leaves 2.5e-5 of relative agreement, so
 # there such a leaf takes the gradient's tolerance, MODEL.
-ZERO_INIT_PARAM_TOL = {"none": 1e-5, "duplex": MODEL}
+ZERO_INIT_PARAM_TOL = {"none": 1e-5, "duplex": MODEL,
+                       "duplex_fusedkv": MODEL}
 
 
 def _jax_cfg(model=MICRO):
@@ -596,3 +606,25 @@ def test_train_cli_config_reads_mirror_seed_and_validates(tmp_path,
                            "--device", "cpu", "--run-dir",
                            str(tmp_path / "run")]) == 0
     assert seen == {"mirror": True, "seed": 7}
+
+
+@pytest.mark.parametrize("in_config", [False, True])
+@pytest.mark.parametrize("flag", [None, "--attn-fused-kv",
+                                  "--no-attn-fused-kv"])
+def test_train_cli_attn_fused_kv_matches_jax(tmp_path, in_config, flag):
+    """``--attn-fused-kv`` / ``--no-attn-fused-kv`` are tri-state as in
+    the JAX CLI: without either the loaded config's ``attn_fused_kv``
+    stands, with one the flag wins."""
+    from gansformer_tpu.cli import train as jax_cli
+    from gansformer_tpu_torch.cli import train as train_cli
+
+    cfg = _jax_cfg(dict(MICRO, attention="duplex", attn_fused_kv=in_config))
+    path = tmp_path / "config.json"
+    path.write_text(cfg.to_json())
+    argv = ["--config", str(path)] + ([flag] if flag else [])
+    want = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv))
+    got = train_cli.config_from_args(
+        train_cli.build_parser().parse_args(argv))
+    assert got.model.attn_fused_kv is want.model.attn_fused_kv
+    assert got.model.attn_fused_kv is (in_config if flag is None
+                                       else flag == "--attn-fused-kv")
