@@ -68,7 +68,17 @@ In order:
    ``--warm-only`` cold (the library builds), then bf16 and int8w warm
    (it loads), then bf16 cold with ``--no-warm-start``, each
    first_image_ms and restore_ms printed, each JSON line and grid
-   checked;
+   checked (the default mode serves through the service: its line holds
+   ``health`` and ``replicas`` 1, and ``--healthcheck`` on its
+   ``telemetry.prom`` exits 0); then the generation service
+   (``service_phase``) at buckets 1, 4 and 8: 24 Zipfian requests in f32
+   held to each request alone through ``map_rows`` + ``synthesize`` (a
+   planted fault, tags from the batch position, rejected), the load
+   test in bf16 (256 Poisson requests at half the serve run's
+   images/s, its launches held to the plan per synthesize, every request
+   at one terminal event) and the chaos drill (a burst past a queue of 8
+   with one injected dispatcher crash: shed, one restart, 0 hung,
+   serving again);
 6. training (the ffhq256-duplex preset itself: full width and depth,
    attention on, batch 8, bf16, random init from seed 0, noise on, style
    mixing 0.9, procedural reals).  For every backward launch of one
@@ -1952,14 +1962,269 @@ def serve_cli_phase(card: str) -> None:
             if grid.shape != (4 * r, 4 * r, 3) or not float(
                     np.asarray(grid, np.float64).std()) > 0:
                 fail(f"serve {title}: served_grid.png {grid.shape}")
-            if not os.path.exists(os.path.join(out_dir, "telemetry.prom")):
+            prom = os.path.join(out_dir, "telemetry.prom")
+            if not os.path.exists(prom):
                 fail(f"serve {title}: no telemetry.prom")
+            health = summary.get("health", {})
+            if health.get("state") not in ("ready", "degraded") or \
+                    summary.get("replicas") != 1:
+                fail(f"serve {title}: health {health}, replicas "
+                     f"{summary.get('replicas')}")
+            probe = subprocess.run(
+                [sys.executable, "-m", "gansformer_tpu_torch.cli.serve",
+                 "--healthcheck", prom], cwd=here, capture_output=True,
+                text=True, timeout=120)
+            if probe.returncode != 0:
+                fail(f"serve {title}: --healthcheck exited "
+                     f"{probe.returncode}: {probe.stdout.strip()[-500:]}")
+            verdict = json.loads(probe.stdout.strip().splitlines()[-1])
             print(f"{line}; first_image_ms {summary['first_image_ms']}; "
                   f"e2e_ms {summary['e2e_ms']}; counters "
-                  f"{summary['counters']}; served_grid.png decodes to 16 "
+                  f"{summary['counters']}; health {health['state']}, "
+                  f"replicas 1; --healthcheck exit 0, state "
+                  f"{verdict['state']}; served_grid.png decodes to 16 "
                   f"images ({card})", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# The generation service
+# --------------------------------------------------------------------------
+
+SERVICE_PRESET = "ffhq256-duplex"
+SERVICE_BUCKETS = (1, 4, 8)
+SERVICE_NOISE_SEED = 7
+SERVICE_PSIS = (0.5, 0.7, 1.0)
+SERVICE_PARITY_REQUESTS = 24
+SERVICE_LOAD_REQUESTS = 256
+# the load run's Poisson rate, as a share of the synchronous bf16
+# images/s the serve run measured in this process
+SERVICE_RATE_SHARE = 0.5
+SERVICE_CHAOS = {"queue_depth": 8, "burst_factor": 4, "crash_at_batch": 3}
+# what a request of the chaos drill may end with besides an image: the
+# typed refusals of the service, a cancel, a deadline and the planted
+# crash of its batch (``raise@serve_dispatch``)
+CHAOS_CAUSES = ("FaultInjected", "Overloaded", "Expired", "Cancelled",
+                "ServiceUnhealthy", "ServiceClosed", "client_cancelled",
+                "deadline")
+
+
+def service_requests(n: int, seed: int = 0):
+    """n Zipfian seeds (the load test's draw over 64 seeds) and psi
+    drawn from ``SERVICE_PSIS``."""
+    import numpy as np
+
+    from gansformer_tpu_torch.cli.loadtest_serve import zipf_choice
+
+    rng = np.random.RandomState(seed)
+    seeds = zipf_choice(rng, np.arange(1, 65), n, 1.1)
+    psis = rng.choice(SERVICE_PSIS, size=n)
+    return [int(s) for s in seeds], [float(p) for p in psis]
+
+
+class PositionTags:
+    """Programs whose ``synthesize`` takes each row's noise tag from its
+    position in the batch instead of the request seed: the planted fault
+    the service parity must reject."""
+
+    def __init__(self, programs):
+        self._programs = programs
+
+    def __getattr__(self, name):
+        return getattr(self._programs, name)
+
+    def synthesize(self, ws, psi, seed=0, tags=None, **kw):
+        return self._programs.synthesize(ws, psi, seed=seed,
+                                         tags=list(range(ws.shape[0])),
+                                         **kw)
+
+
+def service_parity(progs, seeds, psis, programs=None):
+    """The requests through one ``GenerationService`` over ``programs``
+    (default ``progs``), each image held to the same (seed, psi,
+    noise_seed) run alone through ``map_rows`` + ``synthesize`` of
+    ``progs``: (largest rel_err, every image bit-identical)."""
+    import torch
+
+    from gansformer_tpu_torch.serve import GenerationService, WCache, map_rows
+
+    with GenerationService(programs or progs, max_fill_wait_ms=2.0,
+                           noise_seed=SERVICE_NOISE_SEED) as svc:
+        tickets = [svc.submit(s, psi=p) for s, p in zip(seeds, psis)]
+        images = [t.result(timeout=600) for t in tickets]
+    cache, worst, same = WCache(), 0.0, True
+    for s, p, img in zip(seeds, psis, images):
+        ref = progs.synthesize(map_rows(progs, cache, [s]), [p],
+                               seed=SERVICE_NOISE_SEED,
+                               tags=[s])[0].float().cpu()
+        got = torch.from_numpy(img)
+        worst = max(worst, rel_err(got, ref))
+        same = same and torch.equal(got, ref)
+    return worst, same
+
+
+def load_gate(r, moved, counts, want):
+    """What fails the load run: an image short or a request unfulfilled;
+    a request without a terminal trace, or more terminal events than
+    traces; launches off the plan per synthesize.  None when it
+    passes."""
+    cov = r["trace_coverage"]
+    if r["images"] != r["requests"] or r["non_fulfilled_rids"]:
+        return (f"{r['images']} images of {r['requests']}, not fulfilled "
+                f"{r['non_fulfilled_rids'][:5]}")
+    # every request has a terminal row, and there are as many terminal
+    # events as traces (the load's and its first image's): one each
+    if not cov["ok"] or cov["tickets"] != r["requests"] or \
+            moved["reqtrace/terminal_total"] != \
+            moved["reqtrace/requests_total"]:
+        return f"trace coverage {cov}, {moved}"
+    if counts != want:
+        return f"launches {counts} != {want}"
+    return None
+
+
+def chaos_gate(c):
+    """What fails the chaos drill: no shed, not exactly one restart, a
+    hung ticket, a ticket unsettled or ending on an untyped cause, a
+    trace missing; then the service not serving again (the breaker
+    tripped, the dispatcher down, a reason besides the restart, no
+    recovery).  None when it passes."""
+    h = c["health"]
+    causes = {x["cause"] for x in c["non_fulfilled_requests"]}
+    settled = c["served"] + c["failed"] + c["expired"] + c["cancelled"]
+    if (c["shed"] <= 0 or c["dispatcher_restarts"] != 1
+            or c["hung_tickets"] != 0 or settled != c["accepted"]
+            or not causes <= set(CHAOS_CAUSES)
+            or not c["trace_coverage"]["ok"]):
+        return (f"shed {c['shed']}, restarts {c['dispatcher_restarts']}, "
+                f"hung {c['hung_tickets']}, settled {settled} of "
+                f"{c['accepted']}, causes {sorted(causes)}, trace "
+                f"coverage {c['trace_coverage']}")
+    if (h["state"] not in ("ready", "degraded") or not h["dispatcher_alive"]
+            or h["dispatcher_restarts"] != 1 or len(h["reasons"]) != 1
+            or c["recovery_wave_served"] <= 0):
+        return f"not serving again afterwards: {h}"
+    return None
+
+
+def service_phase(card: str, sync_ips: float, cfg=None,
+                  device: str = "cuda") -> dict:
+    """The port's ``GenerationService`` on ffhq256-duplex (random init,
+    noise strengths and gates 0.1), buckets 1, 4 and 8, in this process
+    with the kernel library loaded:
+
+    * parity: ``SERVICE_PARITY_REQUESTS`` Zipfian requests in f32 (the
+      fp32 configuration), each image held to the same request alone
+      through ``map_rows`` + ``synthesize`` at ``precision_tolerance
+      ("f32")``; a planted fault (tags from the batch position, not the
+      request seed) must fail that gate;
+    * load: ``run_loadtest`` in bf16, ``SERVICE_LOAD_REQUESTS`` requests
+      at a Poisson rate of ``SERVICE_RATE_SHARE`` × ``sync_ips``, with the
+      launch counters reset just before and read just after, held by
+      ``load_gate`` (each kernel launched as ``main_path_calls`` plans
+      per synthesize; every request at exactly one terminal event);
+    * chaos: ``run_chaos`` in bf16 (``SERVICE_CHAOS``), held by
+      ``chaos_gate``.
+
+    ``cfg`` and ``device`` are for the host's test of the phase."""
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.cli.loadtest_serve import run_chaos, run_loadtest
+    from gansformer_tpu_torch.core import get_preset
+    from gansformer_tpu_torch.obs import registry as telemetry
+    from gansformer_tpu_torch.serve import ServePrograms, init_generator
+
+    def settle():
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    cfg = cfg or get_preset(SERVICE_PRESET)
+    bundle = init_generator(cfg, seed=0, device=device)
+    perturb(bundle.generator)
+    out = {}
+
+    # parity, f32
+    t0 = time.perf_counter()
+    progs = ServePrograms(fp32_bundle(cfg, bundle, device),
+                          buckets=SERVICE_BUCKETS)
+    seeds, psis = service_requests(SERVICE_PARITY_REQUESTS)
+    tol = precision_tolerance("f32")
+    err, same = service_parity(progs, seeds, psis)
+    bad, _ = service_parity(progs, seeds, psis, PositionTags(progs))
+    print(f"  parity (f32, {len(seeds)} requests, {len(set(seeds))} "
+          f"seeds, psi {SERVICE_PSIS}): largest rel_err against each "
+          f"request alone {err:.4e} (gate {tol:.1e}); bit-identical: "
+          f"{same}; planted fault (tags from the batch position) "
+          f"{bad:.4e}; {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    if not math.isfinite(err) or err > tol:
+        fail(f"service parity: rel_err {err:.4e} > {tol:.1e}")
+    if not bad > tol:
+        fail(f"service parity: the planted tag fault gave {bad:.4e}, "
+             f"within the gate {tol:.1e}")
+    out["parity"] = {"rel_err": err, "bit_identical": same,
+                     "planted": bad}
+    del progs
+    settle()
+
+    # load, bf16
+    rate = SERVICE_RATE_SHARE * sync_ips
+    calls = main_path_calls(cfg, SERVICE_BUCKETS[-1])
+    per_synth = {k: sum(c["kernel"] == k for c in calls) for k in REPLACES}
+    names = ("serve/synth_dispatch_total", "reqtrace/requests_total",
+             "reqtrace/terminal_total")
+    before = {k: telemetry.counter(k).value for k in names}
+    settle()
+    ops.reset_launch_counts()
+    r = run_loadtest(bundle, SERVICE_BUCKETS, SERVICE_LOAD_REQUESTS, rate,
+                     duration_s=120.0, serve_precision="bf16",
+                     measure_cold=False, seed=0)
+    settle()
+    counts = ops.launch_counts()
+    moved = {k: telemetry.counter(k).value - before[k] for k in names}
+    synths = moved["serve/synth_dispatch_total"]
+    want = {k: int(v * synths) for k, v in per_synth.items()}
+    cov = r["trace_coverage"]
+    print(f"  load (bf16, {r['requests']} requests at {rate:.1f}/s, half "
+          f"the synchronous {sync_ips:.2f} images/s): e2e_ms p50 "
+          f"{r['p50_ms']} p90 {r['p90_ms']} p99 {r['p99_ms']}; "
+          f"{r['img_per_s']} images/s; batch fill {r['batch_fill_mean']}; "
+          f"w cache hit rate {r['wcache_hit_rate']}; queue depth mean "
+          f"{r['queue_depth_mean']}; trace coverage {cov['terminal']}/"
+          f"{cov['tickets']} (traces opened "
+          f"{moved['reqtrace/requests_total']:.0f}, terminal events "
+          f"{moved['reqtrace/terminal_total']:.0f}); {int(synths)} "
+          f"synthesize calls, launches {counts}; worst "
+          f"{r['worst_requests'][:2]} ({card})", flush=True)
+    why = load_gate(r, moved, counts, want)
+    if why:
+        fail(f"service load: {why}")
+    out["load"] = r
+
+    # chaos, bf16
+    c = run_chaos(bundle, SERVICE_BUCKETS, serve_precision="bf16",
+                  **SERVICE_CHAOS)
+    h = c["health"]
+    print(f"  chaos (bf16, queue depth {c['queue_bound']}, burst "
+          f"{c['burst']}, raise@serve_dispatch at batch "
+          f"{c['crash_at_batch']}): shed {c['shed']} (rate "
+          f"{c['shed_rate']}), served {c['served']}, failed "
+          f"{c['failed']} "
+          f"({sorted({x['cause'] for x in c['non_fulfilled_requests']})}), "
+          f"expired {c['expired']}, hung {c['hung_tickets']}, restarts "
+          f"{c['dispatcher_restarts']}, recovery_ms {c['recovery_ms']}, "
+          f"recovery wave served {c['recovery_wave_served']}, p50/p99 "
+          f"under overload {c['p50_ms_under_overload']}/"
+          f"{c['p99_ms_under_overload']} ms; health after {h['state']} "
+          f"{h['reasons']}; {c['duration_s']} s ({card})", flush=True)
+    why = chaos_gate(c)
+    if why:
+        fail(f"service chaos: {why}")
+    out["chaos"] = c
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3857,6 +4122,12 @@ def main() -> int:
           f"run on one fresh manifest directory:", flush=True)
     t0 = time.perf_counter()
     serve_cli_phase(card)
+    print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    print(f"the generation service ({SERVICE_PRESET}, random init, buckets "
+          f"{'/'.join(map(str, SERVICE_BUCKETS))}):", flush=True)
+    t0 = time.perf_counter()
+    service_phase(card, 8 / synth_s)
     print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     print(f"serve phases took {time.perf_counter() - t_start:.1f} s",

@@ -16,15 +16,24 @@ and removes it at exit).  ``--warm-only`` stops there: the deploy-time
 pre-build.
 
 The default mode serves ``--images`` demo requests, seeds drawn from the
-JAX CLI's Zipfian mix (the same seeds for the same ``--seed``),
-synchronously: the first request alone (``first_image_ms`` covers the
-library's load or build and that request), then the rest in chunks of
-the largest bucket, each through ``serve.map_rows`` (the w cache,
-``--wcache`` rows) and one ``synthesize`` (``e2e_ms`` per chunk).  It
-writes ``served_grid.png`` and ``telemetry.prom`` into ``--out`` and
-prints one JSON summary line with the JAX CLI's keys (the service's
-``health``, ``replicas`` and ``autoscale`` belong to the service, ROADMAP
-A.4b, whose flags are refused here with words).
+JAX CLI's Zipfian mix (the same seeds for the same ``--seed``), through
+one ``serve.GenerationService`` (bounded admission ``--queue-depth``,
+raised to hold the demo's own burst; deadlines ``--deadline-s``; the
+SIGTERM drain and ``close`` within ``--grace-s``): the first request
+alone (``first_image_ms`` covers the library's load or build and that
+request), then the rest at once, each ticket waited on for up to 600 s.
+It writes ``served_grid.png`` and ``telemetry.prom`` into ``--out`` and
+prints one JSON line with the JAX CLI's keys: the service's ``health``,
+``replicas`` (1) and ``autoscale`` (false), the ``serve/*`` counters and
+``e2e_ms`` (count, mean, min, max of ``serve/e2e_ms``).
+
+``--healthcheck PROM`` grades a service's ``telemetry.prom`` (a file, or
+a directory holding one) without touching the card: it prints the
+verdict as JSON and exits 0 unless the service is unhealthy, its
+dispatcher is dead with work queued, or (``--health-max-age``) the file
+is older than that many seconds.  ``--replicas`` above 1,
+``--max-replicas`` and ``--autoscale`` come with the replica fleet
+(ROADMAP A.4c) and are refused with words.
 
 Runs on the card unless ``--device cpu``; without a card it raises.
 """
@@ -34,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -42,12 +52,111 @@ from typing import List, Optional
 
 import numpy as np
 
-# JAX serve flags of the service, which this CLI does not take yet.
-_A4B = "comes with the serving service (ROADMAP A.4b)"
-LATER_FLAGS = dict.fromkeys(
-    ("--replicas", "--max-replicas", "--autoscale", "--queue-depth",
-     "--deadline-s", "--grace-s", "--healthcheck", "--health-max-age"),
-    _A4B)
+# JAX serve flags of the replica fleet, which this CLI does not take yet
+# (--replicas only above 1).
+_A4C = "comes with the replica fleet (ROADMAP A.4c)"
+LATER_FLAGS = {"--replicas": _A4C, "--max-replicas": _A4C,
+               "--autoscale": _A4C}
+
+# The JAX package's serving health vocabulary and fleet readers
+# (``gansformer_tpu/analysis/telemetry_schema.py``), kept here so the
+# probe imports neither JAX, the JAX package nor torch (``serve.service``
+# holds the same names as ``HEALTH_NAMES``).
+SERVE_HEALTH_NAMES = {0: "ready", 1: "degraded", 2: "unhealthy",
+                      3: "closed"}
+_REPLICA_METRIC = re.compile(r"^serve_replica(\d+)_")
+
+
+def serve_replica_ordinals(vals: dict) -> List[int]:
+    """The replica ordinals of a parsed prom (its ``serve_replica<i>_*``
+    families); empty for a single service."""
+    return sorted({int(m.group(1)) for name in vals
+                   if (m := _REPLICA_METRIC.match(name))})
+
+
+def serve_fleet_alive(vals: dict) -> bool:
+    """Any dispatcher alive (a single service: its own)."""
+    ords = serve_replica_ordinals(vals)
+    if not ords:
+        return vals.get("serve_dispatcher_alive", 0.0) > 0
+    return any(vals.get(f"serve_replica{i}_dispatcher_alive", 0.0) > 0
+               for i in ords)
+
+
+def serve_fleet_dead_with_work(vals: dict) -> bool:
+    """Tickets hang: some queue holds work while every dispatcher is
+    dead."""
+    ords = serve_replica_ordinals(vals)
+    if not ords:
+        return (vals.get("serve_dispatcher_alive", 0.0) == 0.0
+                and (vals.get("serve_queue_depth_now", 0.0) or 0.0) > 0)
+    any_queued = any(
+        vals.get(f"serve_replica{i}_queue_depth_now", 0.0) > 0
+        for i in ords)
+    return any_queued and not serve_fleet_alive(vals)
+
+
+def healthcheck(path: str, max_age_s=None) -> int:
+    """Grade an exported ``telemetry.prom``: 0 for ready, degraded or
+    closed with no dispatcher dead with work; 1 for unhealthy, missing,
+    not a serving prom, or stale (older than ``max_age_s``).  Prints the
+    verdict as one JSON line; touches no device."""
+    from gansformer_tpu_torch.obs.registry import parse_prom_values
+
+    if os.path.isdir(path):
+        path = os.path.join(path, "telemetry.prom")
+    if not os.path.exists(path):
+        print(json.dumps({"state": "unknown", "ok": False,
+                          "error": f"{path}: missing"}))
+        return 1
+    vals = parse_prom_values(path)
+    code = vals.get("serve_health_state")
+    if code is None:
+        print(json.dumps({"state": "unknown", "ok": False, "prom": path,
+                          "error": "no serve_health_state gauge — not a "
+                                   "serving telemetry.prom"}))
+        return 1
+    snapshot_age = time.time() - os.path.getmtime(path)
+    ords = serve_replica_ordinals(vals)
+    dead_with_work = serve_fleet_dead_with_work(vals)
+    state = SERVE_HEALTH_NAMES.get(int(code), "unknown")
+    if max_age_s is not None and snapshot_age > max_age_s:
+        state = "stale"
+    out = {"state": state, "prom": path,
+           "snapshot_age_s": round(snapshot_age, 1), "ok":
+           state in ("ready", "degraded", "closed")
+           and not dead_with_work,
+           "dispatcher_alive": 1.0 if serve_fleet_alive(vals) else 0.0,
+           "queue_depth": vals.get("serve_queue_depth_now", 0.0),
+           "queue_bound": vals.get("serve_queue_bound"),
+           "dispatcher_restarts":
+               vals.get("serve_dispatcher_restarts_total"),
+           "shed_total": vals.get("serve_shed_total"),
+           "expired_total": vals.get("serve_expired_total"),
+           "cancelled_total": vals.get("serve_cancelled_total")}
+    if ords:
+        out["replicas"] = vals.get("serve_replicas")
+        out["replicas_alive"] = sum(
+            1 for i in ords
+            if vals.get(f"serve_replica{i}_dispatcher_alive", 0.0) > 0)
+        out["scale_out_total"] = vals.get("serve_scale_out_total")
+        out["scale_in_total"] = vals.get("serve_scale_in_total")
+    print(json.dumps(out, sort_keys=True))
+    return 0 if out["ok"] else 1
+
+
+def refuse_later_flags(argv: List[str]) -> None:
+    """SystemExit, with words, for a flag of the replica fleet."""
+    for i, a in enumerate(argv):
+        flag, eq, val = a.partition("=")
+        if flag not in LATER_FLAGS:
+            continue
+        if flag == "--replicas":
+            val = val if eq else (argv[i + 1] if i + 1 < len(argv) else "")
+            if val.strip() == "1":
+                continue
+        raise SystemExit(f"{flag}: not in the PyTorch port yet; it "
+                         f"{LATER_FLAGS[flag]}")
 
 
 def demo_seeds(seed: int, n: int) -> np.ndarray:
@@ -94,6 +203,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "(mapping and w cache always f32)")
     p.add_argument("--wcache", type=int, default=4096,
                    help="w-cache capacity (rows)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serving replicas (1: one service on the card; "
+                        "more come with the replica fleet)")
+    p.add_argument("--queue-depth", type=int, default=256,
+                   help="admission queue bound (over-depth submits shed "
+                        "with a typed Overloaded)")
+    p.add_argument("--deadline-s", type=float, default=None,
+                   help="per-request deadline; expired requests drop "
+                        "before dispatch")
+    p.add_argument("--grace-s", type=float, default=30.0,
+                   help="drain grace window for close() and SIGTERM")
+    p.add_argument("--healthcheck", default=None, metavar="PROM",
+                   help="grade a service telemetry.prom (file or dir) "
+                        "and exit; no device touched")
+    p.add_argument("--health-max-age", type=float, default=None,
+                   help="with --healthcheck: fail when the prom is older "
+                        "than this many seconds")
     p.add_argument("--device", default=None,
                    help="'cpu' for the plain path on the host (default: "
                         "the card)")
@@ -101,37 +227,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _serve(args, programs, summary, out_dir, t_first0) -> None:
-    """The demo requests: the first alone, then chunks of the largest
-    bucket; writes the grid and telemetry.prom, fills ``summary``."""
-    import torch
-
+    """The demo requests through one ``GenerationService``: the first
+    alone, then the rest; writes the grid and telemetry.prom, fills
+    ``summary``."""
     from gansformer_tpu_torch.obs import registry as telemetry
-    from gansformer_tpu_torch.serve import WCache, bucket_for, map_rows
+    from gansformer_tpu_torch.serve import GenerationService
     from gansformer_tpu_torch.utils.image import save_image_grid
 
     os.makedirs(out_dir, exist_ok=True)
     seeds = [int(s) for s in demo_seeds(args.seed, args.images)]
-    cache = WCache(args.wcache)
-    top = programs.buckets[-1]
-    chunks = [seeds[:1]] + [seeds[i:i + top]
-                            for i in range(1, len(seeds), top)]
-    imgs = []
-    for i, chunk in enumerate(chunks):
-        t0 = time.perf_counter()
-        n = len(chunk)
-        bucket = bucket_for(n, programs.buckets)
-        ws = map_rows(programs, cache, chunk)
-        if bucket > n:
-            ws = torch.cat([ws, ws[-1:].expand(bucket - n, *ws.shape[1:])])
-        tags = chunk + [chunk[-1]] * (bucket - n)
-        out = programs.synthesize(ws, [args.psi] * bucket, tags=tags)
-        imgs.append(out[:n].float().cpu().numpy())
-        done = time.perf_counter()
-        telemetry.histogram("serve/e2e_ms").observe((done - t0) * 1000.0)
-        if i == 0:
-            summary["first_image_ms"] = round((done - t_first0) * 1000.0, 1)
-    save_image_grid(np.concatenate(imgs),
-                    os.path.join(out_dir, "served_grid.png"))
+    # the demo submits its whole list at once: the bound sits above it
+    svc = GenerationService(
+        programs, wcache_capacity=args.wcache,
+        max_queue_depth=max(args.queue_depth, args.images + 1),
+        default_deadline_s=args.deadline_s)
+    svc.install_signal_drain(grace_s=args.grace_s)
+    try:
+        first = svc.submit(seeds[0], psi=args.psi)
+        first.result(timeout=600)
+        summary["first_image_ms"] = round(
+            (time.perf_counter() - t_first0) * 1000.0, 1)
+        tickets = [svc.submit(s, psi=args.psi) for s in seeds[1:]]
+        imgs = [first.result()] + [t.result(timeout=600) for t in tickets]
+        summary["health"] = svc.health()
+    finally:
+        svc.close(timeout=args.grace_s)
+    save_image_grid(np.stack(imgs), os.path.join(out_dir,
+                                                 "served_grid.png"))
     snap = telemetry.get_registry().snapshot()
     summary["counters"] = {k.replace("serve/", ""): v for k, v in
                            snap["counters"].items() if k.startswith("serve/")}
@@ -145,12 +267,10 @@ def _serve(args, programs, summary, out_dir, t_first0) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    for a in argv:
-        flag = a.split("=", 1)[0]
-        if flag in LATER_FLAGS:
-            raise SystemExit(f"{flag}: not in the PyTorch port yet; it "
-                             f"{LATER_FLAGS[flag]}")
+    refuse_later_flags(argv)
     args = build_parser().parse_args(argv)
+    if args.healthcheck:
+        return healthcheck(args.healthcheck, max_age_s=args.health_max_age)
 
     import torch
 
@@ -193,6 +313,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         summary = {
             "buckets": list(buckets),
             "serve_precision": args.serve_precision,
+            "replicas": 1,
+            "autoscale": False,
             "restore_ms": round(load_ms, 1),
             "warm_start": {"loaded": warm["loaded"],
                            "compiled": warm["compiled"],
@@ -209,8 +331,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     f"model has label_dim={bundle.cfg.label_dim}: the demo "
                     f"traffic can't supply labels — use --warm-only to "
                     f"pre-bake the manifest, and drive conditional "
-                    f"requests through serve.map_rows(programs, cache, "
-                    f"seeds, labels=...)")
+                    f"requests through serve.GenerationService.submit("
+                    f"label=...)")
             _serve(args, programs, summary, out_dir, t_first0)
     finally:
         if build_dir is not None:

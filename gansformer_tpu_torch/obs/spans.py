@@ -126,6 +126,31 @@ class Tracer:
                     if len(self._events) >= _FLUSH_EVERY:
                         self._flush_locked()
 
+    # -- pre-formed events (request tracing) --------------------------------
+
+    @property
+    def process_index(self) -> int:
+        return self._pid
+
+    def ts_us(self, t: Optional[float] = None) -> float:
+        """A ``time_fn`` timestamp (default: now) in microseconds on this
+        tracer's timeline, clamped at 0 (an event recorded before
+        ``configure()`` moved the origin lands at the start)."""
+        t = self._time() if t is None else t
+        return round(max(t - self._origin, 0.0) * 1e6, 3)
+
+    def emit(self, event: dict) -> None:
+        """Append one pre-formed Chrome-trace event (a request's async
+        events, a serving batch) to the sink the span events go to; its
+        ``ts`` should come from ``ts_us``.  Dropped while no sink is
+        configured, as span events are."""
+        with self._lock:
+            if self._sink_path is None:
+                return
+            self._events.append(event)
+            if len(self._events) >= _FLUSH_EVERY:
+                self._flush_locked()
+
     # -- draining / flushing -----------------------------------------------
 
     def drain(self) -> Dict[str, Dict[str, float]]:

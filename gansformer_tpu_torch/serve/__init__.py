@@ -11,10 +11,22 @@ from gansformer_tpu_torch.serve.quant import (FIDELITY_TOLERANCES,
                                               cost_report, fidelity_report,
                                               param_tree_bytes,
                                               quantize_params)
+from gansformer_tpu_torch.serve.service import (HEALTH_CLOSED,
+                                                HEALTH_DEGRADED,
+                                                HEALTH_NAMES, HEALTH_READY,
+                                                HEALTH_UNHEALTHY, Cancelled,
+                                                Expired, GenerationService,
+                                                Overloaded, ServeError,
+                                                ServiceClosed,
+                                                ServiceUnhealthy, Ticket)
 from gansformer_tpu_torch.serve.warmstart import default_manifest_dir
 
-__all__ = ["DEFAULT_BUCKETS", "FIDELITY_TOLERANCES", "GeneratorBundle",
-           "SERVE_PRECISIONS", "ServePrograms", "WARM_KINDS", "WCache",
+__all__ = ["Cancelled", "DEFAULT_BUCKETS", "Expired", "FIDELITY_TOLERANCES",
+           "GenerationService", "GeneratorBundle", "HEALTH_CLOSED",
+           "HEALTH_DEGRADED", "HEALTH_NAMES", "HEALTH_READY",
+           "HEALTH_UNHEALTHY", "Overloaded", "SERVE_PRECISIONS",
+           "ServeError", "ServePrograms", "ServiceClosed",
+           "ServiceUnhealthy", "Ticket", "WARM_KINDS", "WCache",
            "bucket_for", "cost_report", "default_manifest_dir",
            "fidelity_report", "init_generator", "load_generator",
            "map_rows", "noise_seed", "param_tree_bytes", "quantize_params",

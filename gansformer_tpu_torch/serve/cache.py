@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,18 +71,28 @@ class WCache:
 
 
 def map_rows(programs, cache: WCache, seeds: Sequence[int],
-             labels: Optional[np.ndarray] = None) -> torch.Tensor:
+             labels: Optional[np.ndarray] = None,
+             on_map: Optional[Callable[[List[int], int], None]] = None,
+             select_bucket: Optional[Callable[[int], int]] = None
+             ) -> torch.Tensor:
     """The mapped rows of ``seeds`` (labels [n, label_dim] for a
     conditional model): ws [n, num_ws, w_dim] fp32 on the programs'
     device.  Hits come from ``cache``; every miss of the batch is mapped
     in one ``map_seeds`` dispatch, padded to its bucket by repeating the
-    last miss, and put in the cache."""
+    last miss, and put in the cache.  ``on_map(miss, bucket)`` is called
+    with the misses' positions and the mapping bucket just before that
+    dispatch (the service traces and attributes it there);
+    ``select_bucket(n)`` picks the mapping bucket (default: the smallest
+    of ``programs.buckets`` that holds n)."""
     keys = [wcache_key(s, None if labels is None else labels[i])
             for i, s in enumerate(seeds)]
     rows = [cache.get(k) for k in keys]
     miss = [i for i, r in enumerate(rows) if r is None]
     if miss:
-        mb = bucket_for(len(miss), programs.buckets)
+        mb = (bucket_for(len(miss), programs.buckets)
+              if select_bucket is None else select_bucket(len(miss)))
+        if on_map is not None:
+            on_map(miss, mb)
         pad = [miss[-1]] * (mb - len(miss))
         mseeds = [int(seeds[i]) for i in miss + pad]
         mlabel = (None if labels is None else

@@ -177,6 +177,9 @@ class ServePrograms:
         self.serve_precision = serve_precision
         self.synth_module = synth_generator(bundle.generator,
                                             serve_precision)
+        # this instance's warm starts (the service's health reads them)
+        self.warm_hits = 0
+        self.manifest_stale = 0
         # explicit zeros: an idle service still exports the families
         telemetry.counter("serve/map_dispatch_total")
         telemetry.counter("serve/synth_dispatch_total")
@@ -195,7 +198,11 @@ class ServePrograms:
         from gansformer_tpu_torch.serve import warmstart
 
         if self.warm_start_enabled:
+            stale0 = telemetry.counter("serve/manifest_stale_total").value
             out = warmstart.warm_start(self.manifest_dir)
+            self.manifest_stale += int(telemetry.counter(
+                "serve/manifest_stale_total").value - stale0)
+            self.warm_hits += out["loaded"]
         else:
             out = warmstart.cold_start(self.manifest_dir)
         return {k: out[k] for k in ("loaded", "compiled", "seconds")}

@@ -928,3 +928,77 @@ def test_serve_cli_runs_parse_and_expect_a_cold_then_warm_manifest(
         got = (warmstart.cold_start(str(tmp_path / title), lib)
                if args.no_warm_start else warmstart.warm_start(d, lib))
         assert (got["loaded"], got["compiled"]) == want, title
+
+
+def test_service_phase_passes_on_the_cards_route(card_route, capsys):
+    """``service_phase`` on the host at micro width, every launch a stub
+    of the card's route: parity within the f32 gate with the planted tag
+    fault outside it, the load run's launches equal to the plan per
+    synthesize and one terminal event a request, the chaos drill's gate
+    passed."""
+    cfg = port_config.ModelConfig(**PRECISION_MODEL)
+    out = chip_smoke.service_phase("host", 2000.0, cfg=cfg, device="cpu")
+    tol = chip_smoke.precision_tolerance("f32")
+    assert out["parity"]["rel_err"] <= tol < out["parity"]["planted"]
+    load, chaos = out["load"], out["chaos"]
+    assert load["requests"] == chip_smoke.SERVICE_LOAD_REQUESTS
+    assert load["buckets"] == list(chip_smoke.SERVICE_BUCKETS)
+    assert chaos["queue_bound"] == chip_smoke.SERVICE_CHAOS["queue_depth"]
+    assert chaos["crash_at_batch"] == 3 and chaos["burst"] == 32
+    text = capsys.readouterr().out
+    assert "planted fault (tags from the batch position)" in text
+
+
+def _load_artifact():
+    return {"requests": 4, "images": 4, "non_fulfilled_rids": [],
+            "trace_coverage": {"ok": True, "tickets": 4}}
+
+
+def _chaos_artifact():
+    return {"shed": 20, "dispatcher_restarts": 1, "hung_tickets": 0,
+            "served": 11, "failed": 1, "expired": 0, "cancelled": 0,
+            "accepted": 12, "recovery_wave_served": 7,
+            "trace_coverage": {"ok": True},
+            "non_fulfilled_requests": [{"cause": "FaultInjected"}],
+            "health": {"state": "degraded", "dispatcher_alive": True,
+                       "dispatcher_restarts": 1,
+                       "reasons": ["dispatcher restarted 1 time(s)"]}}
+
+
+LOAD_FAULTS = {
+    "short": lambda r, m, c: r.update(images=3),
+    "unfulfilled": lambda r, m, c: r.update(non_fulfilled_rids=["r1-2"]),
+    "untraced": lambda r, m, c: r["trace_coverage"].update(ok=False),
+    "two_terminals": lambda r, m, c: m.update(
+        {"reqtrace/terminal_total": 6}),
+    "launches": lambda r, m, c: c.update(modconv=19),
+}
+CHAOS_FAULTS = {
+    "no_shed": lambda c: c.update(shed=0),
+    "two_restarts": lambda c: c.update(dispatcher_restarts=2),
+    "hung": lambda c: c.update(hung_tickets=1, served=10),
+    "unsettled": lambda c: c.update(served=10),
+    "untyped": lambda c: c["non_fulfilled_requests"].append(
+        {"cause": "ValueError"}),
+    "tripped": lambda c: c["health"].update(state="unhealthy"),
+    "down": lambda c: c["health"].update(dispatcher_alive=False),
+    "other_reason": lambda c: c["health"]["reasons"].append("saturated"),
+    "no_recovery": lambda c: c.update(recovery_wave_served=0),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(LOAD_FAULTS) + sorted(CHAOS_FAULTS))
+def test_service_gates_reject_what_they_name(fault):
+    moved = {"reqtrace/requests_total": 5, "reqtrace/terminal_total": 5}
+    counts = {"modconv": 20, "upfirdn": 12}
+    assert chip_smoke.load_gate(_load_artifact(), dict(moved), counts,
+                                dict(counts)) is None
+    assert chip_smoke.chaos_gate(_chaos_artifact()) is None
+    if fault in LOAD_FAULTS:
+        r, m, c = _load_artifact(), dict(moved), dict(counts)
+        LOAD_FAULTS[fault](r, m, c)
+        assert chip_smoke.load_gate(r, m, c, counts)
+    else:
+        c = _chaos_artifact()
+        CHAOS_FAULTS[fault](c)
+        assert chip_smoke.chaos_gate(c)

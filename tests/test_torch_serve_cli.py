@@ -13,6 +13,7 @@ import dataclasses
 import json
 import os
 import tempfile
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -88,11 +89,11 @@ def _run_port(argv, capsys):
 
 def test_demo_mix_and_summary_match_the_jax_cli(run_dir, tmp_path,
                                                  monkeypatch, capsys):
-    """The port serves the JAX CLI's seeds (its Zipfian draw) and prints
-    its summary keys, less the service's ``health``, ``replicas`` and
-    ``autoscale``; the grid holds every request, ``telemetry.prom`` the
-    counters; the first request alone, then chunks of the largest
-    bucket."""
+    """The port serves the JAX CLI's seeds (its Zipfian draw) through its
+    service and prints the JAX CLI's summary keys, ``health``,
+    ``replicas`` and ``autoscale`` included; the grid holds every
+    request, ``telemetry.prom`` the counters; the first request alone,
+    then the rest, batched by the service."""
     seeds, jsum = _run_jax_cli(
         ["--init", "random", "--preset", "ffhq256-duplex", "--no-warm-start",
          "--out", str(tmp_path / "jax")] + ARGS, monkeypatch, capsys)
@@ -112,23 +113,26 @@ def test_demo_mix_and_summary_match_the_jax_cli(run_dir, tmp_path,
                       "--no-warm-start"] + ARGS, capsys)
     assert served == [int(s) for s in seeds] and len(served) == 11
     assert len(set(served)) < len(served)           # hot seeds repeat
-    assert set(psum) == set(jsum) - {"health", "replicas", "autoscale"}
+    assert set(psum) == set(jsum)
+    assert psum["replicas"] == jsum["replicas"] == 1
+    assert psum["autoscale"] is jsum["autoscale"] is False
+    assert psum["health"]["state"] == "ready" and \
+        psum["health"]["dispatcher_restarts"] == 0
     assert psum["device"] == {"platform": "cpu", "kind": "cpu", "count": 1}
     assert psum["warm_start"] == {"loaded": 0, "compiled": 0, "seconds": 0.0}
     assert psum["manifest_dir"] is None and psum["buckets"] == [1, 4]
     assert psum["serve_precision"] == "f32" and psum["restore_ms"] >= 0
-    assert psum["e2e_ms"]["count"] == 1 + 3         # 1, then 4 + 4 + 2
+    assert psum["e2e_ms"]["count"] == 11            # one per ticket
     assert psum["first_image_ms"] > 0 and psum["out"] == out
     c = psum["counters"]
-    assert c["synth_dispatch_total"] == 4
-    assert c["map_dispatch_total"] <= 4
+    assert c["requests_total"] == c["images_total"] == 11
+    assert c["shed_total"] == c["expired_total"] == 0
+    # the first alone, then the other 10 in batches of at most 4
+    assert 1 + 3 <= c["synth_dispatch_total"] <= 11
+    assert c["map_dispatch_total"] <= c["synth_dispatch_total"]
     assert c["wcache_hits_total"] + c["wcache_misses_total"] == 11
-    # a row is cached once its chunk has mapped it: a hit is a seed
-    # served by an earlier chunk
-    chunks = [served[:1]] + [served[i:i + 4] for i in range(1, 11, 4)]
-    assert c["wcache_hits_total"] == sum(
-        s in set().union(*chunks[:i]) for i, ch in enumerate(chunks)
-        for s in ch)
+    # a hit is a seed some earlier batch mapped; the first is a miss
+    assert c["wcache_misses_total"] >= len(set(served))
     with open(os.path.join(out, "served_grid.png"), "rb") as f:
         grid = decode_png(f.read())
     assert grid.shape[2] == 3 and grid.size >= 11 * 16 * 16 * 3
@@ -169,10 +173,35 @@ def test_no_warm_start_removes_its_build_dir(run_dir, tmp_path, capsys,
     assert len(made) == 1 and not os.path.exists(made[0])
 
 
-@pytest.mark.parametrize("flag", sorted(port_serve.LATER_FLAGS))
+# the JAX serve CLI's flags of the service and the fleet
+JAX_SERVICE_FLAGS = ("--autoscale", "--deadline-s", "--grace-s",
+                     "--health-max-age", "--healthcheck", "--max-replicas",
+                     "--queue-depth", "--replicas")
+
+
+@pytest.mark.parametrize("flag", JAX_SERVICE_FLAGS)
 def test_service_flags_are_refused_with_words(flag):
-    with pytest.raises(SystemExit, match="serving service"):
-        port_serve.main([flag, "2"])
+    """The replica fleet's flags are refused (``--replicas`` above 1),
+    with words that name it; the service's flags are taken."""
+    assert set(port_serve.LATER_FLAGS) == {"--replicas", "--max-replicas",
+                                           "--autoscale"}
+    if flag in port_serve.LATER_FLAGS:
+        with pytest.raises(SystemExit,
+                           match=r"replica fleet \(ROADMAP A.4c\)"):
+            port_serve.main([flag, "2"])
+        with pytest.raises(SystemExit, match="replica fleet"):
+            port_serve.main([f"{flag}=3", "--device", "cpu"])
+        return
+    args = port_serve.build_parser().parse_args([flag, "2"])
+    assert getattr(args, flag[2:].replace("-", "_")) in (2, 2.0, "2")
+    if flag == "--healthcheck":
+        return
+    args = port_serve.build_parser().parse_args(
+        ["--replicas", "1", "--queue-depth", "5", "--deadline-s", "2",
+         "--grace-s", "3", "--healthcheck", "p", "--health-max-age", "9"])
+    assert (args.replicas, args.queue_depth, args.deadline_s, args.grace_s,
+            args.healthcheck, args.health_max_age) == (1, 5, 2.0, 3.0, "p",
+                                                       9.0)
 
 
 def test_without_a_card_it_raises_unless_asked_for_the_cpu(run_dir,
@@ -198,3 +227,83 @@ def test_conditional_demo_is_refused_with_the_jax_words(tmp_path, capsys):
     psum = _run_port(["--run-dir", run, "--device", "cpu", "--warm-only",
                       "--no-warm-start"], capsys)
     assert psum["warm_start"]["compiled"] == 0
+
+
+HEALTH_BASE = {"serve_health_state": 0, "serve_dispatcher_alive": 1,
+               "serve_queue_depth_now": 0, "serve_queue_bound": 8,
+               "serve_dispatcher_restarts_total": 0, "serve_shed_total": 2,
+               "serve_expired_total": 1, "serve_cancelled_total": 0}
+HEALTH_CASES = {
+    "ready": ({}, None),
+    "degraded": ({"serve_health_state": 1,
+                  "serve_dispatcher_restarts_total": 1}, None),
+    "unhealthy": ({"serve_health_state": 2, "serve_dispatcher_alive": 0},
+                  None),
+    "closed": ({"serve_health_state": 3, "serve_dispatcher_alive": 0},
+               None),
+    "dead_with_work": ({"serve_dispatcher_alive": 0,
+                        "serve_queue_depth_now": 3}, None),
+    "stale": ({}, 60.0),
+    "fresh_with_max_age": ({}, 1e9),
+    "fleet_one_dead_with_work": ({
+        "serve_replicas": 2, "serve_replica0_dispatcher_alive": 1,
+        "serve_replica1_dispatcher_alive": 0,
+        "serve_replica1_queue_depth_now": 2, "serve_scale_out_total": 1,
+        "serve_scale_in_total": 0}, None),
+    "fleet_all_dead_with_work": ({
+        "serve_replicas": 2, "serve_replica0_dispatcher_alive": 0,
+        "serve_replica1_dispatcher_alive": 0,
+        "serve_replica1_queue_depth_now": 2}, None),
+    "not_serving": (None, None),
+    "missing": ("missing", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HEALTH_CASES))
+def test_healthcheck_verdicts_equal_the_jax_cli(case, tmp_path, capsys):
+    """``--healthcheck`` of the port and ``healthcheck`` of the JAX CLI on
+    the same prom give the same exit code and the same JSON (the
+    snapshot's age within 0.2 s); the port's run touches no device."""
+    from gansformer_tpu.cli import serve as jax_serve
+
+    vals, max_age = HEALTH_CASES[case]
+    path = str(tmp_path / "telemetry.prom")
+    if vals != "missing":
+        with open(path, "w") as f:
+            for k, v in ({"train_step": 1} if vals is None
+                         else dict(HEALTH_BASE, **vals)).items():
+                f.write(f"# TYPE {k} gauge\n{k} {v}\n")
+        old = time.time() - 3600.0
+        os.utime(path, (old, old))
+    capsys.readouterr()
+    want = jax_serve.healthcheck(str(tmp_path) if case == "ready" else path,
+                                 max_age_s=max_age)
+    jout = json.loads(capsys.readouterr().out.strip())
+    argv = ["--healthcheck", str(tmp_path) if case == "ready" else path]
+    if max_age is not None:
+        argv += ["--health-max-age", str(max_age)]
+    got = port_serve.main(argv)
+    pout = json.loads(capsys.readouterr().out.strip())
+    assert got == want
+    age_j, age_p = jout.pop("snapshot_age_s", 0.0), pout.pop(
+        "snapshot_age_s", 0.0)
+    assert abs(age_j - age_p) <= 0.2
+    assert pout == jout
+    expect_ok = case in ("ready", "degraded", "closed", "fresh_with_max_age",
+                         "fleet_one_dead_with_work")
+    assert got == (0 if expect_ok else 1), (case, pout)
+
+
+def test_health_vocabulary_equals_jax():
+    """The probe's copy of the health names, the service's and JAX's
+    agree, and so do the health codes."""
+    import gansformer_tpu.serve.service as jax_service
+    from gansformer_tpu.analysis.telemetry_schema import SERVE_HEALTH_NAMES
+
+    from gansformer_tpu_torch.serve import service as port_service
+
+    assert port_serve.SERVE_HEALTH_NAMES == SERVE_HEALTH_NAMES == \
+        port_service.HEALTH_NAMES
+    for name in ("HEALTH_READY", "HEALTH_DEGRADED", "HEALTH_UNHEALTHY",
+                 "HEALTH_CLOSED"):
+        assert getattr(port_service, name) == getattr(jax_service, name)
