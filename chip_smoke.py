@@ -78,7 +78,18 @@ In order:
    images/s, its launches held to the plan per synthesize, every request
    at one terminal event) and the chaos drill (a burst past a queue of 8
    with one injected dispatcher crash: shed, one restart, 0 hung,
-   serving again);
+   serving again); then the replica fleet (``fleet_phase``) on every
+   visible card, or on cuda:0 twice with one card: the same 24 requests
+   in f32 through a ``ReplicaSet`` held to each request alone on cuda:0,
+   its launches counted (every serve kernel launched) and every member
+   serving (a planted router that always picks member 0 rejected); with
+   two cards or more, a bf16 fleet on cuda:0 and cuda:1 held to cuda:0
+   alone and one modconv forward on a cuda:1 tensor launched while
+   cuda:0 is current, against its plain version; the autoscale drill
+   (scale-out before any breaker trip, 0 hung, every ticket settled
+   typed); the SLO report over the phase's ``requests.jsonl`` and
+   ``telemetry.prom``; ``cli/serve.py --autoscale`` once, its prom held
+   to the fleet families and ``--healthcheck`` on it;
 6. training (the ffhq256-duplex preset itself: full width and depth,
    attention on, batch 8, bf16, random init from seed 0, noise on, style
    mixing 0.9, procedural reals).  For every backward launch of one
@@ -2045,23 +2056,13 @@ def service_parity(progs, seeds, psis, programs=None):
     (default ``progs``), each image held to the same (seed, psi,
     noise_seed) run alone through ``map_rows`` + ``synthesize`` of
     ``progs``: (largest rel_err, every image bit-identical)."""
-    import torch
-
-    from gansformer_tpu_torch.serve import GenerationService, WCache, map_rows
+    from gansformer_tpu_torch.serve import GenerationService
 
     with GenerationService(programs or progs, max_fill_wait_ms=2.0,
                            noise_seed=SERVICE_NOISE_SEED) as svc:
         tickets = [svc.submit(s, psi=p) for s, p in zip(seeds, psis)]
         images = [t.result(timeout=600) for t in tickets]
-    cache, worst, same = WCache(), 0.0, True
-    for s, p, img in zip(seeds, psis, images):
-        ref = progs.synthesize(map_rows(progs, cache, [s]), [p],
-                               seed=SERVICE_NOISE_SEED,
-                               tags=[s])[0].float().cpu()
-        got = torch.from_numpy(img)
-        worst = max(worst, rel_err(got, ref))
-        same = same and torch.equal(got, ref)
-    return worst, same
+    return hold_alone(progs, seeds, psis, images)
 
 
 def load_gate(r, moved, counts, want):
@@ -2225,6 +2226,388 @@ def service_phase(card: str, sync_ips: float, cfg=None,
         fail(f"service chaos: {why}")
     out["chaos"] = c
     return out
+
+
+# --------------------------------------------------------------------------
+# The replica fleet
+# --------------------------------------------------------------------------
+
+FLEET_PLACEMENT_REQUESTS = 8
+FLEET_DRILL = {"queue_depth": 8, "burst_factor": 4, "crash_at_batch": 3}
+FLEET_CLI_IMAGES = 16
+
+
+def fleet_members(device: str = "cuda"):
+    """Every visible card when there are two or more, else the first card
+    twice: two members that rehearse routing on one card."""
+    import torch
+
+    if device != "cuda":
+        return [torch.device(device)] * 2
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * 2
+
+
+def first_replica_router():
+    """A ``ReplicaSet`` whose router always picks member 0: the planted
+    fault the share gate must reject."""
+    from gansformer_tpu_torch.obs import registry as telemetry
+    from gansformer_tpu_torch.serve import ReplicaSet
+
+    class FirstReplica(ReplicaSet):
+        def submit(self, seed, psi=0.7, label=None, deadline_s=None):
+            r = self.active_replicas[0]
+            t = r.service.submit(seed, psi, label, deadline_s)
+            telemetry.counter(
+                f"serve/replica{r.ordinal}/requests_total").inc()
+            return t
+
+    return FirstReplica
+
+
+def fleet_serve(bundle, members, seeds, psis, fleet_cls=None,
+                precision="f32", wave=None):
+    """The requests through a ``ReplicaSet`` of one replica per member in
+    ``precision`` (warmed first), all at once, or in waves of ``wave``
+    requests, each wave waited on (with ``wave`` = the members, each
+    member serves one request of a wave alone, at bucket 1): (images,
+    requests each member took)."""
+    from gansformer_tpu_torch.obs import registry as telemetry
+    from gansformer_tpu_torch.serve import ReplicaSet
+
+    fleet_cls = fleet_cls or ReplicaSet
+    names = [f"serve/replica{i}/requests_total"
+             for i in range(len(members))]
+    before = [telemetry.counter(n).value for n in names]
+    with fleet_cls(bundle, buckets=SERVICE_BUCKETS, devices=members,
+                   replicas=len(members), serve_precision=precision,
+                   service_kwargs=dict(max_fill_wait_ms=2.0,
+                                       noise_seed=SERVICE_NOISE_SEED)) as rs:
+        rs.warm_start()
+        step = wave or len(seeds)
+        images = []
+        for i in range(0, len(seeds), step):
+            tickets = [rs.submit(s, psi=p) for s, p in
+                       zip(seeds[i:i + step], psis[i:i + step])]
+            images += [t.result(timeout=600) for t in tickets]
+    return images, [telemetry.counter(n).value - b
+                    for n, b in zip(names, before)]
+
+
+def hold_alone(progs, seeds, psis, images):
+    """Each image against the same (seed, psi, noise_seed) alone through
+    ``map_rows`` + ``synthesize`` of ``progs``: (largest rel_err, every
+    image bit-identical)."""
+    import torch
+
+    from gansformer_tpu_torch.serve import WCache, map_rows
+
+    cache, worst, same = WCache(), 0.0, True
+    for s, p, img in zip(seeds, psis, images):
+        ref = progs.synthesize(map_rows(progs, cache, [s]), [p],
+                               seed=SERVICE_NOISE_SEED,
+                               tags=[s])[0].float().cpu()
+        got = torch.from_numpy(img)
+        worst = max(worst, rel_err(got, ref))
+        same = same and torch.equal(got, ref)
+    return worst, same
+
+
+def share_gate(shares):
+    """What fails a fleet run's routing: a member that took no request."""
+    if not shares or min(shares) <= 0:
+        return f"a member served no request: requests per member {shares}"
+    return None
+
+
+def autoscale_gate(c):
+    """What fails the autoscale drill: no scale-out, or one after the
+    first breaker trip; a hung ticket; a ticket unsettled or ending on an
+    untyped cause; the fleet not ready or degraded afterwards."""
+    a = c.get("autoscale") or {}
+    causes = {x["cause"] for x in c["non_fulfilled_requests"]}
+    settled = c["served"] + c["failed"] + c["expired"] + c["cancelled"]
+    if not a.get("scale_out_fired") or not a.get("scale_out_before_breaker"):
+        return f"no scale-out before a breaker trip: {a}"
+    if (c["hung_tickets"] != 0 or settled != c["accepted"]
+            or not causes <= set(CHAOS_CAUSES)):
+        return (f"hung {c['hung_tickets']}, settled {settled} of "
+                f"{c['accepted']}, causes {sorted(causes)}")
+    if c["health"]["state"] not in ("ready", "degraded"):
+        return f"fleet health afterwards {c['health']['state']}"
+    return None
+
+
+def slo_gate(report):
+    """What fails the SLO report: a default objective missing, or one
+    without data where the ledger had rows."""
+    from gansformer_tpu_torch.obs import DEFAULT_OBJECTIVES
+
+    names = [o["name"] for o in report["objectives"]]
+    if names != [o["name"] for o in DEFAULT_OBJECTIVES]:
+        return f"objectives {names}"
+    if report["source"] != "ledger" or report["rows"] <= 0:
+        return f"no ledger rows: source {report['source']}"
+    empty = [o["name"] for o in report["objectives"]
+             if o["status"] == "no_data"]
+    return f"no data for {empty}" if empty else None
+
+
+def fleet_cli(card: str) -> dict:
+    """``cli/serve.py --autoscale`` in a process of its own (on the
+    default manifest directory, which adopts the library this process
+    built): its JSON line, its prom held to the fleet families, and
+    ``--healthcheck`` on it."""
+    import tempfile
+
+    from gansformer_tpu_torch.cli import serve as serve_cli
+    from gansformer_tpu_torch.cli.loadtest_serve import \
+        check_serve_metric_families
+    from gansformer_tpu_torch.obs.registry import parse_prom_values
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="gansformer_smoke_fleet_") as d:
+        cmd = [sys.executable, "-m", "gansformer_tpu_torch.cli.serve",
+               "--init", "random", "--preset", SERVICE_PRESET, "--images",
+               str(FLEET_CLI_IMAGES), "--autoscale", "--out", d]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                             timeout=600)
+        took = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"serve --autoscale exited {run.returncode}: "
+                 f"{run.stderr.strip()[-2000:]}")
+        try:
+            summary = json.loads(run.stdout.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            fail(f"serve --autoscale printed no JSON line: "
+                 f"{run.stdout[-500:]}")
+        if summary.get("autoscale") is not True or \
+                not summary.get("replicas", 0) >= 1:
+            fail(f"serve --autoscale: autoscale "
+                 f"{summary.get('autoscale')}, replicas "
+                 f"{summary.get('replicas')}")
+        prom = os.path.join(d, "telemetry.prom")
+        errors = check_serve_metric_families(prom) \
+            if os.path.exists(prom) else [f"{prom}: missing"]
+        if not errors and "serve_replicas" not in parse_prom_values(prom):
+            errors = [f"{prom}: no serve_replicas (not a fleet's prom)"]
+        if errors:
+            fail(f"serve --autoscale: its prom fails the fleet families: "
+                 f"{errors[:5]}")
+        rc = serve_cli.main(["--healthcheck", prom])
+        if rc != 0:
+            fail(f"serve --autoscale: --healthcheck exited {rc}")
+    print(f"  serve --autoscale ({FLEET_CLI_IMAGES} images): {took:.1f} s "
+          f"in all; replicas {summary['replicas']}, autoscale true; warm "
+          f"start {summary['warm_start']}; first_image_ms "
+          f"{summary['first_image_ms']}; e2e_ms {summary['e2e_ms']}; "
+          f"health {summary['health']['state']}; its prom passes the "
+          f"fleet families; --healthcheck exit 0 ({card})", flush=True)
+    return summary
+
+
+def fleet_phase(card: str, cfg=None, device: str = "cuda") -> dict:
+    """The port's ``ReplicaSet`` on ffhq256-duplex (random init, noise
+    strengths and gates 0.1), buckets 1, 4 and 8, its members
+    ``fleet_members``:
+
+    * parity: ``service_phase``'s 24 Zipfian requests in f32 through a
+      replica per member, with the launch counters reset just before and
+      read just after (each serve kernel launched), each image held to
+      the same request alone on the first member at
+      ``precision_tolerance("f32")``, and every member serving
+      (``share_gate``); a planted router that always picks member 0 must
+      fail that gate;
+    * placement (two cards or more): ``FLEET_PLACEMENT_REQUESTS`` bf16
+      requests through a fleet on cuda:0 and cuda:1 in pairs (each card
+      serves one of a pair alone), held to each request alone on cuda:0
+      (the same program at the same bucket on a like card), then one
+      modconv forward on a cuda:1 tensor launched while cuda:0 is
+      current, against its plain version;
+    * autoscale: ``run_chaos`` with the autoscaler (one replica, at most
+      two; ``FLEET_DRILL``), held by ``autoscale_gate``;
+    * SLO: ``evaluate_slos`` over the phase's ``requests.jsonl`` and
+      ``telemetry.prom``, printed, held by ``slo_gate``.
+
+    ``cfg`` and ``device`` are for the host's test of the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.cli.loadtest_serve import run_chaos
+    from gansformer_tpu_torch.core import get_preset
+    from gansformer_tpu_torch.obs import (evaluate_slos, registry,
+                                          render_slos, reqtrace)
+    from gansformer_tpu_torch.serve import ServePrograms, init_generator
+
+    members = fleet_members(device)
+    n_cards = len(set(members))
+    which = ("every visible card" if n_cards > 1 else
+             "one card twice: a rehearsal of routing on one card")
+    print(f"  members: {[str(d) for d in members]} ({which})", flush=True)
+    cfg = cfg or get_preset(SERVICE_PRESET)
+    root = tempfile.mkdtemp(prefix="gansformer_smoke_fleet_")
+    reqtrace.configure_reqtrace(os.path.join(root, "requests.jsonl"))
+    out = {"members": [str(d) for d in members]}
+    try:
+        bundle = init_generator(cfg, seed=0, device=members[0])
+        perturb(bundle.generator)
+        f32 = fp32_bundle(cfg, bundle, members[0])
+
+        # parity, f32
+        t0 = time.perf_counter()
+        seeds, psis = service_requests(SERVICE_PARITY_REQUESTS)
+        calls = main_path_calls(cfg, SERVICE_BUCKETS[-1])
+        per_synth = {k: sum(c["kernel"] == k for c in calls)
+                     for k in SERVE_KERNELS}
+        synth0 = registry.counter("serve/synth_dispatch_total").value
+        ops.reset_launch_counts()
+        images, shares = fleet_serve(f32, members, seeds, psis)
+        counts = {k: ops.launch_counts()[k] for k in SERVE_KERNELS}
+        synths = registry.counter("serve/synth_dispatch_total").value - \
+            synth0
+        tol = precision_tolerance("f32")
+        progs = ServePrograms(f32, buckets=SERVICE_BUCKETS)
+        err, same = hold_alone(progs, seeds, psis, images)
+        _, planted = fleet_serve(f32, members, seeds, psis,
+                                 first_replica_router())
+        plan = {k: int(v * synths) for k, v in per_synth.items()}
+        print(f"  parity (f32, {len(seeds)} requests through "
+              f"{len(members)} replicas): largest rel_err against each "
+              f"request alone on {members[0]} {err:.4e} (gate "
+              f"{tol:.1e}); bit-identical: {same}; requests per member "
+              f"{shares}; launches {counts} over {int(synths)} "
+              f"synthesize calls (the plan: {plan}); "
+              f"planted fault (a router that always picks member 0): "
+              f"requests per member {planted}; "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        if not math.isfinite(err) or err > tol:
+            fail(f"fleet parity: rel_err {err:.4e} > {tol:.1e}")
+        why = share_gate(shares)
+        if why:
+            fail(f"fleet parity: {why}")
+        if not share_gate(planted):
+            fail(f"fleet parity: the planted router (member 0 only) "
+                 f"passed the share gate: {planted}")
+        idle = [k for k in SERVE_KERNELS if counts[k] <= 0]
+        if idle:
+            fail(f"fleet parity: {idle} never launched in the fleet run")
+        out["parity"] = {"rel_err": err, "bit_identical": same,
+                         "shares": shares, "planted": planted,
+                         "launches": counts,
+                         "plan": plan}
+        del progs, images
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # placement, bf16, on two cards
+        if n_cards > 1:
+            t0 = time.perf_counter()
+            two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+            pseeds, ppsis = (seeds[:FLEET_PLACEMENT_REQUESTS],
+                             psis[:FLEET_PLACEMENT_REQUESTS])
+            images, pshares = fleet_serve(bundle, two, pseeds, ppsis,
+                                          precision="bf16", wave=2)
+            alone = ServePrograms(bundle, buckets=SERVICE_BUCKETS,
+                                  serve_precision="bf16")
+            perr, psame = hold_alone(alone, pseeds, ppsis, images)
+            kerr, ktol = modconv_on_second_card(cfg)
+            print(f"  placement (bf16, {len(pseeds)} requests through "
+                  f"cuda:0 and cuda:1 in pairs): largest rel_err against "
+                  f"each alone on cuda:0 {perr:.4e} (gate {tol:.1e}); "
+                  f"bit-identical: {psame}; requests per card {pshares}; "
+                  f"one modconv forward (the wgmma path) on a cuda:1 "
+                  f"tensor launched from the main thread with cuda:0 "
+                  f"current: max|err| "
+                  f"{kerr:.3e} (tol {ktol:.1e}); "
+                  f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+            if not math.isfinite(perr) or perr > tol:
+                fail(f"fleet placement: rel_err {perr:.4e} > {tol:.1e}")
+            why = share_gate(pshares)
+            if why:
+                fail(f"fleet placement: {why}")
+            out["placement"] = {"rel_err": perr, "bit_identical": psame,
+                                "shares": pshares, "modconv_err": kerr}
+            del alone, images
+        else:
+            print("  placement: not exercised (one card; the four-card "
+                  "run holds it)", flush=True)
+
+        # autoscale drill, bf16
+        c = run_chaos(bundle, SERVICE_BUCKETS, serve_precision="bf16",
+                      replicas=1, max_replicas=2, autoscale=True,
+                      devices=members, **FLEET_DRILL)
+        a = c["autoscale"]
+        print(f"  autoscale drill (bf16, 1 to 2 replicas, queue depth "
+              f"{c['queue_bound']} each, burst {c['burst']} over the "
+              f"pressure window, raise@serve_dispatch at batch "
+              f"{c['crash_at_batch']}): scale-out {a['scale_out_fired']}, "
+              f"scale-in {a['scale_in_fired']}, breaker trips "
+              f"{a['breaker_trips']}, scale-out before any trip "
+              f"{a['scale_out_before_breaker']}, peak replicas "
+              f"{a['peak_replicas']}; shed {c['shed']}, served "
+              f"{c['served']}, failed {c['failed']}, hung "
+              f"{c['hung_tickets']}, restarts {c['dispatcher_restarts']}; "
+              f"p50/p99 under overload {c['p50_ms_under_overload']}/"
+              f"{c['p99_ms_under_overload']} ms; health after "
+              f"{c['health']['state']}; {c['duration_s']} s ({card})",
+              flush=True)
+        why = autoscale_gate(c)
+        if why:
+            fail(f"fleet autoscale drill: {why}")
+        out["autoscale"] = c
+
+        # SLO budgets over what the phase wrote
+        reqtrace.get_reqtracer().flush()
+        registry.get_registry().write_prom(os.path.join(root,
+                                                        "telemetry.prom"))
+        report = evaluate_slos(root)
+        print("  SLO budgets over the phase's requests.jsonl ("
+              f"{report['rows']} rows):", flush=True)
+        for line in render_slos(report).splitlines():
+            print(f"    {line}", flush=True)
+        why = slo_gate(report)
+        if why:
+            fail(f"fleet SLO report: {why}")
+        out["slo"] = report
+    finally:
+        reqtrace.configure_reqtrace(None)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def modconv_on_second_card(cfg):
+    """One bf16 modconv forward of the serve path (the flagship 3x3 at
+    batch 8) on cuda:1 tensors, launched while cuda:0 is current, against
+    its plain version: (max|err|, tolerance).  The launch runs
+    ``fwd_wgmma_kernel``, whose shared-memory opt-in must hold on
+    cuda:1."""
+    import torch
+
+    from gansformer_tpu_torch.ops import cuda_modconv
+
+    call = next(c for c in main_path_calls(cfg, 8)
+                if c["kernel"] == "modconv" and c["label"] == FLAGSHIP[0])
+    path, _ = fwd_plan(call, torch.bfloat16, "cuda:1")
+    if path != cuda_modconv.PATH_WGMMA:
+        fail(f"the placement check's modconv forward takes path {path}, "
+             f"not the wgmma path")
+    gen = torch.Generator(device="cuda:1").manual_seed(1234)
+    with torch.cuda.device(0):
+        case = build_case(call, torch.bfloat16, gen, dev="cuda:1")
+        got = case["kernel"]()
+        ref = case["plain"]()
+        torch.cuda.synchronize(1)
+        (err,), (tol,) = compare(got, ref, case["outputs"], "bfloat16",
+                                 "modconv forward on cuda:1")
+        if got.device != torch.device("cuda", 1):
+            fail(f"modconv forward on cuda:1 gave a tensor on {got.device}")
+    return err, tol
 
 
 # --------------------------------------------------------------------------
@@ -4128,6 +4511,13 @@ def main() -> int:
           f"{'/'.join(map(str, SERVICE_BUCKETS))}):", flush=True)
     t0 = time.perf_counter()
     service_phase(card, 8 / synth_s)
+    print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    print(f"the replica fleet ({SERVICE_PRESET}, random init, buckets "
+          f"{'/'.join(map(str, SERVICE_BUCKETS))}):", flush=True)
+    t0 = time.perf_counter()
+    fleet_phase(card)
+    fleet_cli(card)
     print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     print(f"serve phases took {time.perf_counter() - t_start:.1f} s",

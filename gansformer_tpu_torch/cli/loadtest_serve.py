@@ -15,6 +15,17 @@ request after the crash into the crashed batch); it reports the
 shed and expired rates, p50 / p99 under overload, the dispatcher
 restarts, the recovery time and the hung tickets (which must be 0).
 
+With ``--replicas`` above 1 or ``--autoscale`` both runs go through a
+``serve.ReplicaSet`` (a replica per visible card): the load run adds
+``peak_replicas``, ``chips_used``, ``img_s_per_chip`` and a
+``per_replica`` report (requests, images, images/s, batch fill, batch
+time and dispatch share of each member, from counter differences); the
+chaos run with ``--autoscale`` becomes JAX's autoscale drill: a twitchy
+controller, a burst held for ``pressure_s`` so that the controller sees
+saturated ticks in a row, and an ``autoscale`` section that shows the
+scale-out before any breaker trip and the scale-in after recovery.  The
+one-service chaos run keeps its recovery wave of one request at a time.
+
 The script exits 0 whenever the JSON artifact is written: verdicts live
 in the artifact (``prom_ok``, ``hung_tickets``, ``trace_coverage``),
 never in the exit code.  Counts and means of the registry are taken as
@@ -26,10 +37,11 @@ differences over the run, since the registry is process-global.
         ffhq256-duplex --requests 300 --rate 100 --json-out load.json
     python -m gansformer_tpu_torch.cli.loadtest_serve --tiny --device cpu \\
         --chaos --queue-depth 8 --json-out chaos.json
+    python -m gansformer_tpu_torch.cli.loadtest_serve --preset \\
+        ffhq256-duplex --chaos --autoscale --max-replicas 2 \\
+        --json-out drill.json
 
-``--replicas`` above 1, ``--max-replicas`` and ``--autoscale`` come with
-the replica fleet (ROADMAP A.4c) and are refused with words.  Runs on
-the card unless ``--device cpu``.
+Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -74,10 +86,11 @@ def trace_coverage_of(tickets):
              "ok": not rt.enabled or not missing}, terminal_rows)
 
 
-def device_info(programs) -> dict:
+def device_info(on) -> dict:
+    """The card (or host) that ``on``, a bundle or programs, lies on."""
     import torch
 
-    dev = programs.device
+    dev = on.device
     if dev.type == "cuda":
         return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
                 "count": torch.cuda.device_count()}
@@ -91,30 +104,85 @@ def _delta(snap0, snap1, kind: str, name: str, key: str = None) -> float:
     return (b.get(key) or 0.0) - (a.get(key) or 0.0)
 
 
+def per_replica_report(snap0, snap1, wall_s, ordinals):
+    """Each member's requests, images, images/s, mean batch fill, mean
+    batch time and dispatch share, from the differences of two registry
+    snapshots (the registry is process-global and cumulative)."""
+    def c_delta(name):
+        return (snap1["counters"].get(name, 0.0)
+                - snap0["counters"].get(name, 0.0))
+
+    def h_delta(name):
+        h1 = snap1["histograms"].get(name, {})
+        h0 = snap0["histograms"].get(name, {})
+        dn = (h1.get("count") or 0) - (h0.get("count") or 0)
+        ds = (h1.get("sum") or 0.0) - (h0.get("sum") or 0.0)
+        return (ds / dn) if dn > 0 else None
+
+    total_req = sum(
+        c_delta(f"serve/replica{i}/requests_total") for i in ordinals)
+    out = {}
+    for i in ordinals:
+        imgs = c_delta(f"serve/replica{i}/images_total")
+        req = c_delta(f"serve/replica{i}/requests_total")
+        out[str(i)] = {
+            "requests": req,
+            "images": imgs,
+            "img_per_s": round(imgs / max(wall_s, 1e-9), 2),
+            "batch_fill_mean": h_delta(f"serve/replica{i}/batch_fill"),
+            "batch_ms_mean": h_delta(f"serve/replica{i}/batch_ms"),
+            "dispatch_share": round(req / total_req, 4) if total_req
+            else 0.0,
+        }
+    return out
+
+
+# JAX's drill controller: twitchy, so that it acts within the pressure
+# window rather than on a fleet's timescale
+DRILL_AUTOSCALE = dict(autoscale_interval_s=0.05, scale_out_saturation=0.6,
+                       scale_out_ticks=2, scale_in_fill=0.5,
+                       scale_in_ticks=4, cooldown_s=0.3)
+
+
 def run_chaos(bundle, buckets, queue_depth=8, burst_factor=4,
               crash_at_batch=2, deadline_s=None, zipf_s=1.1,
               seed_universe=64, manifest_dir=None, fill_wait_ms=0.0,
               wcache=4096, seed=0, restart_backoff_s=0.05,
-              grace_s=60.0, serve_precision="f32"):
+              grace_s=60.0, replicas=1, autoscale=False,
+              max_replicas=None, serve_precision="f32", pressure_s=0.8,
+              devices=None):
     """The overload drill: ``burst_factor × queue_depth`` requests back
     to back into a bounded queue, with one injected dispatcher crash at
     batch ``crash_at_batch``, then a recovery wave of ``queue_depth``
-    requests, each sent when the one before it has settled.  Returns the artifact (shed / expired /
-    cancelled counts and rates, p50 / p99 of the burst's served tickets,
-    restarts, recovery time, hung tickets, trace coverage, health)."""
+    requests.  Returns the artifact (shed / expired / cancelled counts
+    and rates, p50 / p99 of the burst's served tickets, restarts,
+    recovery time, hung tickets, trace coverage, health).
+
+    One service sends the recovery wave one request at a time, each when
+    the one before it has settled.  With ``replicas`` above 1 or
+    ``autoscale`` the drill runs on a ``ReplicaSet`` (over ``devices``
+    where given) as JAX's does: the controller of ``DRILL_AUTOSCALE``,
+    the burst resubmitted for ``pressure_s`` so the queues stay
+    saturated, the recovery wave paced 2 ms apart, then up to 6 s for the
+    scale-in; the artifact's ``autoscale`` section carries the order of
+    the events (the scale-out before any breaker trip, the scale-in
+    after recovery)."""
     import numpy as np
 
     from gansformer_tpu_torch.obs import registry as telemetry
     from gansformer_tpu_torch.serve import (Cancelled, Expired,
                                             GenerationService, Overloaded,
-                                            ServeError, ServePrograms)
+                                            ReplicaSet, ServeError,
+                                            ServePrograms)
     from gansformer_tpu_torch.supervise import faults
 
     rng = np.random.RandomState(seed)
-    programs = ServePrograms(bundle, buckets=buckets,
-                             manifest_dir=manifest_dir,
-                             serve_precision=serve_precision)
-    warm = programs.warm_start()
+    fleet = replicas > 1 or autoscale
+    if not fleet:
+        programs = ServePrograms(bundle, buckets=buckets,
+                                 manifest_dir=manifest_dir,
+                                 serve_precision=serve_precision)
+        warm = programs.warm_start()
     n_req = int(burst_factor * queue_depth)
     seeds = zipf_choice(rng, np.arange(1, seed_universe + 1), n_req,
                         zipf_s)
@@ -146,24 +214,51 @@ def run_chaos(bundle, buckets, queue_depth=8, burst_factor=4,
         if crash_at_batch:
             faults.arm(faults.parse_specs(
                 f"raise@serve_dispatch:batch={int(crash_at_batch)}"))
-        svc = GenerationService(
-            programs, max_fill_wait_ms=fill_wait_ms,
-            wcache_capacity=wcache, max_queue_depth=queue_depth,
-            default_deadline_s=deadline_s,
+        service_kwargs = dict(
+            max_fill_wait_ms=fill_wait_ms, wcache_capacity=wcache,
+            max_queue_depth=queue_depth, default_deadline_s=deadline_s,
             restart_backoff_base_s=restart_backoff_s)
-        for i in range(n_req):
-            try:
-                tickets.append(svc.submit(int(seeds[i])))
-            except Overloaded:
-                shed += 1
-            except ServeError:
-                refused += 1
+        if fleet:
+            svc = ReplicaSet(
+                bundle, buckets=buckets, manifest_dir=manifest_dir,
+                serve_precision=serve_precision, replicas=replicas,
+                min_replicas=replicas, max_replicas=max_replicas,
+                autoscale=autoscale, service_kwargs=service_kwargs,
+                devices=devices, **DRILL_AUTOSCALE)
+            warm = svc.warm_start()
+        else:
+            svc = GenerationService(programs, **service_kwargs)
+        burst_submitted = 0
+        if fleet and autoscale:
+            # sustained pressure: a single burst can drain between two
+            # controller ticks, so the Zipf stream is resubmitted for the
+            # whole window; a shed paces the loop
+            pressure_end = time.perf_counter() + pressure_s
+            i = 0
+            while (time.perf_counter() < pressure_end
+                   or burst_submitted < n_req):
+                try:
+                    tickets.append(svc.submit(int(seeds[i % n_req])))
+                except Overloaded:
+                    shed += 1
+                    time.sleep(0.002)
+                except ServeError:
+                    refused += 1
+                    time.sleep(0.002)
+                i += 1
+                burst_submitted += 1
+                if burst_submitted >= n_req * 64:     # a runaway bound
+                    break
+        else:
+            for i in range(n_req):
+                try:
+                    tickets.append(svc.submit(int(seeds[i])))
+                except Overloaded:
+                    shed += 1
+                except ServeError:
+                    refused += 1
+            burst_submitted = n_req
         settle(tickets, time.perf_counter() + grace_s)
-        # the recovery wave, one request at a time: every request is a
-        # batch of its own, so the crash fires even when the burst fits
-        # one bucket, and requests follow it to measure the service after
-        # it (requests paced a few ms apart would queue behind a slow
-        # batch and could all land in the crashed one)
         recovery_wave = []
         n_wave2 = max(2, int(queue_depth))
         deadline = time.perf_counter() + grace_s
@@ -176,11 +271,32 @@ def run_chaos(bundle, buckets, queue_depth=8, burst_factor=4,
             except ServeError:
                 refused += 1
             else:
-                settle(recovery_wave[-1:], deadline)
+                if fleet:
+                    time.sleep(0.002)
+                else:
+                    # one request at a time: every request is a batch of
+                    # its own, so the crash fires even when the burst
+                    # fits one bucket, and requests follow it to measure
+                    # the service after it (requests paced a few ms
+                    # apart would queue behind a slow batch and could
+                    # all land in the crashed one)
+                    settle(recovery_wave[-1:], deadline)
+        if fleet:
+            settle(recovery_wave, deadline)
         burst_tickets = list(tickets)
         tickets += recovery_wave
         recovered = sum(1 for t in recovery_wave if t.state == "done")
+        if fleet and autoscale:
+            # recovery is over (empty queues, batches mostly padding):
+            # the hysteresis bounds how soon the controller may scale in,
+            # so poll for it
+            poll_end = time.perf_counter() + 6.0
+            while time.perf_counter() < poll_end:
+                if any(e["kind"] == "scale_in" for e in svc.events):
+                    break
+                time.sleep(0.05)
         health = svc.health()
+        scale_events = list(svc.events) if fleet else []
     finally:
         if svc is not None:
             svc.close(timeout=grace_s)
@@ -204,13 +320,13 @@ def run_chaos(bundle, buckets, queue_depth=8, burst_factor=4,
             recovery_ms = round((after[0] - min(fails)) * 1000.0, 1)
     # the burst's served tickets only: "under overload"
     lats = sorted(t.latency_ms for t in burst_tickets if t.state == "done")
-    submitted = n_req + n_wave2
-    return {
+    submitted = burst_submitted + n_wave2
+    result = {
         "mode": "chaos", "buckets": list(buckets),
         "queue_bound": queue_depth, "burst_factor": burst_factor,
         "crash_at_batch": crash_at_batch, "deadline_s": deadline_s,
-        "serve_precision": serve_precision, "replicas": 1,
-        "submitted": submitted, "burst": n_req,
+        "serve_precision": serve_precision, "replicas": replicas,
+        "submitted": submitted, "burst": burst_submitted,
         "accepted": len(tickets), "shed": shed,
         "refused_unhealthy": refused,
         "shed_rate": round(shed / max(submitted, 1), 4),
@@ -234,30 +350,58 @@ def run_chaos(bundle, buckets, queue_depth=8, burst_factor=4,
         "warm_start": {k: (round(v, 3) if k == "seconds" else v)
                        for k, v in warm.items()},
         "duration_s": round(wall_s, 3),
-        "device": device_info(programs),
+        "device": device_info(bundle),
     }
+    if fleet:
+        # the leading signal (saturation, scale-out) before the trailing
+        # one (a breaker trip); the scale-in after recovery
+        outs = [e["t"] for e in scale_events if e["kind"] == "scale_out"]
+        ins = [e["t"] for e in scale_events if e["kind"] == "scale_in"]
+        trips = [e["t"] for e in scale_events
+                 if e["kind"] == "breaker_trip"]
+        result["autoscale"] = {
+            "enabled": bool(autoscale),
+            "scale_out_fired": len(outs),
+            "scale_in_fired": len(ins),
+            "breaker_trips": len(trips),
+            "scale_out_before_breaker":
+                bool(outs) and (not trips or min(outs) < min(trips)),
+            "scaled_in_after_load": bool(ins),
+            "peak_replicas": max(
+                [e["n_active"] for e in scale_events
+                 if e["kind"] == "scale_out"] + [replicas]),
+            "events": scale_events[-16:],
+        }
+    return result
 
 
 def run_loadtest(bundle, buckets, requests, rate, duration_s,
                  zipf_s=1.1, seed_universe=512, manifest_dir=None,
                  psis=(0.7, 0.5, 1.0, 0.8), fill_wait_ms=2.0,
                  wcache=4096, seed=0, measure_cold=True,
-                 serve_precision="f32", quant_report=False):
+                 serve_precision="f32", replicas=1, autoscale=False,
+                 max_replicas=None, quant_report=False, devices=None):
     """The load run; returns the artifact.  ``measure_cold`` first readies
     a fresh ``ServePrograms`` on ``manifest_dir`` (on the card: the kernel
     library's build when the manifest is empty and this process has not
     loaded it) and times its first image; ``quant_report`` attaches the
-    cost / fidelity report of bf16 and int8w against f32."""
+    cost / fidelity report of bf16 and int8w against f32.  With
+    ``replicas`` above 1 or ``autoscale`` the requests go through a
+    ``ReplicaSet`` (over ``devices`` where given), and the artifact adds
+    ``peak_replicas`` and ``per_replica``; ``chips_used`` is the most
+    members that served at once."""
     import numpy as np
 
     from gansformer_tpu_torch.obs import registry as telemetry
-    from gansformer_tpu_torch.serve import GenerationService, ServePrograms
+    from gansformer_tpu_torch.serve import (GenerationService, ReplicaSet,
+                                            ServePrograms)
 
     rng = np.random.RandomState(seed)
+    fleet = replicas > 1 or autoscale
     result = {"buckets": list(buckets), "zipf_s": zipf_s,
               "seed_universe": seed_universe, "psi_menu": list(psis),
               "rate_rps": rate, "serve_precision": serve_precision,
-              "replicas": 1, "autoscale": False}
+              "replicas": replicas, "autoscale": bool(autoscale)}
 
     def first_image_ms(programs) -> float:
         with GenerationService(programs, max_fill_wait_ms=0.0,
@@ -312,12 +456,21 @@ def run_loadtest(bundle, buckets, requests, rate, duration_s,
 
     tickets = []
     snap0 = telemetry.get_registry().snapshot()
+    peak_replicas = replicas
     t_start = time.perf_counter()
     # latency under admission, not shedding: the bound holds every
     # request (overload is run_chaos's)
-    svc = GenerationService(programs, max_fill_wait_ms=fill_wait_ms,
-                            wcache_capacity=wcache,
-                            max_queue_depth=requests + 8)
+    service_kwargs = dict(max_fill_wait_ms=fill_wait_ms,
+                          wcache_capacity=wcache,
+                          max_queue_depth=requests + 8)
+    if fleet:
+        svc = ReplicaSet(bundle, buckets=buckets, manifest_dir=manifest_dir,
+                         serve_precision=serve_precision, replicas=replicas,
+                         max_replicas=max_replicas, autoscale=autoscale,
+                         service_kwargs=service_kwargs, devices=devices)
+        svc.warm_start()
+    else:
+        svc = GenerationService(programs, **service_kwargs)
     try:
         # open loop: arrival i is due at the sum of the gaps before it
         due = t_start
@@ -326,11 +479,20 @@ def run_loadtest(bundle, buckets, requests, rate, duration_s,
                 break
             tickets.append(svc.submit(int(seeds[i]),
                                       psi=float(psi_mix[i])))
+            if fleet:
+                peak_replicas = max(peak_replicas, svc.n_active)
             if rate > 0:
                 due += float(gaps[i])
                 time.sleep(max(0.0, due - time.perf_counter()))
         images = [t.result(timeout=max(60.0, duration_s)) for t in tickets]
         wall_s = time.perf_counter() - t_start
+        if fleet:
+            peak_replicas = max(peak_replicas, svc.n_active)
+            ordinals = [r.ordinal for r in svc._replicas]
+            # cards that served, not cards present (members may share one)
+            chips_used = len(set(svc._devices[:peak_replicas]))
+        else:
+            chips_used = 1
     finally:
         svc.close(timeout=max(60.0, duration_s))
 
@@ -353,8 +515,9 @@ def run_loadtest(bundle, buckets, requests, rate, duration_s,
         "p99_ms": round(percentile(lats, 99), 2),
         "mean_ms": round(float(sum(lats)) / max(len(lats), 1), 2),
         "img_per_s": round(len(images) / max(wall_s, 1e-9), 2),
-        "chips_used": 1,
-        "img_s_per_chip": round(len(images) / max(wall_s, 1e-9), 2),
+        "chips_used": chips_used,
+        "img_s_per_chip": round(
+            len(images) / max(wall_s, 1e-9) / max(chips_used, 1), 2),
         "img_per_s_per_chip": round(
             len(images) / max(wall_s, 1e-9) / result["device"]["count"], 2),
         "batch_fill_mean": round(mean("serve/batch_fill"), 4),
@@ -369,6 +532,10 @@ def run_loadtest(bundle, buckets, requests, rate, duration_s,
     })
     coverage, _ = trace_coverage_of(tickets)
     result["trace_coverage"] = coverage
+    if fleet:
+        result["peak_replicas"] = peak_replicas
+        result["per_replica"] = per_replica_report(snap0, snap, wall_s,
+                                                   ordinals)
     ranked = sorted((t for t in tickets if t.state == "done"),
                     key=lambda t: -t.latency_ms)
     result["worst_requests"] = [
@@ -395,6 +562,11 @@ SERVE_FAMILIES = (
     "reqtrace_terminal_total", "reqtrace_dropped_total",
     "reqtrace_ledger_rows_total", "reqtrace_ledger_dropped_total",
     "reqtrace_enabled")
+# every fleet member's families (``serve_replica<i>_<family>``)
+FLEET_MEMBER_FAMILIES = ("health_state", "dispatcher_alive",
+                         "queue_depth_now", "queue_bound", "requests_total",
+                         "images_total", "batch_ms_count",
+                         "batch_fill_count")
 
 
 def check_prom(path: str) -> List[str]:
@@ -435,9 +607,13 @@ def check_prom(path: str) -> List[str]:
 
 def check_serve_metric_families(path: str,
                                 expect_overload: bool = False) -> List[str]:
-    """A single service's prom: every serving and tracing family present;
-    served traffic left latency samples; traces opened and reached
-    terminals; driven overload moved ``serve_shed_total``."""
+    """A service's prom: every serving and tracing family present; served
+    traffic left latency samples; traces opened and reached terminals;
+    driven overload moved ``serve_shed_total``.  A fleet's prom
+    (``serve_replicas`` present) also holds the scale counters and every
+    member's families, and a member that delivered images has batch
+    time samples."""
+    from gansformer_tpu_torch.cli.serve import serve_replica_ordinals
     from gansformer_tpu_torch.obs.registry import parse_prom_values
 
     vals = parse_prom_values(path)
@@ -462,6 +638,30 @@ def check_serve_metric_families(path: str,
                       f"{vals.get('serve_queue_bound', 0.0):g}) but "
                       f"serve_shed_total never moved — is admission "
                       f"control wired?")
+    if "serve_replicas" in vals:
+        for name in ("serve_scale_out_total", "serve_scale_in_total"):
+            if name not in vals:
+                errors.append(f"{path}: fleet prom (serve_replicas "
+                              f"present) missing {name} (is the "
+                              f"autoscaler telemetry wired?)")
+        ords = serve_replica_ordinals(vals)
+        if not ords:
+            errors.append(f"{path}: serve_replicas = "
+                          f"{vals['serve_replicas']:g} but no "
+                          f"serve_replica<i>_* member families — "
+                          f"replica metric redirection rotted")
+        for i in ords:
+            for member in FLEET_MEMBER_FAMILIES:
+                name = f"serve_replica{i}_{member}"
+                if name not in vals:
+                    errors.append(f"{path}: replica {i} missing member "
+                                  f"family {name}")
+            if vals.get(f"serve_replica{i}_images_total", 0.0) > 0 and \
+                    vals.get(f"serve_replica{i}_batch_ms_count", 0.0) <= 0:
+                errors.append(
+                    f"{path}: replica {i} delivered images but its "
+                    f"serve_replica{i}_batch_ms histogram has no "
+                    f"samples — per-replica attribution rotted")
     return errors
 
 
@@ -587,7 +787,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wcache", type=int, default=4096)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--replicas", type=int, default=1,
-                   help="serving replicas (1; more come with the fleet)")
+                   help="serving replicas, one per visible card (>1 "
+                        "routes through serve.ReplicaSet)")
+    p.add_argument("--max-replicas", type=int, default=None,
+                   help="autoscaler ceiling (default: every visible card)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="run the autoscaler (with --chaos: the "
+                        "scale-out-before-breaker drill)")
     p.add_argument("--serve-precision", default="f32",
                    choices=("f32", "bf16", "int8w"))
     p.add_argument("--quant-report", action="store_true",
@@ -626,12 +832,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    import sys
-
-    from gansformer_tpu_torch.cli.serve import refuse_later_flags
-
-    argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_later_flags(argv)
     args = build_parser().parse_args(argv)
 
     from gansformer_tpu_torch.core.config import ModelConfig, get_preset
@@ -685,7 +885,9 @@ def main(argv=None) -> int:
             deadline_s=args.deadline_s, zipf_s=args.zipf_s,
             seed_universe=args.seed_universe, manifest_dir=manifest_dir,
             fill_wait_ms=args.fill_wait_ms, wcache=args.wcache,
-            seed=args.seed, serve_precision=args.serve_precision)
+            seed=args.seed, replicas=args.replicas,
+            autoscale=args.autoscale, max_replicas=args.max_replicas,
+            serve_precision=args.serve_precision)
     else:
         result = run_loadtest(
             bundle, buckets, requests=args.requests, rate=args.rate,
@@ -693,7 +895,8 @@ def main(argv=None) -> int:
             seed_universe=args.seed_universe, manifest_dir=manifest_dir,
             fill_wait_ms=args.fill_wait_ms, wcache=args.wcache,
             seed=args.seed, serve_precision=args.serve_precision,
-            quant_report=args.quant_report)
+            replicas=args.replicas, autoscale=args.autoscale,
+            max_replicas=args.max_replicas, quant_report=args.quant_report)
 
     prom_path = args.prom_out or (os.path.join(out_dir, "telemetry.prom")
                                   if out_dir else None)

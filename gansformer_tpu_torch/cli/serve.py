@@ -5,6 +5,8 @@
         [--serve-precision f32|bf16|int8w] [--buckets 1,4,8] [--images 8]
     python -m gansformer_tpu_torch.cli.serve --init random \\
         --preset ffhq256-duplex --images 16 --serve-precision bf16
+    python -m gansformer_tpu_torch.cli.serve --init random \\
+        --preset ffhq256-duplex --images 16 --replicas 2 --autoscale
     python -m gansformer_tpu_torch.cli.serve --warm-only [--manifest-dir D]
 
 Cold start: the G-only restore of ``--run-dir`` (a run dir of either
@@ -22,18 +24,22 @@ raised to hold the demo's own burst; deadlines ``--deadline-s``; the
 SIGTERM drain and ``close`` within ``--grace-s``): the first request
 alone (``first_image_ms`` covers the library's load or build and that
 request), then the rest at once, each ticket waited on for up to 600 s.
-It writes ``served_grid.png`` and ``telemetry.prom`` into ``--out`` and
-prints one JSON line with the JAX CLI's keys: the service's ``health``,
-``replicas`` (1) and ``autoscale`` (false), the ``serve/*`` counters and
-``e2e_ms`` (count, mean, min, max of ``serve/e2e_ms``).
+With ``--replicas`` above 1 or ``--autoscale`` they go through a
+``serve.ReplicaSet`` instead: a replica per visible card (the CPU with
+``--device cpu``), least-loaded routing, and with ``--autoscale`` the
+controller between 1 (or ``--replicas``) and ``--max-replicas`` (default:
+every card); a ``--warm-only`` fleet drains before it exits.  It writes
+``served_grid.png`` and ``telemetry.prom`` into ``--out`` and prints one
+JSON line with the JAX CLI's keys: the service's (or fleet's)
+``health``, ``replicas`` (the fleet's active members) and ``autoscale``,
+the ``serve/*`` counters and ``e2e_ms`` (count, mean, min, max of
+``serve/e2e_ms``).
 
 ``--healthcheck PROM`` grades a service's ``telemetry.prom`` (a file, or
 a directory holding one) without touching the card: it prints the
 verdict as JSON and exits 0 unless the service is unhealthy, its
 dispatcher is dead with work queued, or (``--health-max-age``) the file
-is older than that many seconds.  ``--replicas`` above 1,
-``--max-replicas`` and ``--autoscale`` come with the replica fleet
-(ROADMAP A.4c) and are refused with words.
+is older than that many seconds.
 
 Runs on the card unless ``--device cpu``; without a card it raises.
 """
@@ -45,18 +51,11 @@ import json
 import os
 import re
 import shutil
-import sys
 import tempfile
 import time
 from typing import List, Optional
 
 import numpy as np
-
-# JAX serve flags of the replica fleet, which this CLI does not take yet
-# (--replicas only above 1).
-_A4C = "comes with the replica fleet (ROADMAP A.4c)"
-LATER_FLAGS = {"--replicas": _A4C, "--max-replicas": _A4C,
-               "--autoscale": _A4C}
 
 # The JAX package's serving health vocabulary and fleet readers
 # (``gansformer_tpu/analysis/telemetry_schema.py``), kept here so the
@@ -145,20 +144,6 @@ def healthcheck(path: str, max_age_s=None) -> int:
     return 0 if out["ok"] else 1
 
 
-def refuse_later_flags(argv: List[str]) -> None:
-    """SystemExit, with words, for a flag of the replica fleet."""
-    for i, a in enumerate(argv):
-        flag, eq, val = a.partition("=")
-        if flag not in LATER_FLAGS:
-            continue
-        if flag == "--replicas":
-            val = val if eq else (argv[i + 1] if i + 1 < len(argv) else "")
-            if val.strip() == "1":
-                continue
-        raise SystemExit(f"{flag}: not in the PyTorch port yet; it "
-                         f"{LATER_FLAGS[flag]}")
-
-
 def demo_seeds(seed: int, n: int) -> np.ndarray:
     """The JAX CLI's Zipfian demo mix: a few hot seeds and a long tail,
     so the demo exercises the w cache as real traffic would."""
@@ -204,8 +189,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wcache", type=int, default=4096,
                    help="w-cache capacity (rows)")
     p.add_argument("--replicas", type=int, default=1,
-                   help="serving replicas (1: one service on the card; "
-                        "more come with the replica fleet)")
+                   help="serving replicas, one per visible card (>1 "
+                        "routes through serve.ReplicaSet)")
+    p.add_argument("--max-replicas", type=int, default=None,
+                   help="autoscaler ceiling (default: every visible "
+                        "card)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="scale replicas out on sustained queue "
+                        "saturation, in on batch-fill collapse")
     p.add_argument("--queue-depth", type=int, default=256,
                    help="admission queue bound (over-depth submits shed "
                         "with a typed Overloaded)")
@@ -226,21 +217,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _serve(args, programs, summary, out_dir, t_first0) -> None:
-    """The demo requests through one ``GenerationService``: the first
-    alone, then the rest; writes the grid and telemetry.prom, fills
-    ``summary``."""
+def _serve(args, svc, summary, out_dir, t_first0) -> None:
+    """The demo requests through ``svc`` (a ``GenerationService`` or a
+    ``ReplicaSet``): the first alone, then the rest; writes the grid and
+    telemetry.prom, fills ``summary``."""
     from gansformer_tpu_torch.obs import registry as telemetry
-    from gansformer_tpu_torch.serve import GenerationService
     from gansformer_tpu_torch.utils.image import save_image_grid
 
     os.makedirs(out_dir, exist_ok=True)
     seeds = [int(s) for s in demo_seeds(args.seed, args.images)]
-    # the demo submits its whole list at once: the bound sits above it
-    svc = GenerationService(
-        programs, wcache_capacity=args.wcache,
-        max_queue_depth=max(args.queue_depth, args.images + 1),
-        default_deadline_s=args.deadline_s)
     svc.install_signal_drain(grace_s=args.grace_s)
     try:
         first = svc.submit(seeds[0], psi=args.psi)
@@ -266,8 +251,6 @@ def _serve(args, programs, summary, out_dir, t_first0) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_later_flags(argv)
     args = build_parser().parse_args(argv)
     if args.healthcheck:
         return healthcheck(args.healthcheck, max_age_s=args.health_max_age)
@@ -276,7 +259,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from gansformer_tpu_torch.core.config import get_preset
     from gansformer_tpu_torch.core.device import resolve_device
-    from gansformer_tpu_torch.serve import (ServePrograms,
+    from gansformer_tpu_torch.serve import (GenerationService, ReplicaSet,
+                                            ServePrograms,
                                             default_manifest_dir,
                                             init_generator, load_generator,
                                             sorted_buckets)
@@ -303,18 +287,40 @@ def main(argv: Optional[List[str]] = None) -> int:
                  if args.no_warm_start else None)
     manifest_dir = None if args.no_warm_start else (
         args.manifest_dir or default_manifest_dir())
+    # fleet mode: more than one replica, or the autoscaler, routes
+    # through a ReplicaSet; one replica keeps the single service
+    fleet = args.replicas > 1 or args.autoscale
+    # the demo submits its whole list at once: the bound sits above it
+    service_kwargs = dict(
+        wcache_capacity=args.wcache,
+        max_queue_depth=max(args.queue_depth, args.images + 1),
+        default_deadline_s=args.deadline_s)
+    programs_kwargs = dict(buckets=buckets,
+                           manifest_dir=manifest_dir or build_dir,
+                           warm_start=not args.no_warm_start,
+                           serve_precision=args.serve_precision)
+    rs = None
     try:
-        programs = ServePrograms(bundle, buckets=buckets,
-                                 manifest_dir=manifest_dir or build_dir,
-                                 warm_start=not args.no_warm_start,
-                                 serve_precision=args.serve_precision)
-        t_first0 = time.perf_counter()
-        warm = programs.warm_start()
+        if fleet:
+            try:
+                rs = ReplicaSet(bundle, replicas=args.replicas,
+                                max_replicas=args.max_replicas,
+                                autoscale=args.autoscale,
+                                service_kwargs=service_kwargs,
+                                **programs_kwargs)
+            except ValueError as e:
+                raise SystemExit(str(e))
+            t_first0 = time.perf_counter()
+            warm = rs.warm_start()
+        else:
+            programs = ServePrograms(bundle, **programs_kwargs)
+            t_first0 = time.perf_counter()
+            warm = programs.warm_start()
         summary = {
             "buckets": list(buckets),
             "serve_precision": args.serve_precision,
-            "replicas": 1,
-            "autoscale": False,
+            "replicas": rs.n_active if fleet else 1,
+            "autoscale": bool(args.autoscale),
             "restore_ms": round(load_ms, 1),
             "warm_start": {"loaded": warm["loaded"],
                            "compiled": warm["compiled"],
@@ -333,8 +339,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                     f"pre-bake the manifest, and drive conditional "
                     f"requests through serve.GenerationService.submit("
                     f"label=...)")
-            _serve(args, programs, summary, out_dir, t_first0)
+            svc = rs if fleet else GenerationService(programs,
+                                                     **service_kwargs)
+            _serve(args, svc, summary, out_dir, t_first0)
     finally:
+        if rs is not None:
+            # a --warm-only fleet (or one that failed) drains here
+            rs.close(timeout=args.grace_s)
         if build_dir is not None:
             shutil.rmtree(build_dir, ignore_errors=True)
     print(json.dumps(summary, sort_keys=True))

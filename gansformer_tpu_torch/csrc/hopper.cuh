@@ -440,6 +440,9 @@ __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16* hi,
 // ---- host side: tensor maps and shared-memory opt-in ----------------------
 
 // Dynamic shared memory of a launch, checked against the card's limit.
+// cudaFuncSetAttribute acts on the current device only, so a launcher
+// calls this at every launch and never keeps its result in a static:
+// a result cached on one device would skip the opt-in on the others.
 constexpr int kMaxSmem = 232448;
 
 template <typename Kernel>

@@ -623,7 +623,8 @@ int launch_wgmma(const void* x, const void* w, const float* s,
                  const Taps& taps, int P, int act, float alpha, float gain,
                  cudaStream_t st) {
   constexpr int smem = fwd_smem_bytes<BN>();
-  static const int attr = set_smem(fwd_wgmma_kernel<BN>, smem);
+  // the opt-in belongs to the current device: made at every launch
+  const int attr = set_smem(fwd_wgmma_kernel<BN>, smem);
   if (attr != 0) return attr;
   // x in boxes of 64 channels x 128 consecutive pixels: bw x bh pixels of
   // bn samples

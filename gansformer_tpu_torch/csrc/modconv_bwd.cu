@@ -876,7 +876,8 @@ int launch_dx(const void* du, const void* wt, const float* pre,
               float* ds_part, int N, int H, int W, int K, int C, Taps taps,
               cudaStream_t st) {
   constexpr int smem = dx_stages<BN>() * dx_stage_bytes<BN>() + kAlign;
-  static const int attr = set_smem(dx_wgmma_kernel<BN>, smem);
+  // the opt-in belongs to the current device: made at every launch
+  const int attr = set_smem(dx_wgmma_kernel<BN>, smem);
   if (attr != 0) return attr;
   const long long chunks = (long long)N * taps.n * K * C / 8;
   const int blocks = (int)(chunks < 132 * 16 * 256 ? (chunks + 255) / 256
@@ -904,7 +905,8 @@ int launch_dw(const void* x, const void* du, const float* s,
               int K, Taps taps, Split sp, cudaStream_t st) {
   constexpr int smem =
       dw_stages<WGS, BN, BP>() * dw_stage_bytes<WGS, BN, BP>() + kAlign;
-  static const int attr = set_smem(dw_wgmma_kernel<WGS, BN, BP>, smem);
+  // the opt-in belongs to the current device: made at every launch
+  const int attr = set_smem(dw_wgmma_kernel<WGS, BN, BP>, smem);
   if (attr != 0) return attr;
   CUtensorMap tm_x, tm_du;
   int rc = nhwc_map(&tm_x, x, N, H, W, Ci, BP);

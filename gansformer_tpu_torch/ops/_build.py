@@ -246,6 +246,17 @@ def stream_ptr(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+def on_device(t):
+    """The context every wrapper launches in: ``t``'s device made current.
+    A launcher runs on the calling thread's current device (its opt-ins,
+    its launches), while ``stream_ptr(t)`` is a stream of ``t``'s device,
+    so a tensor on another card than the current one would otherwise be
+    launched on, or refused by, the wrong card."""
+    import torch
+
+    return torch.cuda.device(t.device)
+
+
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 

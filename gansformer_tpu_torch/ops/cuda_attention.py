@@ -372,10 +372,11 @@ def grid_to_latent_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load_library()
     o = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
     lse = _stats(q, n, with_stats)
-    rc = lib.gt_grid_to_latent(
-        path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), _ptr(lse), b, n, l, d, dv,
-        1.0 / math.sqrt(d), _build.stream_ptr(q))
+    with _build.on_device(q):
+        rc = lib.gt_grid_to_latent(
+            path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), _ptr(lse), b, n, l, d, dv,
+            1.0 / math.sqrt(d), _build.stream_ptr(q))
     if rc:
         _build.check(rc, f"grid_to_latent kernel ({G2L_NAMES[path]})")
     launches_g2l += 1
@@ -407,10 +408,12 @@ def latent_to_grid_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m_part = torch.empty((b, spans, l), **f32)
         s_part = torch.empty((b, spans, l), **f32)
         acc_part = torch.empty((b, spans, l, dv), **f32)
-    rc = lib.gt_latent_to_grid(
-        path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), _ptr(lse), _ptr(m_part), _ptr(s_part), _ptr(acc_part),
-        b, n, l, d, dv, 1.0 / math.sqrt(d), _build.stream_ptr(q))
+    with _build.on_device(q):
+        rc = lib.gt_latent_to_grid(
+            path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), _ptr(lse), _ptr(m_part),
+            _ptr(s_part), _ptr(acc_part), b, n, l, d, dv,
+            1.0 / math.sqrt(d), _build.stream_ptr(q))
     if rc:
         _build.check(rc, f"latent_to_grid kernel ({L2G_NAMES[path]})")
     launches_l2g += 1
@@ -460,11 +463,12 @@ def grid_to_latent_bwd_cuda(q, k, v, do):
         dv_part = torch.empty((b, spans, l, dv), **f32)
     dq, dk, dvv = (torch.empty_like(q), torch.empty_like(k),
                    torch.empty_like(v))
-    rc = lib.gt_grid_to_latent_bwd(
-        path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dvv.data_ptr(), _ptr(dk_part), _ptr(dv_part), b, n, l, d, dv,
-        1.0 / math.sqrt(d), _build.stream_ptr(q))
+    with _build.on_device(q):
+        rc = lib.gt_grid_to_latent_bwd(
+            path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dvv.data_ptr(), _ptr(dk_part), _ptr(dv_part), b, n, l, d, dv,
+            1.0 / math.sqrt(d), _build.stream_ptr(q))
     if rc:
         _build.check(rc, f"grid_to_latent backward kernel "
                      f"({G2L_NAMES[path]})")
@@ -495,11 +499,13 @@ def latent_to_grid_bwd_cuda(q, k, v, lse, do, delta):
                if path == L2G_SIMT or spans > 1 else None)
     dq, dk, dvv = (torch.empty_like(q), torch.empty_like(k),
                    torch.empty_like(v))
-    rc = lib.gt_latent_to_grid_bwd(
-        path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dvv.data_ptr(), _ptr(dq_part), b, n, l, d, dv,
-        1.0 / math.sqrt(d), _build.stream_ptr(q))
+    with _build.on_device(q):
+        rc = lib.gt_latent_to_grid_bwd(
+            path, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), lse.data_ptr(), delta.data_ptr(), do.data_ptr(),
+            dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), _ptr(dq_part), b, n, l, d, dv,
+            1.0 / math.sqrt(d), _build.stream_ptr(q))
     if rc:
         _build.check(rc, f"latent_to_grid backward kernel "
                      f"({L2G_NAMES[path]})")

@@ -253,12 +253,14 @@ def modconv_cuda(x: torch.Tensor, wstack: torch.Tensor, s: torch.Tensor,
     part = (torch.empty((p, n * h * w, cok), dtype=torch.float32,
                         device=x.device) if p > 1 else None)
     oy, ox = _taps_arrays(taps)
-    rc = _build.load_library().gt_modconv(
-        path, _build.dtype_code(x), x.data_ptr(), wstack.data_ptr(),
-        s.data_ptr(), post.data_ptr(), b.data_ptr() if b is not None else None,
-        y.data_ptr(), part.data_ptr() if part is not None else None, n, h, w,
-        ci, cok, phases, len(taps), oy.ctypes.data, ox.ctypes.data, p,
-        _ACT_CODES[act], float(alpha), float(gain), _build.stream_ptr(x))
+    with _build.on_device(x):
+        rc = _build.load_library().gt_modconv(
+            path, _build.dtype_code(x), x.data_ptr(), wstack.data_ptr(),
+            s.data_ptr(), post.data_ptr(),
+            b.data_ptr() if b is not None else None, y.data_ptr(),
+            part.data_ptr() if part is not None else None, n, h, w, ci, cok,
+            phases, len(taps), oy.ctypes.data, ox.ctypes.data, p,
+            _ACT_CODES[act], float(alpha), float(gain), _build.stream_ptr(x))
     _build.check(rc, f"modconv kernel ({kind})")
     launches += 1
     launches_second_order += second_order
@@ -420,12 +422,13 @@ def modconv_dx_cuda(du4: torch.Tensor, wT: torch.Tensor, pre: torch.Tensor,
     wtd = (torch.empty((n, t, cok, ci), dtype=x.dtype, device=x.device)
            if path == PATH_WGMMA else None)
     oy, ox = _taps_arrays(taps)
-    rc = _build.load_library().gt_modconv_dx(
-        path, _build.dtype_code(x), du4.data_ptr(), wT.data_ptr(),
-        pre.data_ptr(), post.data_ptr(), x.data_ptr(), dx.data_ptr(),
-        wtd.data_ptr() if wtd is not None else None, ds_part.data_ptr(),
-        ds.data_ptr(), n, h, w, cok, ci, len(taps), oy.ctypes.data,
-        ox.ctypes.data, _build.stream_ptr(x))
+    with _build.on_device(x):
+        rc = _build.load_library().gt_modconv_dx(
+            path, _build.dtype_code(x), du4.data_ptr(), wT.data_ptr(),
+            pre.data_ptr(), post.data_ptr(), x.data_ptr(), dx.data_ptr(),
+            wtd.data_ptr() if wtd is not None else None, ds_part.data_ptr(),
+            ds.data_ptr(), n, h, w, cok, ci, len(taps), oy.ctypes.data,
+            ox.ctypes.data, _build.stream_ptr(x))
     _build.check(rc, "modconv dx/ds kernel")
     launches_dx += 1
     launches_second_order += second_order
@@ -498,11 +501,12 @@ def modconv_dw_cuda(x: torch.Tensor, du4: torch.Tensor, s: torch.Tensor,
     out = torch.empty((len(taps), ci, cok), **f32)
     part = torch.empty((p, len(taps), ci, cok), **f32) if p > 1 else out
     oy, ox = _taps_arrays(taps)
-    rc = _build.load_library().gt_modconv_dw(
-        path, _build.dtype_code(x), x.data_ptr(), du4.data_ptr(), s.data_ptr(),
-        pre.data_ptr(), part.data_ptr(), out.data_ptr(), n, h, w, ci, cok,
-        len(taps), oy.ctypes.data, ox.ctypes.data, units, r, p,
-        _build.stream_ptr(x))
+    with _build.on_device(x):
+        rc = _build.load_library().gt_modconv_dw(
+            path, _build.dtype_code(x), x.data_ptr(), du4.data_ptr(),
+            s.data_ptr(), pre.data_ptr(), part.data_ptr(), out.data_ptr(), n,
+            h, w, ci, cok, len(taps), oy.ctypes.data, ox.ctypes.data, units,
+            r, p, _build.stream_ptr(x))
     _build.check(rc, "modconv dw kernel")
     launches_dw += 1
     launches_second_order += second_order

@@ -244,11 +244,12 @@ def _launch(x, f, up, down, pads, bias, act, alpha, gain):
     taps, taps_ptr, ntaps = _taps(f.tobytes(), (fh, fw), plan.path, up,
                                   py0 % 2, px0 % 2)
     lib = _build.load_library()
-    rc = lib.gt_upfirdn(
-        plan.path, _build.dtype_code(x), x.data_ptr(),
-        b.data_ptr() if b is not None else None, y.data_ptr(), n, h, w, c,
-        oh, ow, up, down, py0, px0, fh, fw, taps_ptr, ntaps,
-        _ACT_CODES[act], float(alpha), float(gain), _build.stream_ptr(x))
+    with _build.on_device(x):
+        rc = lib.gt_upfirdn(
+            plan.path, _build.dtype_code(x), x.data_ptr(),
+            b.data_ptr() if b is not None else None, y.data_ptr(), n, h, w, c,
+            oh, ow, up, down, py0, px0, fh, fw, taps_ptr, ntaps,
+            _ACT_CODES[act], float(alpha), float(gain), _build.stream_ptr(x))
     if rc:
         _build.check(rc, f"upfirdn kernel ({PATH_NAMES[plan.path]})")
     path_launches[plan.path] += 1

@@ -39,6 +39,7 @@ from gansformer_tpu_torch.ops.attention import (attention_bwd_plain,
                                                 attention_plain)
 from tests.test_torch_grads import card_route  # noqa: F401  (fixture)
 from tests.tolerances import GRAD
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = GRAD["float32"]
 BF16_TOL = 2e-2

@@ -23,6 +23,7 @@ from gansformer_tpu_torch.bridge import (check_structure, flatten_params,
                                          param_shapes)
 from gansformer_tpu_torch.core import config as port_config
 from gansformer_tpu_torch.models import Generator
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _abstract_params(cfg):

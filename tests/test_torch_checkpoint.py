@@ -30,6 +30,7 @@ from gansformer_tpu_torch.utils.background import (BackgroundWriteError,
                                                    LoopWorker,
                                                    SingleSlotWriter)
 from tests.test_train import micro_cfg
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 VARIANTS = {
     "simplex": {},

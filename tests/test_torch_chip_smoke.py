@@ -22,6 +22,7 @@ from gansformer_tpu_torch.ops.cuda_modconv import TAPS
 from gansformer_tpu_torch.ops.attention import attention_plain
 from gansformer_tpu_torch.ops.upfirdn2d import setup_filter, upfirdn2d_plain
 from tests.test_torch_grads import card_route  # noqa: F401  (fixture)
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -1002,3 +1003,96 @@ def test_service_gates_reject_what_they_name(fault):
         c = _chaos_artifact()
         CHAOS_FAULTS[fault](c)
         assert chip_smoke.chaos_gate(c)
+
+
+def test_fleet_phase_passes_on_the_cards_route(card_route, capsys):
+    """``fleet_phase`` on the host at micro width, every launch a stub of
+    the card's route, its two members on the host: parity within the f32
+    gate with both members serving and every serve kernel launched as the
+    plan says per synthesize, the planted router (member 0 only) caught
+    by the share gate, the autoscale drill's gate passed, and the SLO
+    report over the phase's own ledger; placement is not exercised with
+    one device."""
+    cfg = port_config.ModelConfig(**PRECISION_MODEL)
+    out = chip_smoke.fleet_phase("host", cfg=cfg, device="cpu")
+    p = out["parity"]
+    assert out["members"] == ["cpu", "cpu"]
+    assert p["rel_err"] <= chip_smoke.precision_tolerance("f32")
+    assert min(p["shares"]) > 0 and sum(p["shares"]) == \
+        chip_smoke.SERVICE_PARITY_REQUESTS
+    assert p["planted"][1] == 0 and chip_smoke.share_gate(p["planted"])
+    assert p["launches"] == p["plan"] and all(p["launches"].values())
+    assert chip_smoke.autoscale_gate(out["autoscale"]) is None
+    assert out["autoscale"]["autoscale"]["peak_replicas"] == 2
+    assert chip_smoke.slo_gate(out["slo"]) is None
+    assert "placement" not in out
+    text = capsys.readouterr().out
+    assert "placement: not exercised" in text and "EXHAUSTED" in text
+
+
+def test_fleet_phase_fails_on_a_router_that_skips_a_member(card_route,
+                                                           monkeypatch):
+    """A fleet whose router never picks member 1 fails the phase."""
+    from gansformer_tpu_torch.serve import ReplicaSet
+
+    def first_only(self, seed, psi=0.7, label=None, deadline_s=None):
+        return self.active_replicas[0].service.submit(seed, psi, label,
+                                                      deadline_s)
+
+    monkeypatch.setattr(ReplicaSet, "submit", first_only)
+    cfg = port_config.ModelConfig(**PRECISION_MODEL)
+    with pytest.raises(SystemExit):
+        chip_smoke.fleet_phase("host", cfg=cfg, device="cpu")
+
+
+def _drill_artifact():
+    return {"served": 30, "failed": 4, "expired": 0, "cancelled": 0,
+            "accepted": 34, "hung_tickets": 0,
+            "non_fulfilled_requests": [{"cause": "FaultInjected"}] * 4,
+            "health": {"state": "degraded"},
+            "autoscale": {"scale_out_fired": 1, "scale_in_fired": 1,
+                          "scale_out_before_breaker": True}}
+
+
+def _slo_report():
+    from gansformer_tpu_torch.obs import DEFAULT_OBJECTIVES
+
+    return {"source": "ledger", "rows": 9, "objectives": [
+        {"name": o["name"], "status": "ok"} for o in DEFAULT_OBJECTIVES]}
+
+
+FLEET_FAULTS = {
+    "share_idle_member": ("share", lambda x: x.__setitem__(1, 0.0)),
+    "share_no_members": ("share", lambda x: x.clear()),
+    "drill_no_scale_out": ("drill", lambda c: c["autoscale"].update(
+        scale_out_fired=0)),
+    "drill_after_breaker": ("drill", lambda c: c["autoscale"].update(
+        scale_out_before_breaker=False)),
+    "drill_hung": ("drill", lambda c: c.update(hung_tickets=1, served=29)),
+    "drill_unsettled": ("drill", lambda c: c.update(served=29)),
+    "drill_untyped": ("drill", lambda c: c["non_fulfilled_requests"].append(
+        {"cause": "ValueError"})),
+    "drill_unhealthy": ("drill", lambda c: c["health"].update(
+        state="unhealthy")),
+    "slo_missing": ("slo", lambda r: r["objectives"].pop()),
+    "slo_no_data": ("slo", lambda r: r["objectives"][0].update(
+        status="no_data")),
+    "slo_no_ledger": ("slo", lambda r: r.update(source="prom")),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FLEET_FAULTS))
+def test_fleet_gates_reject_what_they_name(fault):
+    gates = {"share": (chip_smoke.share_gate, lambda: [12.0, 12.0]),
+             "drill": (chip_smoke.autoscale_gate, _drill_artifact),
+             "slo": (chip_smoke.slo_gate, _slo_report)}
+    which, plant = FLEET_FAULTS[fault]
+    gate, make = gates[which]
+    assert gate(make()) is None
+    x = make()
+    plant(x)
+    assert gate(x)
+
+
+def test_fleet_members_rehearse_on_one_device():
+    assert chip_smoke.fleet_members("cpu") == [torch.device("cpu")] * 2

@@ -21,6 +21,7 @@ from gansformer_tpu_torch.data import tfrecord_writer as pwriter
 from gansformer_tpu_torch.data.errors import DataCorrupt, DataStalled
 from gansformer_tpu_torch.obs import registry as telemetry
 from gansformer_tpu_torch.supervise import faults
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 RES = 16
 N_IMAGES = 40

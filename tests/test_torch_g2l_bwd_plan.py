@@ -36,6 +36,7 @@ from gansformer_tpu.ops.pallas_attention import (_grid_to_latent_bwd,
 from gansformer_tpu_torch.core import config as port_config
 from gansformer_tpu_torch.ops import _build
 from gansformer_tpu_torch.ops import cuda_attention as ca
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 KERNEL = "grid_to_latent_bwd"
 BWD_TOL = 2e-5           # of each output's max

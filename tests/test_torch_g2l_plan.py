@@ -26,6 +26,7 @@ from gansformer_tpu_torch.core import config as port_config
 from gansformer_tpu_torch.ops import _build
 from gansformer_tpu_torch.ops import cuda_attention as ca
 from gansformer_tpu_torch.ops.attention import attention_fwd_stats_plain
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _launches():

@@ -42,6 +42,7 @@ from gansformer_tpu_torch.utils import runarchive
 from tests.test_torch_checkpoint import jax_state_from_flat, perturbed_flat
 from tests.test_torch_train import MODEL, _close
 from tests.test_train import micro_cfg
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 SEED = 5
 ARGS = ["--images-num", "5", "--batch-size", "4", "--seed", str(SEED),

@@ -24,6 +24,7 @@ from gansformer_tpu_torch.core.config import ModelConfig
 from gansformer_tpu_torch.models import Generator, apply_truncation
 from tests.test_models import TINY
 from tests.tolerances import GRAD
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 VARIANTS = {
     "attention": dict(style_mode="attention"),

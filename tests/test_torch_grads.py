@@ -40,6 +40,7 @@ from gansformer_tpu_torch.ops.attention import (attention_bwd_own_lse_plain,
                                                 attention_fwd_stats_plain,
                                                 attention_plain)
 from tests.tolerances import GRAD
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 jax_mc = import_module("gansformer_tpu.ops.modulated_conv")
 jax_fba = import_module("gansformer_tpu.ops.fused_bias_act")

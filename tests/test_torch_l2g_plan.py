@@ -35,6 +35,7 @@ from gansformer_tpu_torch.core import config as port_config
 from gansformer_tpu_torch.ops import _build
 from gansformer_tpu_torch.ops import cuda_attention as ca
 from gansformer_tpu_torch.ops.attention import attention_fwd_stats_plain
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 KERNELS = ("latent_to_grid", "latent_to_grid_bwd")
 FWD_TOL = 1e-5           # of max |o|, and lse absolute

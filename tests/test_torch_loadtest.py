@@ -16,14 +16,15 @@ import threading
 
 import numpy as np
 import pytest
-import torch
 
+import gansformer_tpu.serve.replicas as jax_replicas
 from gansformer_tpu.analysis import telemetry_schema as jax_schema
 from gansformer_tpu_torch.cli import loadtest_serve as port_lt
 from gansformer_tpu_torch.obs import registry as port_registry
 from gansformer_tpu_torch.serve import init_generator
 from tests.test_torch_serve import TINY
 from tests.test_torch_serve_service import JaxStandIn
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 LIMIT = 25
 
@@ -47,16 +48,6 @@ def time_limit():
         signal.signal(signal.SIGALRM, old)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Micro-width ops gain nothing from torch's thread pool, and six
-    test workers sharing the host's cores make it a cost."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def bundle():
     return init_generator(TINY, seed=2, device="cpu")
@@ -76,6 +67,7 @@ def jax_loadtest(monkeypatch):
             return {"loaded": 0, "compiled": 0, "seconds": 0.0}
 
     monkeypatch.setattr(jserve, "ServePrograms", Programs)
+    monkeypatch.setattr(jax_replicas, "ServePrograms", Programs)
     return loadtest_serve
 
 
@@ -157,8 +149,10 @@ def test_main_writes_a_checked_artifact(tmp_path, capsys, chaos):
     with open(ledger) as f:       # + the cold and warm first images
         assert sum(1 for _ in f) == (r["accepted"] + r["shed"] if chaos
                                      else 10 + 2)
-    with pytest.raises(SystemExit, match="replica fleet"):
-        port_lt.main(argv + ["--autoscale"])
+    args = port_lt.build_parser().parse_args(
+        argv + ["--autoscale", "--replicas", "2", "--max-replicas", "3"])
+    assert (args.autoscale, args.replicas, args.max_replicas) == (True, 2,
+                                                                  3)
 
 
 def write_prom(path, vals):
@@ -226,3 +220,120 @@ def test_artifact_checks_equal_jax(tmp_path):
         assert len(want) >= 9
     assert port_lt.percentile([], 50) != port_lt.percentile([], 50)
     assert os.path.exists(ledger)
+
+
+def test_autoscale_drill_keys_and_order_equal_jax(bundle, jax_loadtest,
+                                                 monkeypatch):
+    """The autoscale drill (one replica, at most two, JAX's twitchy
+    controller and pressure window) on the port's fleet of two host
+    members and on JAX's over stand-ins that take 10 ms a batch (an
+    instant batch never lets a queue fill): the same artifact keys and
+    ``autoscale`` keys, and on both the scale-out before any breaker
+    trip, a scale-in after recovery and nothing hung."""
+    import time
+
+    base = jax_replicas.ServePrograms
+
+    class Slow(base):
+        def synthesize(self, *a, **k):
+            time.sleep(0.01)
+            return super().synthesize(*a, **k)
+
+    monkeypatch.setattr(jax_replicas, "ServePrograms", Slow)
+    kw = dict(queue_depth=4, burst_factor=4, crash_at_batch=2,
+              manifest_dir=None, wcache=64, seed_universe=16,
+              restart_backoff_s=0.01, replicas=1, max_replicas=2,
+              autoscale=True, pressure_s=0.3)
+    want = jax_loadtest.run_chaos(None, (1, 2), **kw)
+    got = port_lt.run_chaos(bundle, (1, 2), devices=["cpu", "cpu"], **kw)
+    assert set(got) == set(want)
+    assert set(got["autoscale"]) == set(want["autoscale"])
+    for r in (want, got):
+        a = r["autoscale"]
+        assert a["enabled"] and a["scale_out_fired"] >= 1
+        assert a["scale_out_before_breaker"] and a["peak_replicas"] == 2
+        assert a["scaled_in_after_load"]
+        assert r["hung_tickets"] == 0 and r["replicas"] == 1
+        assert r["served"] + r["failed"] + r["expired"] + r["cancelled"] \
+            == r["accepted"]
+        assert r["burst"] >= 16 and r["trace_coverage"]["ok"]
+    assert [e["kind"] for e in got["autoscale"]["events"]][0] == "scale_out"
+
+
+def test_fleet_load_run_keys_equal_jax(bundle, jax_loadtest):
+    """The load run through two members: JAX's keys, the fleet's
+    ``peak_replicas`` and ``per_replica``, and ``chips_used`` counting
+    the devices that served (two members on the one host: one)."""
+    kw = dict(requests=12, rate=0.0, duration_s=60.0, manifest_dir=None,
+              wcache=64, seed_universe=8, measure_cold=False, replicas=2)
+    want = jax_loadtest.run_loadtest(None, (1, 2), **kw)
+    got = port_lt.run_loadtest(bundle, (1, 2), devices=["cpu", "cpu"], **kw)
+    assert set(got) == set(want)
+    assert set(got["per_replica"]) == set(want["per_replica"]) == {"0", "1"}
+    assert got["peak_replicas"] == want["peak_replicas"] == 2
+    assert got["chips_used"] == 1 and want["chips_used"] == 2
+    per = got["per_replica"]
+    assert sum(p["requests"] for p in per.values()) == 12
+    assert sum(p["images"] for p in per.values()) == got["images"] == 12
+    assert sum(p["dispatch_share"] for p in per.values()) == \
+        pytest.approx(1.0)
+
+
+SNAPSHOTS = (
+    {"counters": {"serve/replica0/requests_total": 3.0,
+                  "serve/replica0/images_total": 2.0},
+     "histograms": {"serve/replica0/batch_fill": {"count": 1, "sum": 0.5}}},
+    {"counters": {"serve/replica0/requests_total": 10.0,
+                  "serve/replica0/images_total": 9.0,
+                  "serve/replica1/requests_total": 4.0,
+                  "serve/replica1/images_total": 4.0},
+     "histograms": {"serve/replica0/batch_fill": {"count": 4, "sum": 2.5},
+                    "serve/replica0/batch_ms": {"count": 3, "sum": 30.0},
+                    "serve/replica1/batch_fill": {"count": 1, "sum": 1.0},
+                    "serve/replica1/batch_ms": {"count": 0, "sum": 0.0}}},
+)
+
+
+@pytest.mark.parametrize("ordinals", [[0], [0, 1], [0, 1, 2], []])
+def test_per_replica_report_equals_jax(ordinals, jax_loadtest):
+    snap0, snap1 = SNAPSHOTS
+    for wall_s in (2.0, 0.0):
+        assert port_lt.per_replica_report(snap0, snap1, wall_s, ordinals) \
+            == jax_loadtest.per_replica_report(snap0, snap1, wall_s,
+                                               ordinals)
+
+
+def _fleet_base():
+    base = {n: 1 for n in port_lt.SERVE_FAMILIES}
+    base.update(serve_shed_total=0, reqtrace_enabled=1, serve_replicas=2,
+                serve_scale_out_total=1, serve_scale_in_total=0)
+    for i in (0, 1):
+        base.update({f"serve_replica{i}_{m}": 1
+                     for m in port_lt.FLEET_MEMBER_FAMILIES})
+    return base
+
+
+FLEET_PROMS = {
+    "ok": lambda b: b,
+    "no_scale_in": lambda b: b.pop("serve_scale_in_total"),
+    "no_members": lambda b: [b.pop(k) for k in list(b)
+                             if k.startswith("serve_replica")
+                             and k != "serve_replicas"],
+    "member_missing": lambda b: b.pop("serve_replica1_queue_bound"),
+    "no_batch_samples": lambda b: b.update(serve_replica0_batch_ms_count=0),
+    "single_service": lambda b: [b.pop(k) for k in list(b)
+                                 if k.startswith(("serve_replica",
+                                                  "serve_scale"))],
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLEET_PROMS))
+def test_fleet_families_equal_jax(case, tmp_path):
+    """The fleet families of ``check_serve_metric_families``: the same
+    errors as JAX's on a good fleet prom and on broken ones."""
+    vals = _fleet_base()
+    FLEET_PROMS[case](vals)
+    path = write_prom(str(tmp_path / "fleet.prom"), vals)
+    got = port_lt.check_serve_metric_families(path)
+    assert got == jax_schema.check_serve_metric_families(path)
+    assert bool(got) == (case not in ("ok", "single_service"))

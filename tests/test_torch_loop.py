@@ -33,6 +33,7 @@ from gansformer_tpu_torch.train import checkpoint as ckpt
 from gansformer_tpu_torch.train import create_train_state, loop
 from tests.test_torch_grads import patch_card_route
 from tests.test_train import micro_cfg
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 BATCH = 8
 ITERS = 6                     # three ticks of two iterations

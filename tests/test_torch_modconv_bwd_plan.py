@@ -17,6 +17,7 @@ from gansformer_tpu_torch.core import config as port_config
 from gansformer_tpu_torch.ops import _build
 from gansformer_tpu_torch.ops import cuda_modconv as cm
 from gansformer_tpu_torch.ops import modulated_conv as port_mc
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 BF16, F32 = torch.bfloat16, torch.float32
 

@@ -25,6 +25,7 @@ from gansformer_tpu_torch.core import config as port_config
 from gansformer_tpu_torch.ops import _build
 from gansformer_tpu_torch.ops import cuda_modconv as cm
 from gansformer_tpu_torch.ops import modulated_conv as port_mc
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 BF16, F32 = torch.bfloat16, torch.float32
 SMS = 132
@@ -434,3 +435,35 @@ def test_forward_plan_constants_match_the_kernel_source():
         stage = k["kFwdBM"] * 128 + bn // 64 * k["kBlock"]
         assert cm.fwd_smem(cm.PATH_WGMMA, bn) == \
             stages[bn] * stage + k["kAlign"]
+
+
+# A ``static`` whose initializer makes a shared-memory opt-in (up to the
+# statement's end).
+_STATIC_OPT_IN = re.compile(
+    r"\bstatic\b[^;{}]*\b(set_smem|cudaFuncSetAttribute)\s*\(", re.S)
+
+
+def test_no_static_caches_a_shared_memory_opt_in():
+    """``cudaFuncSetAttribute(..., MaxDynamicSharedMemorySize, ...)``
+    (``set_smem``) acts on the current device only: the attribute belongs
+    to a device, not to the kernel.  A launcher that keeps the result in
+    a function-local ``static`` opts in on the first device it runs on
+    and skips the opt-in on every other card, where a launch with more
+    than 48 KB of dynamic shared memory is then refused.  So no source
+    under ``csrc/`` may cache one; the planted line below shows that the
+    pattern finds such a cache."""
+    csrc = pathlib.Path(cm.__file__).resolve().parent.parent / "csrc"
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    assert {p.name for p in sources} >= {"modconv.cu", "modconv_bwd.cu",
+                                          "attention.cu", "upfirdn.cu"}
+    found = [(p.name, m.group(0)) for p in sources
+             for m in _STATIC_OPT_IN.finditer(p.read_text())]
+    assert not found, found
+    planted = ("  static const int attr =\n"
+               "      set_smem(fwd_wgmma_kernel<BN>, smem);\n")
+    assert _STATIC_OPT_IN.search(planted)
+    assert not _STATIC_OPT_IN.search(
+        "  const int attr = set_smem(fwd_wgmma_kernel<BN>, smem);\n")
+    launcher = (csrc / "modconv.cu").read_text()
+    assert "const int attr = set_smem(fwd_wgmma_kernel<BN>, smem);" in \
+        launcher

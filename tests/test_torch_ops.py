@@ -26,6 +26,7 @@ from gansformer_tpu_torch.models.attention import _instance_norm
 from gansformer_tpu_torch.ops import modulated_conv as port_mc
 from tests.reference_ops import upfirdn2d_ref
 from tests.tolerances import GRAD
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 # gansformer_tpu.ops re-exports functions under its submodules' names
 jax_attention = import_module("gansformer_tpu.ops.attention")

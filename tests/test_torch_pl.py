@@ -56,6 +56,7 @@ from tests.test_torch_train import (BATCH, MICRO, MODEL, STEP_MODELS,
                                     _close_param, _jax_cfg, _key_bias,
                                     _perturbed_state)
 from tests.tolerances import GRAD
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 port_mc = import_module("gansformer_tpu_torch.ops.modulated_conv")
 
@@ -237,8 +238,11 @@ def _port_pl(model, shrink, flat0, z, z_pl, noise, route, plant=False):
         pl_mean=float(port.pl_mean), counts=counts)
 
 
-@pytest.fixture(scope="module", params=sorted(PL_CASES))
-def pl_vs_jax(request):
+def pl_setup(request):
+    """One case of ``PL_CASES`` on both sides (the fixture ``pl_vs_jax``
+    of this file, with the cases without the attention, and of
+    ``test_torch_pl_duplex1.py`` and ``test_torch_pl_duplex2.py``, one
+    duplex case each: ``--dist loadfile`` runs a file on one worker)."""
     model, shrink = PL_CASES[request.param]
     cfg = _jax_cfg(model)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
@@ -273,6 +277,10 @@ def pl_vs_jax(request):
             "planted": _port_pl(ref, shrink, *args, "card", plant=True)}
     return dict(model=model, shrink=shrink, flat0=flat0, jax32=jax32,
                 jax64=jax64, runs=runs, attention=attention)
+
+
+pl_vs_jax = pytest.fixture(scope="module", params=[
+    "none-shrink1", "none-shrink2"])(pl_setup)
 
 
 def _hold_grads(run, refs, fp32=None):

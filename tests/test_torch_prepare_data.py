@@ -21,6 +21,7 @@ from gansformer_tpu.data import tfrecord_writer as jax_writer
 from gansformer_tpu_torch.cli import prepare_data as port_cli
 from gansformer_tpu_torch.data import SyntheticDataset, TFRecordDataset
 from gansformer_tpu_torch.data import tfrecord_writer as port_writer
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _files(d):

@@ -58,6 +58,7 @@ from tests.test_torch_train import (BATCH, MICRO, MODEL, STEP_MODELS,
                                     _NoNoiseGenerator, _close, _close_leaf,
                                     _close_param, _jax_cfg, _perturbed_state)
 from tests.tolerances import GRAD
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 jax_fba = import_module("gansformer_tpu.ops.fused_bias_act")
 jax_ufd = import_module("gansformer_tpu.ops.upfirdn2d")
@@ -124,8 +125,11 @@ def _port_r1(model, shrink, flat0, imgs, z, flip, route, plant=False):
         counts=counts)
 
 
-@pytest.fixture(scope="module", params=sorted(R1_CASES))
-def r1_vs_jax(request):
+def r1_setup(request):
+    """One case of ``R1_CASES`` on both sides (the fixture ``r1_vs_jax``
+    of this file, and of ``test_torch_r1_d_attention.py`` with the
+    ``d_attention`` cases: ``--dist loadfile`` runs a file on one
+    worker)."""
     model, shrink = R1_CASES[request.param]
     cfg = _jax_cfg(model)
     cfg = dataclasses.replace(
@@ -157,6 +161,10 @@ def r1_vs_jax(request):
     return dict(model=model, shrink=shrink, flat0=flat0, flat1=flat1,
                 daux={k: float(v) for k, v in daux.items()}, mu=mu,
                 runs=runs, planted=planted)
+
+
+r1_vs_jax = pytest.fixture(scope="module", params=[
+    "duplex-shrink1", "none-shrink1", "none-shrink2"])(r1_setup)
 
 
 def _hold_to_jax(r, run):

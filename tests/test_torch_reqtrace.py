@@ -18,6 +18,7 @@ from gansformer_tpu.obs import spans as jax_spans
 from gansformer_tpu_torch.obs import registry as port_registry
 from gansformer_tpu_torch.obs import reqtrace as port_reqtrace
 from gansformer_tpu_torch.obs import spans as port_spans
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 PACKAGES = {"jax": (jax_reqtrace, jax_spans, jax_registry),
             "port": (port_reqtrace, port_spans, port_registry)}

@@ -18,6 +18,7 @@ from gansformer_tpu_torch.core.device import resolve_device
 from gansformer_tpu_torch.models import init_weights
 from gansformer_tpu_torch.models.layers import ModulatedConv
 from gansformer_tpu_torch.serve import ServePrograms, init_generator
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -12,6 +12,7 @@ from gansformer_tpu_torch.obs import registry as telemetry
 from gansformer_tpu_torch.serve import (ServePrograms, WCache, map_rows,
                                         wcache_key)
 from tests.test_torch_serve import progs  # noqa: F401  (fixture)
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _count(name):

@@ -27,6 +27,7 @@ from gansformer_tpu_torch.obs.registry import parse_prom_values
 from gansformer_tpu_torch.utils.image import decode_png
 from tests.test_torch_generate import _exp
 from tests.test_torch_serve_programs import _port_run
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 ARGS = ["--images", "11", "--seed", "3", "--buckets", "1,4", "--psi", "0.6"]
 
@@ -180,28 +181,100 @@ JAX_SERVICE_FLAGS = ("--autoscale", "--deadline-s", "--grace-s",
 
 
 @pytest.mark.parametrize("flag", JAX_SERVICE_FLAGS)
-def test_service_flags_are_refused_with_words(flag):
-    """The replica fleet's flags are refused (``--replicas`` above 1),
-    with words that name it; the service's flags are taken."""
-    assert set(port_serve.LATER_FLAGS) == {"--replicas", "--max-replicas",
-                                           "--autoscale"}
-    if flag in port_serve.LATER_FLAGS:
-        with pytest.raises(SystemExit,
-                           match=r"replica fleet \(ROADMAP A.4c\)"):
-            port_serve.main([flag, "2"])
-        with pytest.raises(SystemExit, match="replica fleet"):
-            port_serve.main([f"{flag}=3", "--device", "cpu"])
-        return
-    args = port_serve.build_parser().parse_args([flag, "2"])
-    assert getattr(args, flag[2:].replace("-", "_")) in (2, 2.0, "2")
-    if flag == "--healthcheck":
-        return
+def test_service_and_fleet_flags_are_taken(flag):
+    """Every flag of JAX's service and fleet parses, ``--replicas 2
+    --autoscale`` among them; the fleet's flags are no longer refused."""
+    assert not hasattr(port_serve, "LATER_FLAGS")
+    value = [] if flag == "--autoscale" else ["2"]
+    args = port_serve.build_parser().parse_args([flag] + value)
+    assert getattr(args, flag[2:].replace("-", "_")) in (True, 2, 2.0, "2")
     args = port_serve.build_parser().parse_args(
-        ["--replicas", "1", "--queue-depth", "5", "--deadline-s", "2",
-         "--grace-s", "3", "--healthcheck", "p", "--health-max-age", "9"])
-    assert (args.replicas, args.queue_depth, args.deadline_s, args.grace_s,
-            args.healthcheck, args.health_max_age) == (1, 5, 2.0, 3.0, "p",
-                                                       9.0)
+        ["--replicas", "2", "--autoscale", "--max-replicas", "3",
+         "--queue-depth", "5", "--deadline-s", "2", "--grace-s", "3",
+         "--healthcheck", "p", "--health-max-age", "9"])
+    assert (args.replicas, args.autoscale, args.max_replicas,
+            args.queue_depth, args.deadline_s, args.grace_s,
+            args.healthcheck, args.health_max_age) == (2, True, 3, 5, 2.0,
+                                                       3.0, "p", 9.0)
+
+
+def test_fleet_mode_summary_keys_equal_the_jax_cli(run_dir, tmp_path,
+                                                   monkeypatch, capsys):
+    """``--autoscale`` serves through a ``ReplicaSet`` (one member on the
+    host) and prints the JAX CLI's keys, ``autoscale`` true and
+    ``replicas`` the fleet's active members; its prom is a fleet's, which
+    the healthcheck grades; ``--replicas`` above the visible devices
+    fails with JAX's words."""
+    import gansformer_tpu.serve as jserve
+
+    built = []
+
+    class Fleet:
+        def __init__(self, bundle, **kw):
+            built.append(kw)
+            self.n_active = kw["replicas"]
+
+        def warm_start(self):
+            return {"loaded": 0, "compiled": 0, "seconds": 0.0}
+
+        def install_signal_drain(self, grace_s):
+            pass
+
+        def submit(self, seed, psi):
+            return SimpleNamespace(
+                result=lambda timeout=None: np.zeros((4, 4, 3), np.float32))
+
+        def health(self):
+            return {"state": "ready"}
+
+        def close(self, timeout=None):
+            pass
+
+    monkeypatch.setattr(jserve, "ReplicaSet", Fleet)
+    _, jsum = _run_jax_cli(
+        ["--init", "random", "--preset", "ffhq256-duplex", "--no-warm-start",
+         "--autoscale", "--out", str(tmp_path / "jax")] + ARGS, monkeypatch,
+        capsys)
+    monkeypatch.undo()
+    assert built[0]["autoscale"] is True
+    telemetry.get_registry().reset()
+    out = str(tmp_path / "port")
+    psum = _run_port(["--run-dir", run_dir, "--device", "cpu", "--out", out,
+                      "--no-warm-start", "--autoscale"] + ARGS, capsys)
+    assert set(psum) == set(jsum)
+    assert psum["autoscale"] is jsum["autoscale"] is True
+    assert psum["replicas"] == jsum["replicas"] == 1
+    assert psum["health"]["n_active"] == 1 and \
+        psum["health"]["state"] in ("ready", "closed")
+    assert psum["counters"]["images_total"] == 11
+    prom = parse_prom_values(os.path.join(out, "telemetry.prom"))
+    assert prom["serve_replicas"] == 0.0          # drained at exit
+    assert prom["serve_replica0_requests_total"] == 11
+    assert port_serve.main(["--healthcheck", out]) == 0
+    with pytest.raises(SystemExit, match=r"replicas=2 out of range "
+                       r"\[1, 1\] \(1 local device\(s\)\)"):
+        port_serve.main(["--run-dir", run_dir, "--device", "cpu",
+                         "--replicas", "2", "--no-warm-start"])
+
+
+def test_warm_only_fleet_drains_before_it_exits(run_dir, tmp_path, capsys,
+                                                monkeypatch):
+    """A ``--warm-only`` fleet serves nothing and closes its members."""
+    from gansformer_tpu_torch.serve import replicas
+
+    closed = []
+    orig = replicas.ReplicaSet.close
+
+    def close(self, timeout=30.0):
+        closed.append(self.n_active)
+        return orig(self, timeout)
+
+    monkeypatch.setattr(replicas.ReplicaSet, "close", close)
+    psum = _run_port(["--run-dir", run_dir, "--device", "cpu", "--out",
+                      str(tmp_path / "o"), "--warm-only", "--autoscale",
+                      "--no-warm-start"], capsys)
+    assert psum["autoscale"] is True and psum["replicas"] == 1
+    assert closed == [1] and not os.path.exists(tmp_path / "o")
 
 
 def test_without_a_card_it_raises_unless_asked_for_the_cpu(run_dir,

@@ -45,6 +45,7 @@ from gansformer_tpu_torch.models import Generator, synthesis
 from gansformer_tpu_torch.models.generator import init_weights
 from gansformer_tpu_torch.serve import FIDELITY_TOLERANCES, ServePrograms
 from gansformer_tpu_torch.serve.programs import bundle_from_generator
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 MODEL = dict(resolution=256, components=16, latent_dim=32, w_dim=32,
              mapping_dim=32, mapping_layers=2, fmap_base=1024, fmap_max=32,

@@ -31,6 +31,7 @@ from gansformer_tpu_torch.train import checkpoint as ckpt
 from gansformer_tpu_torch.train import create_train_state, state
 from tests.test_torch_checkpoint import perturbed_flat
 from tests.test_torch_generate import _exp, _jax_run
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _port_run(root, jexp):

@@ -43,6 +43,7 @@ from gansformer_tpu_torch.serve import quant
 from gansformer_tpu_torch.serve.programs import bundle_from_generator
 from tests.test_torch_generator import IMG_TOL
 from tests.tolerances import TRAIN_REORDER
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 MODEL = dict(resolution=16, components=3, latent_dim=16, w_dim=16,
              mapping_dim=16, mapping_layers=2, fmap_base=256, fmap_max=32,

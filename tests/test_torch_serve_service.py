@@ -43,6 +43,7 @@ from gansformer_tpu_torch.supervise import faults as port_faults
 from gansformer_tpu_torch.serve import (GenerationService, ServePrograms,
                                         WCache, init_generator, map_rows)
 from tests.test_torch_serve import TINY
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 WAIT = 2.0
 LIMIT = 20
@@ -75,16 +76,6 @@ def time_limit():
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Micro-width ops gain nothing from torch's thread pool, and six
-    test workers sharing the host's cores make it a cost."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

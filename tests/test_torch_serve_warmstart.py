@@ -25,6 +25,7 @@ import pytest
 from gansformer_tpu_torch.obs import registry as telemetry
 from gansformer_tpu_torch.ops import _build
 from gansformer_tpu_torch.serve import warmstart
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # Loads a library in a fresh interpreter and prints gt_answer(): each load

@@ -48,6 +48,7 @@ from gansformer_tpu_torch.train import (create_train_state, d_step, g_step,
                                         lazy_adam)
 from tests.test_torch_grads import card_route  # noqa: F401  (fixture)
 from tests.tolerances import GRAD
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 jax_mc = import_module("gansformer_tpu.ops.modulated_conv")
 
@@ -322,8 +323,11 @@ def _perturbed_state(cfg):
                       step=jnp.asarray(40, st.step.dtype))
 
 
-@pytest.fixture(scope="module", params=sorted(STEP_MODELS))
-def steps_vs_jax(request):
+def steps_setup(request):
+    """One model of ``STEP_MODELS`` through one d_step and one g_step on
+    both sides (the fixture ``steps_vs_jax`` of this file, with the
+    attention-free model, and of ``test_torch_train_steps.py`` with the
+    duplex ones: ``--dist loadfile`` runs a file on one worker)."""
     model = STEP_MODELS[request.param]
     cfg = _jax_cfg(model)
     st0 = _perturbed_state(cfg)
@@ -360,6 +364,9 @@ def steps_vs_jax(request):
                 port=port, paux=paux, d_grads=d_grads, g_grads=g_grads,
                 after_d=after_d,
                 zero_init_tol=ZERO_INIT_PARAM_TOL[request.param])
+
+
+steps_vs_jax = pytest.fixture(scope="module", params=["none"])(steps_setup)
 
 
 def _close_param(got, key, after, before, zero_init_tol):

@@ -30,6 +30,7 @@ from gansformer_tpu_torch.ops.upfirdn2d import (adjoint_geometry, out_hw,
                                                 setup_filter,
                                                 upfirdn2d_adjoint_plain,
                                                 upfirdn2d_plain)
+from tests.torch_threads import one_thread  # noqa: F401  (autouse)
 
 BF16, F32 = torch.bfloat16, torch.float32
 
