@@ -203,7 +203,20 @@ In order:
    each of
    ``GENERATE_MODES``, launches held to the plan of its synthesize
    calls, every PNG decoded (zlib) to its size;
-11. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+11. metrics and evaluation (``metrics_phase``) on the loop's run dir:
+   ``cli/evaluate.py --metrics fid1k,is1k,pr1k,ppl1k --batch-size 32``
+   with the uncalibrated extractor and the TF32 flags at torch's
+   defaults, its launches of kernels 1-4 held to the plan (one synthesize
+   per fake batch, two per PPL batch), its files and JSON line checked;
+   the card's Inception features of 8 sweep images held to the host's
+   (fp32) within ``FEATURE_TOL`` of their largest magnitude, an average
+   pool that counts its padding planted and rejected; FID, IS and P&R of
+   the card's features of 32 fakes and 32 reals held to the host's; the
+   PPL control (z0 == z1: 0 with shared noise, or within ``PPL_CONTROL``
+   of the median distance; the median's order with unshared noise); and
+   the loop's in-loop metric hook once (one tick, ``metric_ticks`` 1,
+   fid256: ``metric-fid256_uncal.txt`` and ``flag-calibrated.txt``);
+12. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
    Every number of a kernel in the JSON line covers that kernel's
    ``span``: the serve run's launches for the forward kernels (and, in a
    second entry with ``"lse": true``, the forward attention launches of
@@ -4371,6 +4384,238 @@ def generate_phase(card: str, run: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+METRICS = "fid1k,is1k,pr1k,ppl1k"
+METRICS_IMAGES = 1000
+METRICS_BATCH = 32
+METRICS_HELD = 8          # images whose card features are held to the host's
+METRICS_STATS = 32        # fakes and reals whose FID, IS and P&R are held
+FEATURE_TOL = 1e-4        # of max |feature|: fp32, TF32 off on both sides
+METRIC_STAT_TOL = {"fid": 1e-3, "is": 1e-4}
+PPL_CONTROL = 1e-6        # of the sweep's median PPL distance
+HOOK_METRICS = "fid256"
+
+
+def metrics_sweep_synths(n: int, batch: int) -> int:
+    """The synthesize calls of an evaluate sweep with FID/IS/P&R and PPL
+    over ``n`` images: one fake sweep (shared), two per PPL batch."""
+    batches = -(-n // batch)
+    return batches + 2 * batches
+
+
+def frechet_low_rank(real: "np.ndarray", fake: "np.ndarray") -> float:
+    """FID of two feature sets with fewer samples than dimensions, by the
+    low-rank identity: the nonzero eigenvalues of Σ₁Σ₂ are the squared
+    singular values of A₁A₂ᵀ (Aᵢ the centered features over √(nᵢ-1)), so
+    Tr √(Σ₁Σ₂) is that product's nuclear norm; no 2048² square root."""
+    import numpy as np
+
+    a1 = (real - real.mean(0)) / np.sqrt(len(real) - 1)
+    a2 = (fake - fake.mean(0)) / np.sqrt(len(fake) - 1)
+    diff = real.mean(0) - fake.mean(0)
+    tr_sqrt = np.linalg.svd(a1 @ a2.T, compute_uv=False).sum()
+    return float(diff @ diff + (a1 * a1).sum() + (a2 * a2).sum()
+                 - 2.0 * tr_sqrt)
+
+
+def metrics_phase(card: str, run: str) -> None:
+    """Metrics and evaluation on the loop's run dir (ffhq256-duplex, full
+    width, bf16): ``cli/evaluate.py`` with ``METRICS`` at batch 32 and the
+    uncalibrated extractor, TF32 flags at torch's defaults, its launches
+    held to the plan of its synthesize calls; the card's features of
+    ``METRICS_HELD`` sweep images held to the host's (and a planted
+    average pool that counts its padding rejected); FID, IS and P&R of
+    the card's features of ``METRICS_STATS`` fakes and reals held to the
+    host's; the PPL control (a pair with z0 == z1 and shared noise: 0, or
+    within ``PPL_CONTROL`` of the median distance; unshared noise: of the
+    median's order); then the in-loop hook once (a one-tick run with
+    ``metric_ticks`` 1 and ``HOOK_METRICS``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.cli import evaluate
+    from gansformer_tpu_torch.core.config import ExperimentConfig
+    from gansformer_tpu_torch.data.dataset import (make_dataset,
+                                                   normalize_images)
+    from gansformer_tpu_torch.metrics import inception as inc
+    from gansformer_tpu_torch.metrics.inception_score import inception_score
+    from gansformer_tpu_torch.metrics.precision_recall import \
+        precision_recall
+    from gansformer_tpu_torch.train import (create_train_state, derive_seed,
+                                            loop, make_metric_samplers,
+                                            ppl_pairs)
+    from gansformer_tpu_torch.train import checkpoint as ckpt
+
+    with open(os.path.join(run, "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (cudnn.allow_tf32, matmul.allow_tf32)
+    env_npz = os.environ.pop("GANSFORMER_TPU_INCEPTION_NPZ", None)
+    if inc.resolve_weights() is not None:
+        fail(f"the metrics phase wants the uncalibrated extractor; "
+             f"{inc.resolve_weights()} would be loaded")
+    root = tempfile.mkdtemp(prefix="gansformer_smoke_metrics_")
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = True, False   # torch's defaults
+        synths = metrics_sweep_synths(METRICS_IMAGES, METRICS_BATCH)
+        calls = main_path_calls(cfg.model, METRICS_BATCH)
+        want = {k: synths * sum(c["kernel"] == k for c in calls)
+                for k in REPLACES}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = evaluate.main(["--run-dir", run, "--metrics", METRICS,
+                             "--batch-size", str(METRICS_BATCH)])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        got = ops.launch_counts()
+        if got != want:
+            fail(f"evaluate: launches {got} != the plan's {want} ({synths} "
+                 f"synthesize at batch {METRICS_BATCH})")
+        names = ("fid1k_uncal", "is1k_uncal_mean", "is1k_uncal_std",
+                 "pr1k_3_uncal_precision", "pr1k_3_uncal_recall",
+                 "ppl1k_wfull_uncal")
+        bad = [n for n in names
+               if not (n in res and math.isfinite(res[n]))]
+        if bad or res.get("calibrated") != 0.0:
+            fail(f"evaluate: results {res} (missing or non-finite: {bad})")
+        for n in names:
+            if not os.path.exists(os.path.join(run, f"metric-{n}.txt")):
+                fail(f"evaluate wrote no metric-{n}.txt")
+        with open(os.path.join(run, "flag-calibrated.txt")) as f:
+            if f.read() != "calibrated 0\n":
+                fail("evaluate: flag-calibrated.txt is not 'calibrated 0'")
+        print(f"  evaluate {METRICS} at batch {METRICS_BATCH}: "
+              + ", ".join(f"{n} {res[n]:.6g}" for n in names)
+              + f"; {took:.2f} s (restore included); launches {got} = the "
+              f"plan ({synths} synthesize at batch {METRICS_BATCH}); TF32 "
+              f"flags at torch's defaults ({card})", flush=True)
+
+        # the card's features of sweep images against the host's
+        state = create_train_state(cfg.model, cfg.train, cfg.train.seed)
+        state = ckpt.restore(os.path.join(run, "checkpoints"), state)
+        dataset = make_dataset(cfg.data)
+        try:
+            sample_fn, pair_fn = make_metric_samplers(state, cfg, dataset)
+            fakes = sample_fn(METRICS_BATCH)         # the sweep's first batch
+            batch = next(dataset.batches(METRICS_STATS, seed=123))
+        finally:
+            dataset.close()
+        reals = normalize_images(torch.from_numpy(batch["image"]))
+        card_ex = inc.make_extractor()
+        host_ex = inc.FeatureExtractor(None, device="cpu")
+        t0 = time.perf_counter()
+        held = fakes[:METRICS_HELD]
+        fc, lc = card_ex(held)
+        fh, lh = host_ex(held.cpu())
+        err = max(rel_err(fc, fh), rel_err(lc, lh))
+        if not err <= FEATURE_TOL:
+            fail(f"card features vs host: {err:.3e} > {FEATURE_TOL}")
+        inc.TFAvgPool.count_include_pad = True
+        try:
+            planted = rel_err(card_ex(held)[0], fh)
+        finally:
+            inc.TFAvgPool.count_include_pad = False
+        if not planted > FEATURE_TOL:
+            fail(f"the planted pool fault ({planted:.3e}) passes the "
+                 f"feature gate")
+        print(f"  card vs host features of {METRICS_HELD} sweep images "
+              f"(uncalibrated, fp32; TF32 flags at torch's defaults on the "
+              f"card): max error {err:.3e} of max |value| (gate "
+              f"{FEATURE_TOL}); planted average pool counting its padding: "
+              f"{planted:.3e}, rejected", flush=True)
+
+        sides = {}
+        for side, ex, dev in (("card", card_ex, "cuda"),
+                              ("host", host_ex, "cpu")):
+            f_fake, l_fake = ex(fakes[:METRICS_STATS].to(dev))
+            f_real, _ = ex(reals.to(dev))
+            ff, fr = (t.double().cpu().numpy() for t in (f_fake, f_real))
+            sides[side] = {
+                "fid": frechet_low_rank(fr, ff),
+                "is": inception_score(l_fake.double().cpu().numpy())[0],
+                "pr": precision_recall(fr, ff, k=3)}
+        c, h = sides["card"], sides["host"]
+        for key, tol in METRIC_STAT_TOL.items():
+            if not abs(c[key] - h[key]) <= tol * abs(h[key]):
+                fail(f"{key} of the card's features {c[key]:.6g} vs the "
+                     f"host's {h[key]:.6g}: beyond {tol} relative")
+        if max(abs(x - y) for x, y in zip(c["pr"], h["pr"])) > \
+                1.0 / METRICS_STATS:
+            fail(f"P&R of the card's features {c['pr']} vs the host's "
+                 f"{h['pr']}: beyond one sample")
+        print(f"  statistics of {METRICS_STATS} fakes and {METRICS_STATS} "
+              f"reals, card's features vs host's: FID {c['fid']:.6g} / "
+              f"{h['fid']:.6g} (gate {METRIC_STAT_TOL['fid']} relative), IS "
+              f"{c['is']:.6g} / {h['is']:.6g} (gate "
+              f"{METRIC_STAT_TOL['is']}), P&R {c['pr']} / {h['pr']} (gate: "
+              f"one sample); {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # the PPL control on the sweep's first pair batch
+        eps = 1e-4
+        rs = np.random.RandomState(0)        # sample_ppl_distances' draws
+        t = rs.rand(METRICS_BATCH).astype(np.float32)
+        pair_seed = rs.randint(2**31)
+
+        def dist(a, b):
+            fa, fb = card_ex(a)[0].double(), card_ex(b)[0].double()
+            return (((fa - fb) ** 2).sum(-1) / eps**2).cpu().numpy()
+
+        median = float(np.median(dist(*pair_fn(METRICS_BATCH, t, pair_seed,
+                                               eps))))
+        z = torch.randn((METRICS_BATCH, cfg.model.num_ws,
+                         cfg.model.latent_dim),
+                        generator=torch.Generator().manual_seed(
+                            derive_seed(pair_seed, "ppl"))).cuda()
+        seeds = [derive_seed(pair_seed, "ppl", "noise", r)
+                 for r in range(METRICS_BATCH)]
+        tt = torch.from_numpy(t).cuda()
+        same = dist(*ppl_pairs(state, z, z, tt, eps, noise_seeds=seeds))
+        a, _ = ppl_pairs(state, z, z, tt, eps, noise_seeds=seeds)
+        _, b = ppl_pairs(state, z, z, tt, eps,
+                         noise_seeds=[s + 1 for s in seeds])
+        unshared = float(np.median(dist(a, b)))
+        if not float(same.max()) <= PPL_CONTROL * median:
+            fail(f"PPL control: z0 == z1 with shared noise gives distances "
+                 f"up to {same.max():.4g}, beyond {PPL_CONTROL} of the "
+                 f"median {median:.4g}")
+        print(f"  PPL control (z0 == z1, the sweep's first pair batch): "
+              f"shared noise max distance {float(same.max()):.4g} "
+              f"({'exactly 0' if not same.any() else 'not 0'}; gate "
+              f"{PPL_CONTROL} of the median {median:.6g}); unshared noise "
+              f"median {unshared:.6g}", flush=True)
+        del state, card_ex, host_ex
+        torch.cuda.empty_cache()
+
+        # the in-loop hook: a one-tick run of two iterations
+        hook = os.path.join(root, "hook")
+        hook_train = dataclasses.replace(
+            cfg.train, kimg_per_tick=2 * cfg.train.batch_size / 1000,
+            total_kimg=1, metric_ticks=1, metrics=HOOK_METRICS,
+            snapshot_ticks=1, image_snapshot_ticks=1)
+        t0 = time.perf_counter()
+        loop.train(dataclasses.replace(cfg, train=hook_train), hook,
+                   steps=2)
+        took = time.perf_counter() - t0
+        line = open(os.path.join(hook, "metric-fid256_uncal.txt")).read()
+        flag = open(os.path.join(hook, "flag-calibrated.txt")).read()
+        if len(line.splitlines()) != 1 or flag != "calibrated 0\n":
+            fail(f"in-loop hook: metric-fid256_uncal.txt {line!r}, "
+                 f"flag-calibrated.txt {flag!r}")
+        print(f"  in-loop hook (2 iterations, one tick, metric_ticks 1, "
+              f"{HOOK_METRICS}): metric-fid256_uncal.txt "
+              f"{line.strip()!r}, flag-calibrated.txt {flag.strip()!r}; "
+              f"{took:.2f} s ({card})", flush=True)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev
+        if env_npz is not None:
+            os.environ["GANSFORMER_TPU_INCEPTION_NPZ"] = env_npz
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -4750,8 +4995,15 @@ def main() -> int:
     print("generate --run-dir on the loop's run:", flush=True)
     generate_phase(card, run_b["run"])
     print(f"the cycle, prepare_data and generate phases took "
-          f"{time.perf_counter() - t0:.1f} s; the smoke "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- metrics and evaluation -------------------------------------------
+    t0 = time.perf_counter()
+    print(f"metrics on the loop's run ({LOOP_PRESET}, bf16, "
+          f"{LOOP_IMAGES} procedural reals):", flush=True)
+    metrics_phase(card, run_b["run"])
+    print(f"the metrics phase took {time.perf_counter() - t0:.1f} s; the "
+          f"smoke {time.perf_counter() - t_start:.1f} s", flush=True)
 
     train_counts = {k: deltas["d_step"][k] + deltas["g_step"][k]
                     for k in TRAIN_KERNELS}

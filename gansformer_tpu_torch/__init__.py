@@ -3,7 +3,8 @@ Hopper (H100): the generator's serving path and training of the
 generator and discriminator, attention included (D's too), with both
 lazy regularizers (R1 and path length), as a run: the tick loop over the
 reference's TFRecords, with checkpoints in the JAX package's format and
-``--resume``.
+``--resume``, and scored by the metrics of ``metrics/`` (FID, IS,
+precision & recall and PPL over a PyTorch Inception-v3).
 
 Beside ``gansformer_tpu`` (the JAX reference) and independent of it: this
 package imports ``torch`` and numpy only.  Layouts match the JAX package

@@ -12,8 +12,8 @@ parts, ``get_experiment_preset`` the whole).  ``validate`` and
 ``conv_backend`` and ``attention_backend`` are accepted and ignored: in
 the port the device of the tensor picks the path (kernel on the card,
 plain version on the CPU).  The keys of ``IGNORED_TRAIN_KEYS`` are
-carried (so a config round-trips) and not acted on yet (in-loop metrics
-and the device-time sampler).  The attention-free configuration of a
+carried (so a config round-trips) and not acted on yet (the device-time
+sampler and the profiler).  The attention-free configuration of a
 preset is ``dataclasses.replace(get_preset(name), attention="none")``.
 """
 
@@ -186,8 +186,8 @@ class TrainConfig:
     kimg_per_tick: int = 4
     snapshot_ticks: int = 10
     image_snapshot_ticks: int = 10
-    metric_ticks: int = 50             # ignored: metrics are later
-    metrics: str = ""                  # ignored
+    metric_ticks: int = 50
+    metrics: str = ""
     seed: int = 0
     debug_nans: bool = False
     profile_dir: Optional[str] = None  # ignored: device sampling is later
@@ -195,10 +195,9 @@ class TrainConfig:
 
 
 # Keys of the JAX ``TrainConfig`` that the port carries and does not act on
-# yet: in-loop metrics, and the device-time sampler and profiler.  The loop
-# says so in log.txt when one is set.
-IGNORED_TRAIN_KEYS = frozenset({
-    "metric_ticks", "metrics", "profile_dir", "device_time_ticks"})
+# yet: the device-time sampler and profiler.  The loop says so in log.txt
+# when one is set.
+IGNORED_TRAIN_KEYS = frozenset({"profile_dir", "device_time_ticks"})
 
 
 def _from_dict(cls, d: Dict[str, Any], what: str):

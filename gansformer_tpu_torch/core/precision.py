@@ -21,6 +21,8 @@ dtype as the JAX package does, so no ``config.json`` reaches it.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 REFERENCE = torch.float64
@@ -41,3 +43,20 @@ def input_dtype(model_dtype: str) -> torch.dtype:
     """The dtype of a step's latents and reals: fp32, or float64 for a
     float64 model."""
     return REFERENCE if model_dtype == "float64" else torch.float32
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """fp32 convolutions and matmuls in fp32, not TF32: cuDNN's
+    ``allow_tf32`` is on by default, and TF32 would shift every fp32
+    feature of a metric sweep by ~1e-3 relative.  The two flags are set
+    off and restored on exit, so what runs inside does not depend on what
+    the caller set."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = False
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev

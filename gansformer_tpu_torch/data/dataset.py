@@ -96,6 +96,13 @@ class Dataset:
         rs = np.random.RandomState(seed)
         return labels[rs.randint(0, len(labels), size=n)]
 
+    def cache_tag(self) -> str:
+        """Stable identity for disk caches (the FID real statistics):
+        the class, the source path and the resolution, as JAX's
+        ``cache_tag`` gives them."""
+        src = getattr(self, "path", None) or getattr(self, "file", None) or ""
+        return f"{self.__class__.__name__}-{src}-{self.resolution}"
+
 
 class SyntheticDataset(Dataset):
     """Deterministic procedural images: smooth multi-scale Gabor-like

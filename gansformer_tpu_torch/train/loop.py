@@ -28,10 +28,17 @@ The snapshot grid's latents come from the port's own generator seeded
 with ``seed + 2`` (``grid_z`` stands in for them), their noise from
 ``seed + 3``.
 
+Every ``metric_ticks`` ticks, where ``train.metrics`` names metrics, the
+tick boundary runs the metric group (built once, at its first use) on
+the EMA generator inside the ``metric`` span: the results go to
+``metric-<name>.txt`` and TensorBoard, the ``calibrated`` flag to
+``flag-calibrated.txt``, and a ``metrics @ … kimg`` line to ``log.txt``.
+The samplers' seed is ``seed + 5``, as in JAX.
+
 Not in the port, and said so in ``log.txt`` where a config asks: the
 mesh, FSDP and multi-host branches (a mesh of more than one device fails
-``ExperimentConfig.validate``), in-loop metrics, the device-time sampler
-and ``profile_dir``.  The compile listener, the
+``ExperimentConfig.validate``), the device-time sampler and
+``profile_dir``.  The compile listener, the
 retrace watch and the TPU-only MFU bookkeeping count XLA compiles and
 TPU FLOPs and have no counterpart.  The ``--steps`` cap of the CLI
 (``steps``) ends the run after that many iterations, with its final tick
@@ -101,7 +108,7 @@ def ignored_notes(cfg: ExperimentConfig) -> list:
     """One line for each key the config turns on that the port does not
     act on yet (JAX's defaults turn one on: the device-time sampler)."""
     out = []
-    for k in sorted(IGNORED_TRAIN_KEYS - {"metric_ticks"}):
+    for k in sorted(IGNORED_TRAIN_KEYS):
         v = getattr(cfg.train, k)
         if v:
             out.append(f"train.{k}={v!r} is not in the port yet: it runs "
@@ -310,6 +317,26 @@ def _train(cfg: ExperimentConfig, run_dir: str, dev: torch.device,
             else:
                 save_image_grid(imgs.cpu().numpy(), path)
 
+    metric_group = None      # built at its first use: the extractor's setup
+
+    def run_metrics(st: TrainState) -> dict:
+        """The metric group on the EMA generator (the reference training
+        loop's periodic metric runs)."""
+        nonlocal metric_group
+        from gansformer_tpu_torch.metrics.inception import make_extractor
+        from gansformer_tpu_torch.metrics.metric_base import (
+            MetricGroup, parse_metric_names)
+        from gansformer_tpu_torch.train.steps import make_metric_samplers
+
+        if metric_group is None:
+            metric_group = MetricGroup(
+                parse_metric_names(t.metrics, batch_size=t.batch_size),
+                extractor=make_extractor(device=dev),
+                cache_dir=os.path.join(run_dir, "metric-cache"))
+        sample_fn, pair_fn = make_metric_samplers(
+            st, cfg, dataset, truncation_psi=1.0, seed=t.seed + 5)
+        return metric_group.run(sample_fn, dataset, pair_fn=pair_fn)
+
     # --- loop ----------------------------------------------------------------
     cur_nimg = start_step
     heartbeat.beat(step=cur_nimg, kimg=cur_nimg / 1000,
@@ -444,6 +471,25 @@ def _train(cfg: ExperimentConfig, run_dir: str, dev: torch.device,
                         ckpt.save(ckpt_dir, state, cfg,
                                   block=not t.async_checkpoint)
                     log.write(f"checkpoint @ {cur_nimg / 1000:.1f} kimg")
+                if t.metric_ticks > 0 and t.metrics and \
+                        tick % t.metric_ticks == 0:
+                    from gansformer_tpu_torch.metrics.metric_base import \
+                        FLAG_KEYS
+
+                    with span("metric"):
+                        results = run_metrics(state)
+                    # flags are state, not series: flag-<name>.txt
+                    flags = {k: results.pop(k) for k in FLAG_KEYS
+                             if k in results}
+                    for name, val in results.items():
+                        log.metric(name, val, cur_nimg / 1000)
+                    for name, val in flags.items():
+                        log.flag(name, val)
+                    log.write("metrics @ {:.1f} kimg: {}{}".format(
+                        cur_nimg / 1000,
+                        {k: round(v, 3) for k, v in results.items()},
+                        "".join(f"  [{k}={int(v)}]"
+                                for k, v in flags.items())))
     finally:
         batches.close()
         dataset.close()

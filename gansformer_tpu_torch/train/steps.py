@@ -20,6 +20,11 @@ at ``do_pl=False`` in ``gansformer_tpu/train/steps.py``), run eagerly.
   * g_reg_interval`` added to the loss; ``Loss/G/pl`` is the penalty and
   ``pl_mean`` takes its new EMA after the update.
 
+The metric samplers (``sample_images``, ``ppl_pairs`` and
+``make_metric_samplers``: JAX's ``_sample``, ``_ppl_pairs`` and
+``make_metric_samplers``) drive the EMA generator without a graph for
+the metric sweeps.
+
 Randomness is the port's own (``jax.random`` streams cannot be
 reproduced): every draw of iteration ``it`` comes from generators seeded
 by ``derive_seed(state.seed, it, phase, ...)``.  z, the mixing draws and
@@ -56,6 +61,7 @@ from gansformer_tpu_torch.losses.gan import (d_logistic_loss,
                                              g_nonsaturating_loss,
                                              path_length_penalty,
                                              r1_penalty, r1_slice)
+from gansformer_tpu_torch.models.generator import apply_truncation
 from gansformer_tpu_torch.train.state import TrainState, derive_seed
 
 W_AVG_BETA = 0.995
@@ -266,3 +272,105 @@ def g_step_pl(state: TrainState, it: int, batch: int,
     """``g_step`` with the path-length penalty, the step the training loop
     runs every ``g_reg_interval`` iterations."""
     return g_step(state, it, batch, do_pl=True, **kwargs)
+
+
+# ---------------- metric samplers ----------------
+
+def sample_images(state: TrainState, z: torch.Tensor, truncation_psi=1.0,
+                  label: Optional[torch.Tensor] = None,
+                  noise_mode: str = "random",
+                  noise_gens: Optional[List[torch.Generator]] = None
+                  ) -> torch.Tensor:
+    """The EMA generator's images of latents ``z`` (JAX's ``_sample``):
+    map, truncate toward ``w_avg`` by psi, synthesize."""
+    ema = state.ema
+    with torch.no_grad():
+        ws = apply_truncation(ema.map(z, label), state.w_avg, truncation_psi)
+        return ema.synthesize(ws, noise_mode=noise_mode,
+                              noise_gens=noise_gens)
+
+
+def ppl_pairs(state: TrainState, z0: torch.Tensor, z1: torch.Tensor,
+              t: torch.Tensor, epsilon: float,
+              label: Optional[torch.Tensor] = None,
+              noise_mode: str = "random",
+              noise_seeds: Optional[List[int]] = None):
+    """The w-space lerp endpoints of PPL (JAX's ``_ppl_pairs``): the EMA
+    generator's images at ``t`` and ``t + epsilon`` between the mapped
+    ``z0`` and ``z1``, without truncation.  The pair shares its synthesis
+    noise: a generator is consumed as it draws, so each image gets its
+    own generators, built from the same ``noise_seeds`` (one per row)."""
+    ema = state.ema
+
+    def gens():
+        if noise_seeds is None:
+            return None
+        return [torch.Generator(device=z0.device).manual_seed(s)
+                for s in noise_seeds]
+
+    with torch.no_grad():
+        w0 = ema.map(z0, label)
+        w1 = ema.map(z1, label)
+        tt = t.to(w0.device, w0.dtype)[:, None, None]
+        wa = w0 + (w1 - w0) * tt
+        wb = w0 + (w1 - w0) * (tt + epsilon)
+        img_a = ema.synthesize(wa, noise_mode=noise_mode, noise_gens=gens())
+        img_b = ema.synthesize(wb, noise_mode=noise_mode, noise_gens=gens())
+    return img_a, img_b
+
+
+def make_metric_samplers(state: TrainState, cfg, dataset,
+                         truncation_psi: float = 1.0, seed: int = 7,
+                         device=None):
+    """(sample_fn, pair_fn) for ``MetricGroup.run``, on the state's
+    device (``device`` must name the same one).  ``sample_fn(n)``: the
+    k-th call draws z from a CPU generator seeded ``derive_seed(seed,
+    "sample", k)``, its labels (conditional models) through
+    ``dataset.random_labels`` and row i's conv noise from a generator
+    seeded ``derive_seed(seed, "sample", k, "noise", i)`` on the device.
+    ``pair_fn(n, t, pair_seed, epsilon)``: z0 and z1 from
+    ``derive_seed(pair_seed, "ppl")``, labels from ``pair_seed``, the
+    noise of row i from ``derive_seed(pair_seed, "ppl", "noise", i)``
+    for both images (JAX's pair probe depends on ``pair_seed`` alone
+    too)."""
+    import numpy as np
+
+    dev = state.device
+    if device is not None and torch.device(device) != dev:
+        raise ValueError(f"the state lies on {dev}, not {device}")
+    m = cfg.model
+    dt = input_dtype(m.dtype)
+    calls = [0]
+
+    def labels(n: int, label_seed: int):
+        if not m.label_dim:
+            return None
+        return to_device(torch.from_numpy(np.ascontiguousarray(
+            dataset.random_labels(n, seed=label_seed))), dev)
+
+    def sample_fn(n: int) -> torch.Tensor:
+        k = calls[0]
+        calls[0] += 1
+        gen = torch.Generator().manual_seed(derive_seed(seed, "sample", k))
+        z = torch.randn((n, m.num_ws, m.latent_dim), generator=gen)
+        gens = [torch.Generator(device=dev).manual_seed(
+            derive_seed(seed, "sample", k, "noise", row))
+            for row in range(n)]
+        return sample_images(
+            state, to_device(z, dev).to(dt), truncation_psi,
+            labels(n, derive_seed(seed, "sample", k, "label") % 2**30),
+            noise_gens=gens)
+
+    def pair_fn(n: int, ts, pair_seed: int, epsilon: float):
+        gen = torch.Generator().manual_seed(derive_seed(pair_seed, "ppl"))
+        shape = (n, m.num_ws, m.latent_dim)
+        z0 = torch.randn(shape, generator=gen)
+        z1 = torch.randn(shape, generator=gen)
+        t = torch.as_tensor(np.asarray(ts, np.float32))
+        return ppl_pairs(
+            state, to_device(z0, dev).to(dt), to_device(z1, dev).to(dt),
+            to_device(t, dev), epsilon, labels(n, int(pair_seed)),
+            noise_seeds=[derive_seed(pair_seed, "ppl", "noise", row)
+                         for row in range(n)])
+
+    return sample_fn, pair_fn

@@ -3,7 +3,9 @@ one per-tick dict goes to the console in the reference's one-line format,
 to ``stats.jsonl``, and to a TensorBoard event file under
 ``<run_dir>/tensorboard/``, with the reference's scalar names
 (``Loss/G``, ``Progress/kimg``, ``timing/img_per_sec_per_chip``).  Also
-the resume records (``resumes.jsonl``) and the numbered run dirs.
+the metric series (``metric-<name>.txt``) and run flags
+(``flag-<name>.txt``), the resume records (``resumes.jsonl``) and the
+numbered run dirs.
 """
 
 from __future__ import annotations
@@ -13,6 +15,22 @@ import os
 import sys
 import time
 from typing import Dict, Optional
+
+
+def append_metric_line(run_dir: str, name: str, value: float,
+                       kimg: float) -> None:
+    """One line of ``metric-<name>.txt``, the reference's format."""
+    with open(os.path.join(run_dir, f"metric-{name}.txt"), "a") as f:
+        f.write(f"kimg {kimg:<10.1f} {name} {value:.6f}\n")
+
+
+def write_flag(run_dir: str, name: str, value) -> None:
+    """A run flag (the metric sweep's ``calibrated`` regime) is state, not
+    a series: one ``flag-<name>.txt``, overwritten in place, never a
+    ``metric-<name>.txt``."""
+    v = int(value) if isinstance(value, (bool, int, float)) else value
+    with open(os.path.join(run_dir, f"flag-{name}.txt"), "w") as f:
+        f.write(f"{name} {v}\n")
 
 
 def append_resume_record(run_dir: str, step: int) -> None:
@@ -99,6 +117,16 @@ class RunLogger:
             g=stats.get("Loss/G", float("nan")),
             d=stats.get("Loss/D", float("nan")))
         self.write(line)
+
+    def metric(self, name: str, value: float, kimg: float) -> None:
+        """A metric result: ``metric-<name>.txt`` and the TensorBoard
+        scalar ``Metrics/<name>`` at the kimg's image count."""
+        append_metric_line(self.run_dir, name, value, kimg)
+        self.tb.scalars({f"Metrics/{name}": value}, step=int(kimg * 1000))
+
+    def flag(self, name: str, value) -> None:
+        """A run flag → ``flag-<name>.txt``."""
+        write_flag(self.run_dir, name, value)
 
     def write(self, msg: str) -> None:
         print(msg)

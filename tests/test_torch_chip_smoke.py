@@ -1096,3 +1096,24 @@ def test_fleet_gates_reject_what_they_name(fault):
 
 def test_fleet_members_rehearse_on_one_device():
     assert chip_smoke.fleet_members("cpu") == [torch.device("cpu")] * 2
+
+
+def test_metrics_phase_plan_and_low_rank_fid(rng):
+    """The metrics phase's launch plan (one synthesize per fake batch,
+    two per PPL batch, each ffhq256-duplex's 20 / 12 / 7 / 5 forward
+    launches at batch 32) and its low-rank FID against the FID formula
+    with scipy's square root (32 samples in 96 dimensions)."""
+    from gansformer_tpu_torch.metrics.fid import fid_from_features
+
+    assert chip_smoke.metrics_sweep_synths(1000, 32) == 32 + 2 * 32
+    assert chip_smoke.metrics_sweep_synths(256, 32) == 8 + 2 * 8
+    cfg = port_config.get_preset("ffhq256-duplex")
+    calls = chip_smoke.main_path_calls(cfg, chip_smoke.METRICS_BATCH)
+    assert {k: sum(c["kernel"] == k for c in calls)
+            for k in chip_smoke.SERVE_KERNELS} == {
+        "modconv": 20, "upfirdn": 12, "grid_to_latent": 7,
+        "latent_to_grid": 5}
+    real = rng.randn(32, 96)
+    fake = rng.randn(32, 96) * 1.3 + 0.2
+    assert chip_smoke.frechet_low_rank(real, fake) == pytest.approx(
+        fid_from_features(real, fake), rel=1e-6)
