@@ -88,8 +88,10 @@ In order:
    cuda:0 is current, against its plain version; the autoscale drill
    (scale-out before any breaker trip, 0 hung, every ticket settled
    typed); the SLO report over the phase's ``requests.jsonl`` and
-   ``telemetry.prom``; ``cli/serve.py --autoscale`` once, its prom held
-   to the fleet families and ``--healthcheck`` on it;
+   ``telemetry.prom``, then ``cli/telemetry.py slo`` on that dir (exit 1
+   exactly where a budget is exhausted) and ``requests --worst 3`` (three
+   timelines); ``cli/serve.py --autoscale`` once, its prom held to the
+   fleet families and ``--healthcheck`` on it;
 6. training (the ffhq256-duplex preset itself: full width and depth,
    attention on, batch 8, bf16, random init from seed 0, noise on, style
    mixing 0.9, procedural reals).  For every backward launch of one
@@ -142,7 +144,14 @@ In order:
    held to ``pl_step_calls``' plan, finite losses with ``Loss/G/pl``,
    every leaf of G finite and nonzero, the step's peak device memory, 3
    iterations of g_step_pl, g_step and d_step by CUDA events, a run's
-   mean g step, and the profiler's breakdown of one g_step_pl; then each
+   mean g step, and the profiler's breakdown of one g_step_pl; then the
+   loop's trace path (``profile_window_phase``: ``start_profiler`` /
+   ``export_trace`` of ``obs/device_time.py``) around one d_step + g_step
+   and one d_step_r1 + g_step_pl, each trace parsed by
+   ``utils/profparse.py``: its count of each hand-written kernel equal to
+   the launch counters' delta over the window, the device busy time
+   within the window's CUDA-event time, each step attributed to its
+   program and no device event to none; then each
    other preset (cityscapes256-duplex at L = 32,
    ffhq1024-duplex at 512^2 and 1024^2, clevr64-simplex in fp32; the
    ModelConfig of bedroom256-duplex is ffhq256-duplex's, which the
@@ -216,7 +225,24 @@ In order:
    of the median distance; the median's order with unshared noise); and
    the loop's in-loop metric hook once (one tick, ``metric_ticks`` 1,
    fid256: ``metric-fid256_uncal.txt`` and ``flag-calibrated.txt``);
-12. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+12. the supervised run (``supervise_phase``): ``cli/supervise.py`` over
+   the train CLI on ffhq256-duplex as the preset has it (batch 32) from
+   the loop's TFRecords, ticks of 8 iterations and a checkpoint each,
+   ``--device-time-ticks 1``, a SIGKILL as the first checkpoint's write
+   ends and a hang at the next child's first boundary
+   (``supervise_plan``): the exits crash, hang, clean with 2 restarts
+   and a ``complete`` event, ``supervisor.prom``'s counts, the last
+   checkpoint at the plan's step, both restarts resumed from the first
+   checkpoint, the final child's device sample (none failed,
+   ``wall_busy_ratio`` in (0, 1.1], a ``phase_ms`` gauge for each step
+   kind of its sampled tick, their sum within ``busy_ms``) and no
+   libtorch ever in the supervisor's ``/proc/<pid>/maps``
+   (``supervise_gate``); ``telemetry doctor`` on the
+   run exits 0 with ``device_truth`` PASS and an ``availability``
+   section; ``telemetry fleet`` over the loop's and the supervised run
+   dirs.  The loop's runs B, C and D and the metrics hook run with
+   ``device_time_ticks`` 0: their printed tick times carry no profiler;
+13. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
    Every number of a kernel in the JSON line covers that kernel's
    ``span``: the serve run's launches for the forward kernels (and, in a
    second entry with ``"lse": true``, the forward attention launches of
@@ -2588,6 +2614,20 @@ def fleet_phase(card: str, cfg=None, device: str = "cuda") -> dict:
         if why:
             fail(f"fleet SLO report: {why}")
         out["slo"] = report
+        code, text = telemetry_cli("slo", root)
+        print(f"  telemetry slo on the phase's dir: exit {code} (budgets "
+              f"exhausted {report['exhausted']}): {text.splitlines()[:1]}",
+              flush=True)
+        if code != (1 if report["exhausted"] else 0):
+            fail(f"telemetry slo exited {code}: {text[-2000:]}")
+        code, text = telemetry_cli("requests", root, "--worst", "3")
+        shown = sum(ln.startswith("request ") for ln in text.splitlines())
+        print(f"  telemetry requests --worst 3: exit {code}, {shown} "
+              f"timelines, the slowest: {text.splitlines()[:1]}",
+              flush=True)
+        if code != 0 or shown != 3:
+            fail(f"telemetry requests --worst 3: exit {code}, {shown} "
+                 f"timelines")
     finally:
         reqtrace.configure_reqtrace(None)
         shutil.rmtree(root, ignore_errors=True)
@@ -3957,7 +3997,8 @@ def start_run_b():
         exp, data=dataclasses.replace(exp.data, path=data),
         train=dataclasses.replace(exp.train, total_kimg=LOOP_KIMG,
                                   kimg_per_tick=1, snapshot_ticks=1,
-                                  image_snapshot_ticks=1))
+                                  image_snapshot_ticks=1,
+                                  device_time_ticks=0))
     t = exp.train
     cfg_path = os.path.join(root, "config.json")
     with open(cfg_path, "w") as f:
@@ -4595,7 +4636,7 @@ def metrics_phase(card: str, run: str) -> None:
         hook_train = dataclasses.replace(
             cfg.train, kimg_per_tick=2 * cfg.train.batch_size / 1000,
             total_kimg=1, metric_ticks=1, metrics=HOOK_METRICS,
-            snapshot_ticks=1, image_snapshot_ticks=1)
+            snapshot_ticks=1, image_snapshot_ticks=1, device_time_ticks=0)
         t0 = time.perf_counter()
         loop.train(dataclasses.replace(cfg, train=hook_train), hook,
                    steps=2)
@@ -4614,6 +4655,466 @@ def metrics_phase(card: str, run: str) -> None:
         if env_npz is not None:
             os.environ["GANSFORMER_TPU_INCEPTION_NPZ"] = env_npz
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# Supervision and telemetry tools: the profiler's window, the supervised
+# run and the tools on the card's artifacts
+
+# The CUDA kernel each wrapper launch runs exactly once (a launch may add
+# a reduce or a combine after it), by launch counter.  upfirdn's forward
+# and its adjoint run the same kernels, so their counts are held summed.
+PROFILE_KERNELS = {
+    "modconv": ("modconv_kernel", "fwd_wgmma_kernel", "fwd_smallk_kernel"),
+    "modconv_dx": ("ds_reduce_kernel",),
+    "modconv_dw": ("dw_wgmma_kernel", "dw_smallk_kernel", "dw_fma_kernel"),
+    "upfirdn+upfirdn_adjoint": ("ufd_tile_kernel", "ufd_smallc_kernel",
+                                "upfirdn_kernel"),
+    "grid_to_latent": ("g2l_kernel", "g2l_mma_kernel"),
+    "latent_to_grid": ("l2g_partial_kernel", "l2g_mma_kernel"),
+    "grid_to_latent_bwd": ("g2l_bwd_kernel", "g2l_bwd_mma_kernel"),
+    "latent_to_grid_bwd": ("l2g_bwd_kernel", "l2g_bwd_mma_kernel"),
+}
+PROFILE_WINDOWS = (("d_step", "g_step"), ("d_step_r1", "g_step_pl"))
+
+
+def kernel_function(name: str) -> str:
+    """The function name of a kernel event ("void fwd_wgmma_kernel<128>(
+    CUtensorMap_st, ...)" -> "fwd_wgmma_kernel")."""
+    import re
+
+    n = name.strip()
+    n = n[len("void "):] if n.startswith("void ") else n
+    n = re.split(r"[<(]", n.replace("(anonymous namespace)::", ""), 1)[0]
+    return n.rsplit("::", 1)[-1].strip()
+
+
+def trace_kernel_counts(names) -> dict:
+    """Kernel events of a trace counted by launch counter
+    (``PROFILE_KERNELS``)."""
+    of = {f: key for key, fns in PROFILE_KERNELS.items() for f in fns}
+    out = dict.fromkeys(PROFILE_KERNELS, 0)
+    for n in names:
+        key = of.get(kernel_function(n))
+        if key:
+            out[key] += 1
+    return out
+
+
+def counter_totals(counts: dict) -> dict:
+    """``ops.launch_counts()`` by ``PROFILE_KERNELS``' keys."""
+    out = {k: v for k, v in counts.items()
+           if k not in ("upfirdn", "upfirdn_adjoint")}
+    out["upfirdn+upfirdn_adjoint"] = counts["upfirdn"] + \
+        counts["upfirdn_adjoint"]
+    return out
+
+
+def profile_window_gate(parsed, counted, busy_ms, window_ms, programs,
+                        want_programs, unattributed):
+    """Why a profiled window fails, or None: the parser's count of each
+    hand-written kernel equal to the launch counters' delta (every kernel
+    of the path launched), the device busy time within the window's
+    CUDA-event time, each step of the window attributed and no kernel of
+    it left unattributed."""
+    if parsed != counted:
+        return f"kernels in the trace {parsed} != the launch counters' " \
+               f"{counted}"
+    missing = [k for k, v in counted.items() if not v]
+    if missing:
+        return f"no launch of {missing} in the window"
+    if busy_ms > window_ms:
+        return f"device busy {busy_ms:.3f} ms > the window's " \
+               f"{window_ms:.3f} ms by CUDA events"
+    if set(programs) != set(want_programs):
+        return f"programs {sorted(programs)} != {sorted(want_programs)}"
+    if unattributed:
+        return f"{unattributed} device events attributed to no program"
+    return None
+
+
+def profile_window_phase(card: str, model, train) -> None:
+    """The loop's trace path (``obs.device_time.start_profiler`` /
+    ``export_trace``, as ``profile_dir`` uses it) around one d_step +
+    g_step and one d_step_r1 + g_step_pl of ``model`` at batch
+    ``TRAIN_BATCH`` in this process, each window's Chrome trace parsed by
+    ``utils/profparse.py`` and held by ``profile_window_gate``, and its
+    events read from memory as the sampler reads them
+    (``trace_from_kineto``), which must give the same events, busy time,
+    programs and unattributed events on the card's plane (the host plane
+    may differ by the profiler's own bookkeeping events).  Prints the events, the stop, export, parse and
+    in-memory fold seconds, the busy time against the window and the
+    per-program device ms."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gansformer_tpu_torch import ops
+    from gansformer_tpu_torch.data import SyntheticDataset
+    from gansformer_tpu_torch.obs.device_time import (export_trace,
+                                                      start_profiler)
+    from gansformer_tpu_torch.train import steps
+    from gansformer_tpu_torch.utils.profparse import (parse_trace,
+                                                      trace_from_kineto,
+                                                      trace_report)
+
+    state = train_state_on_card(model, train)
+    reals = torch.from_numpy(next(SyntheticDataset(
+        model.resolution, model.img_channels).batches(TRAIN_BATCH, seed=0))[
+        "image"]).cuda()
+
+    def run(name, it):
+        if name.startswith("d_step"):
+            getattr(steps, name)(state, reals, it)
+        else:
+            getattr(steps, name)(state, it, TRAIN_BATCH)
+    for names in PROFILE_WINDOWS:          # first calls out of the windows
+        for name in names:
+            run(name, 0)
+    for names in PROFILE_WINDOWS:
+        tdir = tempfile.mkdtemp(prefix="gansformer_smoke_profile_")
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            prof = start_profiler("cuda")
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for name in names:
+                run(name, 0)
+            ev[1].record()
+            torch.cuda.synchronize()
+            window_ms = ev[0].elapsed_time(ev[1])
+            counted = counter_totals(ops.launch_counts())
+            t0 = time.perf_counter()
+            prof.stop()
+            t1 = time.perf_counter()
+            path = export_trace(prof, tdir)
+            t2 = time.perf_counter()
+            trace, source = parse_trace(tdir)
+            t3 = time.perf_counter()
+            memory = trace_from_kineto(prof.profiler.kineto_results.events())
+            t4 = time.perf_counter()
+            if trace is None or memory is None:
+                fail(f"profile window {names}: {source}, in memory "
+                     f"{memory}")
+            rep = trace_report(trace, source)
+            mem = trace_report(memory, "memory")
+            same = {k: (rep[k], mem[k]) for k in (
+                "plane", "busy_s", "span_s", "events", "program_busy_s")
+                if rep[k] != mem[k]}
+            plane = rep["plane"]
+            if same or memory.unattributed.get(plane) != \
+                    trace.unattributed.get(plane):
+                fail(f"profile window {names}: the trace in memory differs "
+                     f"from the Chrome trace: {same}, unattributed "
+                     f"{memory.unattributed} / {trace.unattributed}")
+            parsed = trace_kernel_counts(n for n, _, _ in
+                                         trace.events[plane])
+            busy_ms = rep["busy_s"] * 1e3
+            progs = rep["program_busy_s"]
+            print(f"  {' + '.join(names)}: {rep['events']} device events "
+                  f"on {plane} of {sum(map(len, trace.events.values()))} "
+                  f"busy events, trace {os.path.getsize(path) / 2**20:.1f} "
+                  f"MiB; stop {t1 - t0:.3f} s, export {t2 - t1:.3f} s, "
+                  f"parse {t3 - t2:.3f} s, in-memory fold {t4 - t3:.3f} s "
+                  f"(the same report); device busy {busy_ms:.3f} ms of "
+                  f"the window's {window_ms:.3f} ms (CUDA events); per "
+                  f"program " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v
+                                         in sorted(progs.items()))
+                  + f"; unattributed {trace.unattributed} ({card})",
+                  flush=True)
+            print(f"    kernels in the trace {parsed}", flush=True)
+            why = profile_window_gate(parsed, counted, busy_ms, window_ms,
+                                      progs, names,
+                                      trace.unattributed.get(plane, 0))
+            if why:
+                fail(f"profile window {names}: {why}")
+        finally:
+            shutil.rmtree(tdir, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+
+
+SUPERVISE_TICK_ITERS = 8      # half a lazy-reg cycle: R1 in every other tick
+SUPERVISE_ARGS = ("--heartbeat-max-age", "30", "--hang-grace", "3",
+                  "--poll-interval", "0.5", "--backoff-base", "1",
+                  "--backoff-max", "2", "--startup-grace", "600",
+                  "--max-restarts", "3")
+SUPERVISE_TIMEOUT_S = 600
+
+
+def supervise_plan(train, tick_iters: int = SUPERVISE_TICK_ITERS) -> dict:
+    """The supervised run at ``train.batch_size``: ticks of
+    ``tick_iters`` iterations and a checkpoint each.  Child 1 writes the
+    checkpoint of its first tick and is SIGKILLed as that write ends
+    (``ckpt_after_write``), inside its second tick; child 2 resumes from
+    that checkpoint and hangs at the end of its first tick, before it
+    saves; child 3 resumes from the same checkpoint and runs two ticks to
+    the end, the second sampled (``--device-time-ticks 1``: tick 0 starts
+    at setup) and holding an R1 iteration.  Only child 3 folds a sample:
+    each fold costs seconds.  ``sampled_kinds``: the step kinds of that
+    tick; ``resumed_at``: the step each child starts from."""
+    per_tick = train.batch_size * tick_iters
+    return {"kimg_per_tick": per_tick / 1000,
+            "total_kimg": 3 * per_tick / 1000,
+            "faults": (f"sigkill@ckpt_after_write:step={per_tick}",
+                       f"hang@tick:step={2 * per_tick}"),
+            "final_step": 3 * per_tick,
+            "causes": ["crash", "hang", "clean"],
+            "resumed_at": [0, per_tick, per_tick],
+            "sampled_kinds": loop_step_kinds(train, 2 * tick_iters,
+                                             tick_iters)}
+
+
+def sampled_ticks(records):
+    """(record, sampled) for each tick record of a run dir's stats.jsonl
+    across processes: a tick is sampled where its process's
+    ``device/samples_total`` grew (each process starts at tick 0)."""
+    out, prev = [], 0.0
+    for rec in records:
+        if rec.get("Progress/tick") == 0:
+            prev = 0.0
+        n = rec.get("telemetry", {}).get("counters", {}).get(
+            "device/samples_total", 0.0)
+        out.append((rec, n > prev))
+        prev = n
+    return out
+
+
+def supervise_gate(plan, result_rc, ledger, sup, last_step, resumes, tele,
+                   samples, torch_seen, maps_read):
+    """Why the supervised run fails, or None: the exit classes and the
+    restarts, the ``supervisor.prom`` counts, the last checkpoint, the
+    steps the children resumed at (``resumes.jsonl``), the final child's
+    device sample and its tick's ``phase_ms`` (the gauges
+    of its stats.jsonl record: one entry per step kind the tick ran,
+    their sum within its ``busy_ms``) and a supervisor that never loaded
+    libtorch."""
+    if result_rc != 0:
+        return f"the supervisor exited {result_rc}"
+    causes = [e.get("cause") for e in ledger if e.get("kind") == "exit"]
+    if causes != plan["causes"]:
+        return f"exit causes {causes} != {plan['causes']}"
+    restarts = [e for e in ledger if e.get("kind") == "start"
+                and e.get("restart_index")]
+    if len(restarts) != 2 or not any(e.get("kind") == "complete"
+                                     for e in ledger):
+        return f"{len(restarts)} restarts, ledger kinds " \
+               f"{[e.get('kind') for e in ledger]}"
+    want = {"supervise_restarts_total": 2.0, "supervise_crashes_total": 1.0,
+            "supervise_hangs_total": 1.0,
+            "supervise_clean_exits_total": 1.0}
+    got = {k: sup.get(k) for k in want}
+    if got != want:
+        return f"supervisor.prom {got} != {want}"
+    ratio = sup.get("supervise_availability_ratio")
+    if ratio is None or not 0.0 < ratio <= 1.0:
+        return f"availability_ratio {ratio}"
+    if last_step != plan["final_step"]:
+        return f"last checkpoint at step {last_step}, not " \
+               f"{plan['final_step']}"
+    resumed = [0] + list(resumes)
+    if resumed != plan["resumed_at"]:
+        return f"children started at steps {resumed}, not " \
+               f"{plan['resumed_at']}"
+    if not tele.get("device_samples_total", 0.0) >= 1 or \
+            tele.get("device_sample_failed_total", 0.0) != 0.0 or \
+            tele.get("device_unavailable") != 0.0:
+        return "device samples {} failed {} unavailable {}".format(
+            tele.get("device_samples_total"),
+            tele.get("device_sample_failed_total"),
+            tele.get("device_unavailable"))
+    ratio = tele.get("device_wall_busy_ratio")
+    if ratio is None or not 0.0 < ratio <= 1.1:
+        return f"wall_busy_ratio {ratio}"
+    if len(samples) != 1:
+        return f"{len(samples)} sampled ticks, the final child's one " \
+               f"expected"
+    kinds = {k for k, n in plan["sampled_kinds"].items() if n}
+    phases = {k.split("/", 2)[2]: v for k, v in samples[0].items()
+              if k.startswith("device/phase_ms/")}
+    if set(phases) != kinds:
+        return f"phase_ms {sorted(phases)} != the sampled tick's step " \
+               f"kinds {sorted(kinds)}"
+    if sum(phases.values()) > samples[0]["device/busy_ms"] * (1 + 1e-6):
+        return f"phase_ms sum {sum(phases.values())} > busy_ms " \
+               f"{samples[0]['device/busy_ms']}"
+    if torch_seen or not maps_read:
+        return f"the supervisor loaded libtorch ({torch_seen}) or its " \
+               f"maps were never read ({maps_read})"
+    return None
+
+
+def telemetry_cli(*args, timeout: int = 120):
+    """``python -m gansformer_tpu_torch.cli.telemetry`` in a process of
+    its own: (exit code, stdout)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "gansformer_tpu_torch.cli.telemetry",
+         *args], capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return out.returncode, out.stdout
+
+
+def supervise_phase(card: str, b: dict, device: str = "cuda") -> str:
+    """``python -m gansformer_tpu_torch.cli.supervise`` over the train CLI
+    on ffhq256-duplex as the preset has it (full width, batch 32, bf16)
+    from the loop phase's TFRecords, with ``--device-time-ticks 1`` and
+    the faults of ``supervise_plan``: one SIGKILL and one hang, each after
+    a checkpoint, then a clean end.  ``supervise_gate`` holds the ledger,
+    ``supervisor.prom``, the last checkpoint, the resume steps, the final
+    child's device sample and phases and the supervisor's maps; then
+    ``telemetry doctor`` on the run must exit 0 with ``device_truth``
+    PASS and an ``availability`` section.  Prints each child's uptime and
+    downtime, the sampled tick against the unsampled ones, the sample's
+    events and stop and fold seconds.  Returns the run dir; ``device`` is for
+    the host's rehearsal of the phase."""
+    import re
+
+    from gansformer_tpu_torch.obs.registry import parse_prom_values
+    from gansformer_tpu_torch.supervise.events import read_events
+    from gansformer_tpu_torch.train import checkpoint as ckpt
+    from gansformer_tpu_torch.utils.logging import read_resume_records
+
+    t_phase = time.perf_counter()
+    root = b["root"]
+    exp = b["exp"]
+    plan = supervise_plan(exp.train)
+    exp = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, kimg_per_tick=plan["kimg_per_tick"],
+        total_kimg=plan["total_kimg"], snapshot_ticks=1,
+        image_snapshot_ticks=0))
+    cfg_path = os.path.join(root, "supervise.json")
+    with open(cfg_path, "w") as f:
+        f.write(exp.to_json())
+    run = os.path.join(root, "supervised")
+    argv = [sys.executable, "-m", "gansformer_tpu_torch.cli.supervise",
+            "--run-dir", run, *SUPERVISE_ARGS]
+    for spec in plan["faults"]:
+        argv += ["--fault", spec]
+    argv += ["--", "--config", cfg_path, "--device-time-ticks", "1",
+             "--device", device]
+    print(f"  {exp.name}, batch {exp.train.batch_size}, ticks of "
+          f"{SUPERVISE_TICK_ITERS} iterations ({plan['kimg_per_tick']} "
+          f"kimg) to {plan['total_kimg']} kimg, a checkpoint each tick, "
+          f"--device-time-ticks 1, faults {list(plan['faults'])}, "
+          f"{' '.join(SUPERVISE_ARGS)}; the sampled tick's step kinds "
+          f"{plan['sampled_kinds']}", flush=True)
+    log = open(os.path.join(root, "supervise.out"), "w+")
+    proc = subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    torch_seen, maps_read = [], 0
+    deadline = time.time() + SUPERVISE_TIMEOUT_S
+    try:
+        while proc.poll() is None:
+            if time.time() > deadline:
+                fail(f"the supervised run did not end in "
+                     f"{SUPERVISE_TIMEOUT_S} s")
+            try:
+                with open(f"/proc/{proc.pid}/maps") as f:
+                    maps = f.read()
+                maps_read += 1
+                torch_seen += [ln.split()[-1] for ln in maps.splitlines()
+                               if "libtorch" in ln][:1]
+            except OSError:
+                pass
+            time.sleep(1.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rc = proc.returncode
+    seconds = time.perf_counter() - t_phase
+    ledger = read_events(run)
+    sup = parse_prom_values(os.path.join(run, "supervisor.prom"))
+    tele = parse_prom_values(os.path.join(run, "telemetry.prom"))
+    last = ckpt.latest_step(os.path.join(run, "checkpoints"))
+    ticks = sampled_ticks(read_ticks(run))
+    samples = [rec["telemetry"]["gauges"] for rec, sampled in ticks
+               if sampled]
+    resumes = [r["step"] for r in read_resume_records(run)]
+    why = supervise_gate(plan, rc, ledger, sup, last, resumes, tele,
+                         samples, torch_seen, maps_read)
+    if why:
+        log.seek(0)
+        print(log.read()[-8000:])
+        fail(f"supervised run: {why}")
+    starts = [e for e in ledger if e.get("kind") == "start"]
+    exits = [e for e in ledger if e.get("kind") == "exit"]
+    for i, (s, e) in enumerate(zip(starts, exits)):
+        print(f"  child {i}: downtime before it {s['downtime_s']:.1f} s, "
+              f"{'resumed' if s['resume'] else 'fresh'}, uptime "
+              f"{e['uptime_s']:.1f} s, exit {e['exit_code']} -> "
+              f"{e['cause']} at step {e['step']}"
+              + (f" ({e['hang_reason']})" if e.get("hang_reason") else ""),
+              flush=True)
+    print(f"  supervisor.prom: restarts {sup['supervise_restarts_total']:g}"
+          f", crashes {sup['supervise_crashes_total']:g}, hangs "
+          f"{sup['supervise_hangs_total']:g}, clean "
+          f"{sup['supervise_clean_exits_total']:g}, availability "
+          f"{sup['supervise_availability_ratio']:.4f} (up "
+          f"{sup['supervise_uptime_s_total']:.1f} s, down "
+          f"{sup['supervise_downtime_s_total']:.1f} s); last checkpoint "
+          f"step {last}; the supervisor's maps read {maps_read} times, "
+          f"libtorch never among them", flush=True)
+    for rec, sampled in ticks:
+        g = rec["telemetry"]["gauges"]
+        dev = ("sampled: busy {:.1f} ms, wall_busy_ratio {:.4f}, phase_ms "
+               "{}".format(g["device/busy_ms"], g["device/wall_busy_ratio"],
+                           {k.split("/", 2)[2]: round(v, 3)
+                            for k, v in g.items()
+                            if k.startswith("device/phase_ms/")})
+               if sampled else "not sampled")
+        print(f"    tick {int(rec['Progress/tick'])} to kimg "
+              f"{rec['Progress/kimg']}: sec_per_tick "
+              f"{rec['timing/sec_per_tick']:.3f}, img_per_sec "
+              f"{rec['timing/img_per_sec']:.2f}; {dev}", flush=True)
+    text = open(os.path.join(run, "log.txt")).read()
+    lines = re.findall(r"^device sample: .*$", text, re.M)
+    if len(lines) != 1 or "device sample unavailable" in text:
+        fail(f"supervised run: device sample lines {lines}")
+    print(f"    {lines[0]}", flush=True)
+    phases = {k[len("device_phase_ms_"):]: round(v, 3)
+              for k, v in tele.items() if k.startswith("device_phase_ms_")}
+    print(f"  the final child's sample: busy {tele['device_busy_ms']:.1f} "
+          f"ms of wall {tele['device_wall_ms']:.1f} ms, wall_busy_ratio "
+          f"{tele['device_wall_busy_ratio']:.4f}, phase_ms {phases} "
+          f"({card})", flush=True)
+    code, out = telemetry_cli("doctor", run, "--json")
+    report = json.loads(out) if out.strip().startswith("{") else {}
+    levels = {c["name"]: c["level"] for c in report.get("checks", [])}
+    print(f"  telemetry doctor: exit {code}, levels {levels}", flush=True)
+    for c in report.get("checks", []):
+        if c["level"] != "PASS" or c["name"] in ("device_truth",
+                                                 "availability"):
+            print(f"    {c['level']} {c['name']}: {c['detail']}",
+                  flush=True)
+    if code != 0 or levels.get("device_truth") != "PASS" or \
+            "availability" not in levels:
+        fail(f"telemetry doctor on the supervised run: exit {code}, "
+             f"{levels}")
+    print(f"  the supervise phase took {seconds:.1f} s (the run), "
+          f"{time.perf_counter() - t_phase:.1f} s with its checks",
+          flush=True)
+    return run
+
+
+def fleet_tools(runs) -> None:
+    """``telemetry fleet`` over run dirs given as a list: its JSON on
+    stdout, exit 0, heartbeats and proms read."""
+    code, out = telemetry_cli("fleet", *runs)
+    fleet = json.loads(out) if code == 0 else {}
+    print(f"  telemetry fleet over {len(runs)} run dirs: exit {code}, "
+          f"reporting {fleet.get('reporting')}, proms "
+          f"{fleet.get('prom_reporting')}, partial {fleet.get('partial')} "
+          f"{fleet.get('partial_reasons')}, step skew "
+          f"{fleet.get('step_skew')}, restart events by dir "
+          f"{fleet.get('restarts')}, counters merged "
+          f"{len(fleet.get('counters', {}))}, gauges "
+          f"{len(fleet.get('gauges', {}))}", flush=True)
+    if code != 0 or not fleet.get("reporting") or \
+            not fleet.get("prom_reporting"):
+        fail(f"telemetry fleet: exit {code}, {out[-2000:]}")
 
 
 def main() -> int:
@@ -4950,6 +5451,14 @@ def main() -> int:
           f"{pl_peak / 2**30:.2f} GiB ({card})", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- the profiler's window: profparse against the launch counters -----
+    t0 = time.perf_counter()
+    print(f"the loop's trace path around one d_step + g_step and one "
+          f"d_step_r1 + g_step_pl of ffhq256-duplex, batch {TRAIN_BATCH}, "
+          f"bf16, parsed by utils/profparse.py:", flush=True)
+    profile_window_phase(card, cfg, tcfg)
+    print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- the other presets ------------------------------------------------
     if get_preset("bedroom256-duplex") != cfg:
         fail("bedroom256-duplex is no longer ffhq256-duplex's ModelConfig")
@@ -5002,8 +5511,17 @@ def main() -> int:
     print(f"metrics on the loop's run ({LOOP_PRESET}, bf16, "
           f"{LOOP_IMAGES} procedural reals):", flush=True)
     metrics_phase(card, run_b["run"])
-    print(f"the metrics phase took {time.perf_counter() - t0:.1f} s; the "
-          f"smoke {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"the metrics phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- supervision and telemetry tools ------------------------------------
+    t0 = time.perf_counter()
+    print(f"the supervised run of {LOOP_PRESET} (cli/supervise.py over the "
+          f"train CLI, the loop's TFRecords):", flush=True)
+    supervised = supervise_phase(card, run_b)
+    fleet_tools([run_b["run"], supervised])
+    print(f"the supervision phase took {time.perf_counter() - t0:.1f} s; "
+          f"the smoke {time.perf_counter() - t_start:.1f} s", flush=True)
 
     train_counts = {k: deltas["d_step"][k] + deltas["g_step"][k]
                     for k in TRAIN_KERNELS}

@@ -60,10 +60,17 @@ import numpy as np
 # The JAX package's serving health vocabulary and fleet readers
 # (``gansformer_tpu/analysis/telemetry_schema.py``), kept here so the
 # probe imports neither JAX, the JAX package nor torch (``serve.service``
-# holds the same names as ``HEALTH_NAMES``).
+# holds the same names as ``HEALTH_NAMES``).  The doctor of
+# ``cli/telemetry.py`` and the load driver read them from here.
 SERVE_HEALTH_NAMES = {0: "ready", 1: "degraded", 2: "unhealthy",
                       3: "closed"}
 _REPLICA_METRIC = re.compile(r"^serve_replica(\d+)_")
+
+
+def serve_dead_with_work(alive, queue_depth) -> bool:
+    """A dispatcher that is down while requests sit queued: those tickets
+    hang, the one liveness verdict that outranks a "degraded" state."""
+    return alive == 0.0 and (queue_depth or 0.0) > 0
 
 
 def serve_replica_ordinals(vals: dict) -> List[int]:
@@ -87,8 +94,8 @@ def serve_fleet_dead_with_work(vals: dict) -> bool:
     dead."""
     ords = serve_replica_ordinals(vals)
     if not ords:
-        return (vals.get("serve_dispatcher_alive", 0.0) == 0.0
-                and (vals.get("serve_queue_depth_now", 0.0) or 0.0) > 0)
+        return serve_dead_with_work(vals.get("serve_dispatcher_alive", 0.0),
+                                    vals.get("serve_queue_depth_now", 0.0))
     any_queued = any(
         vals.get(f"serve_replica{i}_queue_depth_now", 0.0) > 0
         for i in ords)

@@ -11,6 +11,9 @@ ticks of ``kimg_per_tick``, R1 every ``d_reg_interval`` iterations and
 path length every ``g_reg_interval``, image grids and checkpoints at their
 tick intervals, ``stats.jsonl``, ``log.txt``, TensorBoard events,
 ``events.jsonl``, ``telemetry.prom`` and the heartbeat.
+``--device-time-ticks N`` traces one whole tick in every N with
+``torch.profiler`` into the ``device/*`` gauges (0 turns it off);
+``--profile-dir D`` writes a Chrome trace of tick 1 under D.
 ``--fused-cycle`` and ``--device-prefetch`` are JAX's, taken and said in
 ``log.txt``: no iteration of the port makes a host round trip, so they
 select the same loop.  ``--resume`` continues the run's own
@@ -41,8 +44,6 @@ _DEVICE = "has no counterpart: the device picks the path"
 LATER_FLAGS = {
     "--attention-backend": _DEVICE, "--conv-backend": _DEVICE,
     "--selfcheck": "has no counterpart: graftlint reads jaxprs",
-    "--profile-dir": "comes with the device-time sampler (A.6)",
-    "--device-time-ticks": "comes with the device-time sampler (A.6)",
     **dict.fromkeys(("--mesh-data", "--mesh-model", "--sequence-parallel",
                      "--no-sequence-parallel", "--fsdp", "--no-fsdp",
                      "--coordinator", "--num-processes", "--process-id"),
@@ -116,6 +117,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="clear data.device_prefetch of a loaded config")
     p.add_argument("--debug-nans", action="store_true",
                    help="anomaly detection + per-tick finite checks")
+    p.add_argument("--profile-dir", default=None,
+                   help="torch.profiler trace of tick 1 -> this dir (a "
+                        "Chrome trace, *.pt.trace.json)")
+    p.add_argument("--device-time-ticks", type=int, default=None,
+                   help="device-time sampling cadence: every N ticks, "
+                        "trace one whole tick with torch.profiler and fold "
+                        "the device/* gauges (per-program device ms, the "
+                        "wall-vs-device ratio) into telemetry.prom; 0 = off "
+                        "(default: the config's, 8)")
     p.add_argument("--data-path", default=None)
     p.add_argument("--data-source",
                    choices=["synthetic", "npz", "tfrecord", "folder"])
@@ -166,7 +176,9 @@ def config_from_args(args) -> ExperimentConfig:
                      pl_batch_shrink=args.pl_batch_shrink,
                      r1_batch_shrink=args.r1_batch_shrink,
                      async_checkpoint=args.async_checkpoint,
-                     fused_cycle=args.fused_cycle)
+                     fused_cycle=args.fused_cycle,
+                     device_time_ticks=args.device_time_ticks,
+                     profile_dir=args.profile_dir)
     if args.debug_nans:
         train = dataclasses.replace(train, debug_nans=True)
     data = override(cfg.data, path=args.data_path, source=args.data_source,

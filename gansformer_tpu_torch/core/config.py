@@ -11,10 +11,8 @@ parts, ``get_experiment_preset`` the whole).  ``validate`` and
 ``ExperimentConfig.validate()`` that the port reaches.
 ``conv_backend`` and ``attention_backend`` are accepted and ignored: in
 the port the device of the tensor picks the path (kernel on the card,
-plain version on the CPU).  The keys of ``IGNORED_TRAIN_KEYS`` are
-carried (so a config round-trips) and not acted on yet (the device-time
-sampler and the profiler).  The attention-free configuration of a
-preset is ``dataclasses.replace(get_preset(name), attention="none")``.
+plain version on the CPU).  The attention-free configuration of a preset
+is ``dataclasses.replace(get_preset(name), attention="none")``.
 """
 
 from __future__ import annotations
@@ -190,14 +188,9 @@ class TrainConfig:
     metrics: str = ""
     seed: int = 0
     debug_nans: bool = False
-    profile_dir: Optional[str] = None  # ignored: device sampling is later
-    device_time_ticks: int = 8         # ignored
+    profile_dir: Optional[str] = None
+    device_time_ticks: int = 8
 
-
-# Keys of the JAX ``TrainConfig`` that the port carries and does not act on
-# yet: the device-time sampler and profiler.  The loop says so in log.txt
-# when one is set.
-IGNORED_TRAIN_KEYS = frozenset({"profile_dir", "device_time_ticks"})
 
 
 def _from_dict(cls, d: Dict[str, Any], what: str):
@@ -373,6 +366,9 @@ def validate(model: ModelConfig, train: TrainConfig) -> None:
     elif t.batch_size % t.pl_batch_shrink:
         errs.append(f"pl_batch_shrink ({t.pl_batch_shrink}) must divide "
                     f"batch_size ({t.batch_size})")
+    if t.device_time_ticks < 0:
+        errs.append(f"device_time_ticks must be ≥ 0 (0 = off), got "
+                    f"{t.device_time_ticks}")
     if t.r1_batch_shrink < 1:
         errs.append(f"r1_batch_shrink must be ≥ 1, got "
                     f"{t.r1_batch_shrink}")

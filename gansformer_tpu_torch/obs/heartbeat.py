@@ -3,9 +3,10 @@ copy of ``gansformer_tpu/obs/heartbeat.py``).
 
 Each process rewrites ``heartbeat-p<idx>.json`` atomically at every tick
 with its step, kimg, wall time and memory; ``read_heartbeats()`` reads
-them back, so a supervisor can restart a hung run.  Device memory comes from
-``torch.cuda.memory_stats`` of the visible cards; on the CPU there is
-none, and ``hbm/unavailable`` says so.
+them back, so a supervisor can restart a hung run, and
+``check_heartbeats()`` grades their staleness and step skew.  Device
+memory comes from ``torch.cuda.memory_stats`` of the visible cards; on
+the CPU there is none, and ``hbm/unavailable`` says so.
 """
 
 from __future__ import annotations
@@ -163,3 +164,34 @@ def read_heartbeats(run_dir: str) -> Dict[int, dict]:
         except (OSError, ValueError):
             continue  # mid-replace or torn file: next probe sees it
     return out
+
+
+def check_heartbeats(run_dir: str, max_age_s: float = 300.0,
+                     expected: Optional[List[int]] = None,
+                     now: Optional[float] = None,
+                     max_step_skew: Optional[int] = None) -> dict:
+    """Staleness and straggler probe over a run dir's heartbeat files.
+
+    Returns ``{"ok", "ages", "stale", "missing", "steps", "step_skew",
+    "skew_exceeded"}``: ``ages`` maps process index → seconds since its
+    last beat, ``stale`` lists processes older than ``max_age_s``,
+    ``missing`` the expected indices with no file at all, and
+    ``step_skew`` is ``max(step) - min(step)`` over the processes.
+    ``skew_exceeded`` is True when ``max_step_skew`` is given and the
+    spread is larger; ``ok`` is True iff nothing is stale, missing or
+    skew-exceeded.  ``expected=None`` checks only the processes that have
+    ever written."""
+    now = time.time() if now is None else now
+    beats = read_heartbeats(run_dir)
+    ages = {idx: now - rec.get("time", 0.0) for idx, rec in beats.items()}
+    stale = sorted(idx for idx, age in ages.items() if age > max_age_s)
+    missing = (sorted(set(expected) - set(beats))
+               if expected is not None else [])
+    steps = {idx: int(rec.get("step", 0)) for idx, rec in beats.items()}
+    step_skew = (max(steps.values()) - min(steps.values())) if steps else 0
+    skew_exceeded = (max_step_skew is not None
+                     and step_skew > max_step_skew)
+    return {"ok": not stale and not missing and not skew_exceeded,
+            "ages": ages, "stale": stale, "missing": missing,
+            "steps": steps, "step_skew": step_skew,
+            "skew_exceeded": skew_exceeded}

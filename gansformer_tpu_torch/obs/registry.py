@@ -6,7 +6,8 @@ Instruments are created or fetched by slash-path name
 each ``stats.jsonl`` tick record embeds as ``telemetry``;
 ``export_text()`` is the Prometheus text (``data/wait_ms`` ->
 ``data_wait_ms``) written atomically to ``telemetry.prom`` every tick,
-and ``parse_prom_values`` reads it back.  Histograms keep count, sum,
+and ``parse_prom_values`` (``parse_prom_exemplars``) reads its
+samples (exemplars) back.  Histograms keep count, sum,
 min and max.
 """
 
@@ -62,6 +63,21 @@ def parse_prom_values(path: str) -> Dict[str, float]:
                 out[parts[0]] = float(parts[1])
             except ValueError:
                 continue
+    return out
+
+
+def parse_prom_exemplars(path: str) -> Dict[str, str]:
+    """``# EXEMPLAR <sample_name> <label>`` comment lines → {sample name:
+    label}: the read half of the histogram exemplar channel (the
+    requests CLI resolves ``serve_e2e_ms_max`` here to the request whose
+    timeline explains the p99 outlier)."""
+    out: Dict[str, str] = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 4 and parts[0] == "#" and \
+                    parts[1] == "EXEMPLAR":
+                out[parts[2]] = parts[3]
     return out
 
 

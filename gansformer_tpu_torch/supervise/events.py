@@ -10,6 +10,8 @@ JAX package's, so one supervisor drives either package:
 ``EXIT_DATA_CORRUPT`` (65) once the corruption budget is spent,
 ``EXIT_DATA_STALLED`` (74) when the input pipeline stalls.
 ``PreemptionExit`` is what the loop raises to reach the first.
+``availability`` sums a ledger into uptime, downtime, restarts and exit
+causes for the supervisor's telemetry and the doctor.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import List
+from typing import Dict, List, Optional
 
 EVENTS_FILE = "supervisor_events.jsonl"
 SCHEMA_VERSION = 1
@@ -94,3 +96,50 @@ def read_events(run_dir: str) -> List[dict]:
             if isinstance(rec, dict):
                 out.append(rec)
     return out
+
+
+def availability(events: List[dict],
+                 now: Optional[float] = None) -> Dict[str, object]:
+    """Availability summary over a ledger, the one derivation the doctor's
+    availability check and the supervisor's own telemetry both use.
+
+    * ``uptime_s`` / ``downtime_s`` — summed from exit/start events.
+    * ``ratio`` — uptime / (uptime + downtime), or None before any
+      exit landed.
+    * ``restarts`` — supervisor re-arms (start events with
+      restart_index > 0) plus train-side ``resume`` events.
+    * ``restarts_last_hour`` — the restart-storm signal.
+    * ``causes`` — exit-cause counts; ``unclassified`` lists causes
+      outside the vocabulary.
+    * ``gave_up`` / ``completed`` — terminal verdicts, if any.
+    """
+    now = time.time() if now is None else now
+    uptime = sum(float(e.get("uptime_s", 0.0)) for e in events
+                 if e.get("kind") == "exit")
+    downtime = sum(float(e.get("downtime_s", 0.0)) for e in events
+                   if e.get("kind") in ("start", "resume"))
+    restart_events = [e for e in events
+                      if (e.get("kind") == "start"
+                          and e.get("restart_index", 0))
+                      or e.get("kind") == "resume"]
+    causes: Dict[str, int] = {}
+    for e in events:
+        if e.get("kind") == "exit":
+            c = str(e.get("cause", "?"))
+            causes[c] = causes.get(c, 0) + 1
+    total = uptime + downtime
+    return {
+        "uptime_s": uptime,
+        "downtime_s": downtime,
+        "ratio": (uptime / total) if total > 0 else None,
+        "restarts": len(restart_events),
+        "restarts_last_hour": sum(
+            1 for e in restart_events
+            if float(e.get("time", 0.0)) >= now - 3600.0),
+        "causes": causes,
+        "unclassified": sorted(c for c in causes if c not in CAUSES),
+        "gave_up": any(e.get("kind") == "give_up" for e in events),
+        "completed": any(e.get("kind") == "complete" for e in events),
+        "last_step": max((int(e.get("step", 0)) for e in events
+                          if "step" in e), default=0),
+    }

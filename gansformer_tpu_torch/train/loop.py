@@ -35,12 +35,21 @@ the EMA generator inside the ``metric`` span: the results go to
 ``flag-calibrated.txt``, and a ``metrics @ … kimg`` line to ``log.txt``.
 The samplers' seed is ``seed + 5``, as in JAX.
 
-Not in the port, and said so in ``log.txt`` where a config asks: the
-mesh, FSDP and multi-host branches (a mesh of more than one device fails
-``ExperimentConfig.validate``), the device-time sampler and
-``profile_dir``.  The compile listener, the
-retrace watch and the TPU-only MFU bookkeeping count XLA compiles and
-TPU FLOPs and have no counterpart.  The ``--steps`` cap of the CLI
+Device time: every ``device_time_ticks`` ticks (``tick % N == 1 % N``)
+the ``DeviceTimeSampler`` traces one whole tick with ``torch.profiler``
+and folds the ``device/*`` gauges before the tick's registry snapshot;
+the profiler's stop and the fold of its events come after
+``sec_per_tick`` is taken and before the next tick's clock starts, so
+they fall in neither tick.
+``profile_dir`` instead traces tick 1 into that directory (a Chrome
+trace) and turns the sampler off.  Both release the process-global
+profiler on every exit path.  The sampler has no FLOP count
+(``device/mfu`` stays unset).
+
+Not in the port: the mesh, FSDP and multi-host branches (a mesh of more
+than one device fails ``ExperimentConfig.validate``).  The compile
+listener, the retrace watch and the TPU-only MFU bookkeeping count XLA
+compiles and TPU FLOPs and have no counterpart.  The ``--steps`` cap of the CLI
 (``steps``) ends the run after that many iterations, with its final tick
 and checkpoint.
 """
@@ -59,11 +68,12 @@ import numpy as np
 import torch
 
 from gansformer_tpu_torch import obs
-from gansformer_tpu_torch.core.config import (IGNORED_TRAIN_KEYS,
-                                              ExperimentConfig)
+from gansformer_tpu_torch.core.config import ExperimentConfig
 from gansformer_tpu_torch.core.device import resolve_device, to_device
 from gansformer_tpu_torch.core.precision import input_dtype
 from gansformer_tpu_torch.data.dataset import PrefetchIterator, make_dataset
+from gansformer_tpu_torch.obs.device_time import (export_trace,
+                                                  start_profiler)
 from gansformer_tpu_torch.obs.spans import span
 from gansformer_tpu_torch.serve.programs import noise_generators
 from gansformer_tpu_torch.supervise import faults
@@ -102,18 +112,6 @@ def resolve_conditional(cfg: ExperimentConfig, dataset) -> ExperimentConfig:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, label_dim=dataset.label_dim))
     return cfg
-
-
-def ignored_notes(cfg: ExperimentConfig) -> list:
-    """One line for each key the config turns on that the port does not
-    act on yet (JAX's defaults turn one on: the device-time sampler)."""
-    out = []
-    for k in sorted(IGNORED_TRAIN_KEYS):
-        v = getattr(cfg.train, k)
-        if v:
-            out.append(f"train.{k}={v!r} is not in the port yet: it runs "
-                       f"the plain loop without it")
-    return out
 
 
 class _PreemptNotice:
@@ -232,8 +230,6 @@ def _train(cfg: ExperimentConfig, run_dir: str, dev: torch.device,
               f"attention {cfg.model.attention}  k={cfg.model.components}"
               + (f"  label_dim={cfg.model.label_dim}"
                  if cfg.model.label_dim else ""))
-    for note in ignored_notes(cfg):
-        log.write(note)
 
     # --- state ---------------------------------------------------------------
     state = create_train_state(cfg.model, t, t.seed, dev)
@@ -336,6 +332,12 @@ def _train(cfg: ExperimentConfig, run_dir: str, dev: torch.device,
         sample_fn, pair_fn = make_metric_samplers(
             st, cfg, dataset, truncation_psi=1.0, seed=t.seed + 5)
         return metric_group.run(sample_fn, dataset, pair_fn=pair_fn)
+
+    # --- device time: a traced tick every device_time_ticks ------------------
+    # (the one-shot profile_dir trace owns the profiler when set)
+    sampler = obs.DeviceTimeSampler(every_ticks=t.device_time_ticks,
+                                    enabled=not t.profile_dir, device=dev)
+    profiler = None
 
     # --- loop ----------------------------------------------------------------
     cur_nimg = start_step
@@ -452,6 +454,23 @@ def _train(cfg: ExperimentConfig, run_dir: str, dev: torch.device,
                     **(gate_stats or {}),
                     **fetched,
                 }
+                if sampler.sampling:
+                    # the sampled window ends here; its gauges land in the
+                    # snapshot below
+                    sample = sampler.stop_and_fold(
+                        wall_s=sec_per_tick, iters=imgs_done / t.batch_size)
+                    if sample is not None and sample["status"] == "ok":
+                        log.write(
+                            "device sample: busy {:.0f} ms / wall {:.0f} ms "
+                            "(ratio {:.2f}, {}, {} events; stop {:.2f} s, "
+                            "fold {:.2f} s)".format(
+                                sample["busy_s"] * 1e3, sec_per_tick * 1e3,
+                                sample["busy_s"] / max(sec_per_tick, 1e-9),
+                                sample["source"], sample["events"],
+                                sample["stop_s"], sample["fold_s"]))
+                    elif sample is not None:
+                        log.write("device sample unavailable: "
+                                  f"{sample.get('reason', '?')[:200]}")
                 log.log_tick(stats, telemetry=reg.snapshot())
                 heartbeat.beat(step=cur_nimg, kimg=cur_nimg / 1000)
                 reg.write_prom(prom_path)
@@ -461,6 +480,17 @@ def _train(cfg: ExperimentConfig, run_dir: str, dev: torch.device,
                 faults.fire("tick", tick=tick, step=cur_nimg)
                 tick += 1
                 tick_start_nimg = cur_nimg
+                if t.profile_dir and tick == 1 and profiler is None:
+                    profiler = start_profiler(dev)
+                    log.write(f"profiler: tracing the window logged as "
+                              f"Progress/tick=1 -> {t.profile_dir}")
+                elif profiler is not None:
+                    profiler.stop()
+                    path = export_trace(profiler, t.profile_dir)
+                    profiler = None
+                    log.write(f"profiler: trace complete -> {path}")
+                elif not done_iterating():
+                    sampler.maybe_start(tick)
                 tick_start_time = time.time()
 
                 if t.image_snapshot_ticks and \
@@ -491,6 +521,15 @@ def _train(cfg: ExperimentConfig, run_dir: str, dev: torch.device,
                         "".join(f"  [{k}={int(v)}]"
                                 for k, v in flags.items())))
     finally:
+        # the process-global profiler is released on every exit path: an
+        # open sample is discarded, the one-shot trace keeps its window
+        sampler.close()
+        if profiler is not None:
+            try:
+                profiler.stop()
+                export_trace(profiler, t.profile_dir)
+            except Exception as e:
+                log.write(f"profiler: trace lost ({type(e).__name__}: {e})")
         batches.close()
         dataset.close()
         if snap_writer is not None:

@@ -25,6 +25,11 @@ The metric samplers (``sample_images``, ``ppl_pairs`` and
 ``make_metric_samplers``) drive the EMA generator without a graph for
 the metric sweeps.
 
+Each step runs inside a ``torch.profiler.record_function`` named
+``program:<step>`` (``d_step``, ``d_step_r1``, ``g_step``, ``g_step_pl``),
+so a profiler trace attributes the step's kernels to it
+(``utils/profparse.py``; the ``device/phase_ms/*`` gauges).
+
 Randomness is the port's own (``jax.random`` streams cannot be
 reproduced): every draw of iteration ``it`` comes from generators seeded
 by ``derive_seed(state.seed, it, phase, ...)``.  z, the mixing draws and
@@ -63,6 +68,7 @@ from gansformer_tpu_torch.losses.gan import (d_logistic_loss,
                                              r1_penalty, r1_slice)
 from gansformer_tpu_torch.models.generator import apply_truncation
 from gansformer_tpu_torch.train.state import TrainState, derive_seed
+from gansformer_tpu_torch.utils.profparse import program_range
 
 W_AVG_BETA = 0.995
 
@@ -148,6 +154,14 @@ def d_step(state: TrainState, images: torch.Tensor, it: int, *,
     penalty when ``do_r1``.  Leaves D's gradients in ``.grad``; returns
     the loss and mean scores (and ``Loss/D/r1``) as device scalars, no
     host sync."""
+    with torch.profiler.record_function(
+            program_range("d_step_r1" if do_r1 else "d_step")):
+        return _d_step(state, images, it, z, noise_mode, mirror_augment,
+                       label, do_r1)
+
+
+def _d_step(state, images, it, z, noise_mode, mirror_augment, label,
+            do_r1):
     reals = normalize_images(to_device(images, state.device)).to(
         input_dtype(state.model.dtype))
     draws = draw_step(state, it, "d", reals.shape[0], z, noise_mode)
@@ -235,6 +249,13 @@ def g_step(state: TrainState, it: int, batch: int, *,
     penalty when ``do_pl`` (then ``pl_mean`` takes its new EMA too).
     Leaves G's gradients in ``.grad``; D's parameters take no
     gradient."""
+    with torch.profiler.record_function(
+            program_range("g_step_pl" if do_pl else "g_step")):
+        return _g_step(state, it, batch, z, noise_mode, label, do_pl, z_pl,
+                       pl_noise)
+
+
+def _g_step(state, it, batch, z, noise_mode, label, do_pl, z_pl, pl_noise):
     draws = draw_step(state, it, "g", batch, z, noise_mode)
     d = state.discriminator
     d.requires_grad_(False)

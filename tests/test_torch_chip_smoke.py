@@ -1117,3 +1117,179 @@ def test_metrics_phase_plan_and_low_rank_fid(rng):
     fake = rng.randn(32, 96) * 1.3 + 0.2
     assert chip_smoke.frechet_low_rank(real, fake) == pytest.approx(
         fid_from_features(real, fake), rel=1e-6)
+
+
+# -- the supervision and telemetry phases ------------------------------------
+
+def test_supervise_plan_faults_each_child_after_a_checkpoint():
+    """Child 1 is killed as the first checkpoint's write ends (before any
+    later tick boundary) and child 2 hangs at its first boundary, both
+    after that checkpoint; child 3 resumes from it and runs two ticks to
+    the plan's last step, the second sampled with an R1 iteration in it;
+    the fault specs parse as the train CLI's."""
+    from gansformer_tpu_torch.supervise import faults
+
+    train = port_config.get_train_preset("ffhq256-duplex")
+    plan = chip_smoke.supervise_plan(train)
+    per_tick = train.batch_size * chip_smoke.SUPERVISE_TICK_ITERS
+    assert plan["kimg_per_tick"] * 1000 == per_tick
+    kill, hang = faults.parse_specs(",".join(plan["faults"]))
+    assert (kill.action, kill.point, kill.cond) == (
+        "sigkill", "ckpt_after_write", (("step", float(per_tick)),))
+    assert (hang.action, hang.point, hang.cond) == (
+        "hang", "tick", (("step", 2.0 * per_tick),))
+    # the hang is past child 1's first boundary, the kill at its first
+    # checkpoint; child 2's first boundary is the hang's
+    assert hang.matches({"tick": 0, "step": 2 * per_tick})
+    assert not hang.matches({"tick": 0, "step": per_tick})
+    assert plan["resumed_at"] == [0, per_tick, per_tick]
+    assert plan["final_step"] == 3 * per_tick == \
+        round(plan["total_kimg"] * 1000)
+    kinds = plan["sampled_kinds"]
+    assert sum(kinds[k] for k in ("d_step", "d_step_r1")) == \
+        chip_smoke.SUPERVISE_TICK_ITERS
+    assert kinds["d_step_r1"] == 1 and kinds["g_step_pl"] == 2
+
+
+def _good_supervised_run(plan):
+    ledger = [{"kind": "supervisor_start"},
+              {"kind": "start", "restart_index": 0, "resume": False},
+              {"kind": "exit", "cause": "crash"},
+              {"kind": "start", "restart_index": 1, "resume": True},
+              {"kind": "exit", "cause": "hang"},
+              {"kind": "start", "restart_index": 2, "resume": True},
+              {"kind": "exit", "cause": "clean"}, {"kind": "complete"}]
+    sup = {"supervise_restarts_total": 2.0, "supervise_crashes_total": 1.0,
+           "supervise_hangs_total": 1.0, "supervise_clean_exits_total": 1.0,
+           "supervise_availability_ratio": 0.8}
+    tele = {"device_samples_total": 1.0, "device_unavailable": 0.0,
+            "device_wall_busy_ratio": 0.4, "device_busy_ms": 900.0}
+    sample = dict({f"device/phase_ms/{k}": 100.0
+                   for k, n in plan["sampled_kinds"].items() if n},
+                  **{"device/busy_ms": 900.0})
+    return dict(plan=plan, result_rc=0, ledger=ledger, sup=sup,
+                last_step=plan["final_step"],
+                resumes=plan["resumed_at"][1:], tele=tele,
+                samples=[sample], torch_seen=[], maps_read=12)
+
+
+def _break(run, fault):
+    if fault == "rc":
+        run["result_rc"] = 1
+    elif fault == "causes":
+        run["ledger"][4]["cause"] = "crash"
+    elif fault == "no_complete":
+        run["ledger"].pop()
+    elif fault == "prom":
+        run["sup"]["supervise_hangs_total"] = 0.0
+    elif fault == "availability":
+        run["sup"]["supervise_availability_ratio"] = 0.0
+    elif fault == "checkpoint":
+        run["last_step"] -= 256
+    elif fault == "resumes":
+        run["resumes"] = [0, 256]
+    elif fault == "no_sample":
+        run["tele"]["device_samples_total"] = 0.0
+    elif fault == "failed_sample":
+        run["tele"]["device_sample_failed_total"] = 1.0
+    elif fault == "ratio":
+        run["tele"]["device_wall_busy_ratio"] = 1.5
+    elif fault == "sample_count":
+        run["samples"].append(dict(run["samples"][0]))
+    elif fault == "phases":
+        run["samples"][0].pop("device/phase_ms/d_step_r1")
+    elif fault == "phase_sum":
+        run["samples"][0]["device/busy_ms"] = 10.0
+    elif fault == "torch":
+        run["torch_seen"] = ["/x/libtorch_cpu.so"]
+    elif fault == "maps":
+        run["maps_read"] = 0
+    return run
+
+
+@pytest.mark.parametrize("fault", [
+    None, "rc", "causes", "no_complete", "prom", "availability",
+    "checkpoint", "resumes", "no_sample", "failed_sample", "ratio",
+    "sample_count", "phases", "phase_sum", "torch", "maps"])
+def test_supervise_gate_rejects_what_it_names(fault):
+    plan = chip_smoke.supervise_plan(
+        port_config.get_train_preset("ffhq256-duplex"))
+    run = _break(_good_supervised_run(plan), fault)
+    why = chip_smoke.supervise_gate(**run)
+    assert (why is None) == (fault is None), why
+
+
+def test_sampled_ticks_start_again_in_each_process():
+    recs = [{"Progress/tick": t, "telemetry": {"counters": {
+        "device/samples_total": n}}}
+        for t, n in ((0, 0.0), (1, 1.0), (0, 0.0), (1, 1.0), (2, 1.0),
+                     (0, 0.0), (1, 0.0))]
+    assert [s for _, s in chip_smoke.sampled_ticks(recs)] == [
+        False, True, False, True, False, False, False]
+
+
+def test_trace_kernel_counts_map_each_launch_to_its_counter():
+    names = ["void fwd_wgmma_kernel<128>(CUtensorMap_st, float const*)",
+             "void fwd_reduce_kernel(float const*, float*, int)",
+             "void (anonymous namespace)::ds_reduce_kernel(float const*)",
+             "void dx_prescale_kernel(float const*)",
+             "void dw_fma_kernel<__nv_bfloat16>(x)",
+             "void ufd_tile_kernel<__nv_bfloat16, 2, 1>(x)",
+             "void upfirdn_kernel<float, 1, 1>(x)",
+             "void g2l_mma_kernel<32>(x)", "void l2g_partial_kernel<float, 16>(x)",
+             "void l2g_combine_kernel<float>(x)",
+             "void g2l_bwd_kernel<float, 16>(x)",
+             "void l2g_bwd_mma_kernel<16>(x)",
+             "void at::native::vectorized_elementwise_kernel<4>(int)",
+             "Memcpy HtoD (Pinned -> Device)"]
+    counts = chip_smoke.trace_kernel_counts(names)
+    assert counts == {"modconv": 1, "modconv_dx": 1, "modconv_dw": 1,
+                      "upfirdn+upfirdn_adjoint": 2, "grid_to_latent": 1,
+                      "latent_to_grid": 1, "grid_to_latent_bwd": 1,
+                      "latent_to_grid_bwd": 1}
+    launches = {"modconv": 1, "upfirdn": 1, "grid_to_latent": 1,
+                "latent_to_grid": 1, "modconv_dx": 1, "modconv_dw": 1,
+                "upfirdn_adjoint": 1, "grid_to_latent_bwd": 1,
+                "latent_to_grid_bwd": 1}
+    assert chip_smoke.counter_totals(launches) == counts
+    # every kernel function of the sources is one the table counts or one
+    # that runs beside a counted one in the same launch (a dx launch ends
+    # with the ds_reduce the table counts)
+    helpers = {"fwd_reduce_kernel", "dx_prescale_kernel", "dx_wgmma_kernel",
+               "dx_smallk_kernel", "dx_fma_kernel", "dw_reduce_kernel",
+               "l2g_combine_kernel", "l2g_bwd_reduce_kernel",
+               "g2l_bwd_reduce_kernel"}
+    import re
+
+    known = {f for fns in chip_smoke.PROFILE_KERNELS.values() for f in fns}
+    csrc = os.path.join(ROOT, "gansformer_tpu_torch", "csrc")
+    defined = set()
+    for name in os.listdir(csrc):
+        if name.endswith(".cu"):
+            text = open(os.path.join(csrc, name)).read()
+            defined |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?"
+                r"(\w+)", text))
+    assert defined == known | helpers
+
+
+@pytest.mark.parametrize("fault", [None, "count", "missing", "busy",
+                                   "programs", "unattributed"])
+def test_profile_window_gate_rejects_what_it_names(fault):
+    counted = dict.fromkeys(chip_smoke.PROFILE_KERNELS, 3)
+    parsed = dict(counted)
+    busy, window = 50.0, 300.0
+    progs, unattributed = {"d_step": 0.02, "g_step": 0.03}, 0
+    if fault == "count":
+        parsed["modconv_dw"] += 1
+    elif fault == "missing":
+        counted["latent_to_grid_bwd"] = parsed["latent_to_grid_bwd"] = 0
+    elif fault == "busy":
+        busy = 301.0
+    elif fault == "programs":
+        progs.pop("g_step")
+    elif fault == "unattributed":
+        unattributed = 2
+    why = chip_smoke.profile_window_gate(parsed, counted, busy, window, progs,
+                                         ("d_step", "g_step"), unattributed)
+    assert (why is None) == (fault is None), why

@@ -462,7 +462,6 @@ def test_pl_config_keys_are_read_and_validated_as_in_jax():
     for name in ("pl_weight", "pl_decay", "pl_batch_shrink"):
         assert getattr(port_config.TrainConfig(), name) == getattr(
             jax_config.TrainConfig(), name)
-        assert name not in port_config.IGNORED_TRAIN_KEYS
     cfg = _jax_cfg()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, pl_weight=3.0, pl_decay=0.02, pl_batch_shrink=4))

@@ -101,6 +101,12 @@ def test_cpu_tensors_never_launch_a_kernel(progs):
                                        "latent_to_grid": 0}
 
 
+# the supervision and telemetry tools, each among the modules walked
+TOOL_MODULES = tuple(f"gansformer_tpu_torch.{m}" for m in (
+    "utils.profparse", "obs.device_time", "obs.aggregate",
+    "supervise.supervisor", "cli.supervise", "cli.telemetry"))
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke, imported in a fresh
     interpreter, leave jax, flax and the JAX package out of sys.modules."""
@@ -114,6 +120,8 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'gansformer_tpu')]\n"
         "print('LOADED', len([m for m in sys.modules "
         "if m.startswith('gansformer_tpu_torch')]))\n"
+        f"missing = [m for m in {TOOL_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

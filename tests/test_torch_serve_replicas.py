@@ -366,6 +366,12 @@ def test_fleet_liveness_helpers_are_value_level(case):
             getattr(jax_schema, name)(vals), (case, name)
     assert port_cli.serve_fleet_dead_with_work(vals) == (
         case in ("all_dead_with_work", "solo_dead_with_work"))
+    # the one-dispatcher verdict the doctor grades, on this case's solo
+    # gauges
+    alive = vals.get("serve_dispatcher_alive", 0.0)
+    depth = vals.get("serve_queue_depth_now")
+    assert port_cli.serve_dead_with_work(alive, depth) == \
+        jax_schema.serve_dead_with_work(alive, depth)
 
 
 # -- the port's own: copies of the bundle, placement defaults ----------------
